@@ -7,11 +7,12 @@ Drives ``fastecc_tpu_torch`` (never JAX or ``fastecc_tpu``) through its
 main path on the card and fails loudly on any fault. Phases:
 
   1. build   — compile the Hopper kernels from ``fastecc_tpu_torch/csrc``;
-  2. kernels — each of K1-K4 against its plain PyTorch version on the
-               card, at the shapes phases 4-6 give it (on a 16-lane slice)
-               and at small orders with a ragged lane count, both fields;
-               bit-exact (``torch.equal``, tolerance 0: exact integer
-               arithmetic);
+  2. kernels — each of K1-K7 (K7 in both its forms) against its plain
+               PyTorch version on the card, at the shapes phases 4-8 give
+               it (on a 16-lane slice) and at small orders with a ragged
+               lane count, both fields, with random prepared tables (GF16
+               ones holding 0x10000) and masks about half set; bit-exact
+               (``torch.equal``, tolerance 0: exact integer arithmetic);
   3. golden  — the JAX package's pinned SHA-256 digests (codewords of
                tests/test_rs.py, GF32 wire blob of tests/test_wire_golden.py)
                reproduced through the kernels;
@@ -26,9 +27,22 @@ main path on the card and fails loudly on any fault. Phases:
   6. wire    — GF32 encode_blocks on 2^14 random 4 KB blocks, checked
                against encode_parity of the packed data, and its first
                and last 8 lanes (the ragged edge at 1088) against the
-               plain staged transforms.
+               plain staged transforms;
+  7. decode  — the reference bench's decode (bench.py:184): GF32,
+               n = 2^20, k = 2^19, 512 lanes, the codeword from rs.encode
+               on the card with e = 2^19 random erasures overwritten with
+               garbage; tables from prepare_decode_tables (the device
+               locator, timed), then decode_prepared (K5 -> K6 -> K7-sel)
+               checked against the codeword on all 512 lanes, and the
+               merge=False form (K7) at the erased rows; median of 5
+               timed calls;
+  8. decode_small — BASELINE.json:10 as users meet it: the all-device
+               decode at n = 2^13, e = 2^12, 1024 lanes; decode_blocks
+               over exactly k of 2^13 4 KB blocks (data and parity mixed,
+               one all-0xFF block); decode_wire_parts (GF32, n = 2^18,
+               4 KB blocks) against the raw blocks' u32 image.
 
-Launch counts are reset to 0 before each main-path run (phases 4-6) and
+Launch counts are reset to 0 before each main-path run (phases 4-8) and
 read right after it; each run must launch every kernel of its path. The
 second-to-last line is a JSON object with, per kernel, its launches,
 its time at the main-path shape, the plain version's time, and the bound
@@ -69,6 +83,10 @@ REPLACES = {
     "K2_seam": "fastecc_tpu/kernels/ntt_mfa.py:549",
     "K3_row": "fastecc_tpu/kernels/ntt_mfa.py:302",
     "K4_col_pre": "fastecc_tpu/kernels/ntt_mfa.py:262",
+    "K5_col_vec": "fastecc_tpu/kernels/ntt_mfa.py:274",
+    "K6_seam_vec": "fastecc_tpu/kernels/ntt_mfa.py:563",
+    "K7_row_post": "fastecc_tpu/kernels/ntt_mfa.py:308",
+    "K7_row_post_sel": "fastecc_tpu/kernels/ntt_mfa.py:320",
 }
 SOURCE = "fastecc_tpu_torch/csrc/ntt_mfa.cu"
 
@@ -109,16 +127,17 @@ def event_ms(fn, reps: int = 5) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def chunked_ms(fn, x: torch.Tensor, chunk: int) -> float:
+def chunked_ms(fn, x: torch.Tensor, chunk: int, *more) -> float:
     """Device time in ms of ``fn`` applied to every ``chunk``-lane slice
-    of ``x`` (lanes are the last axis and independent): the plain
-    versions at full width need more memory than the card has."""
+    of ``x`` (and of each tensor in ``more``, sliced alike; lanes are the
+    last axis and independent): the plain versions at full width need
+    more memory than the card has."""
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
     for l0 in range(0, x.shape[-1], chunk):
-        fn(x[..., l0:l0 + chunk].contiguous())
+        fn(*(t[..., l0:l0 + chunk].contiguous() for t in (x,) + more))
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1)
@@ -135,24 +154,36 @@ def stage_mulmods(a: int) -> int:
     return (a // 2 if t % 2 else 0) + a * (t // 2)
 
 
-def pass_mulmods(kind: str, a: int) -> int:
-    """Per lane-column multiplies of a pass with transform length a."""
+def pass_mulmods(kind: str, a: int, sel_frac: float = 1.0) -> float:
+    """Per lane-column multiplies of a pass with transform length a
+    (``sel_frac``: the share of rows K7-sel multiplies, e/n)."""
     if kind == "K3_row":
         return stage_mulmods(a)
-    if kind == "K1_col":
-        return stage_mulmods(a) + a                   # + four-step twiddle
-    if kind == "K4_col_pre":
-        return stage_mulmods(a) + 2 * a               # + coset, twiddle
-    return 2 * stage_mulmods(a) + 2 * a               # seam
+    if kind in ("K1_col", "K7_row_post"):
+        return stage_mulmods(a) + a                   # + twiddle or table
+    if kind == "K7_row_post_sel":
+        return stage_mulmods(a) + a * sel_frac        # table at erased rows
+    if kind in ("K4_col_pre", "K5_col_vec"):
+        return stage_mulmods(a) + 2 * a               # + pre multiply, twiddle
+    return 2 * stage_mulmods(a) + 2 * a               # seams K2, K6
 
 
-def bound(kind: str, field, shape) -> tuple[float, str]:
+def bound(kind: str, field, shape, sel_frac: float = 1.0
+          ) -> tuple[float, str]:
+    """(least time in ms, what bounds it) for a pass over ``shape``. Bytes:
+    the input read and the output written once, the [N] tables read once,
+    and for K7-sel the original read at surviving rows only."""
     a, b, lanes = shape
-    nbytes = 2 * 4 * a * b * lanes                    # read once, write once
+    words = a * b * lanes
+    nbytes = 2 * 4 * words                            # read once, write once
+    if kind in ("K5_col_vec", "K6_seam_vec", "K7_row_post"):
+        nbytes += 4 * a * b                           # the [N] table
+    if kind == "K7_row_post_sel":
+        nbytes += 4 * words * (1 - sel_frac) + 8 * a * b   # orig; table, mask
     # GF32: the two words of a*b; for p = 0xFFF00001 the REDC's m and
     # (m*p) >> 32 are shift/add chains (fastecc_tpu_torch/gf.py mont_mul)
     muls_per_mod = 2 if field.use_mont else 1
-    muls = pass_mulmods(kind, a) * b * lanes * muls_per_mod
+    muls = pass_mulmods(kind, a, sel_frac) * b * lanes * muls_per_mod
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = muls / INT_MULS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -217,8 +248,60 @@ def phase_kernels(gen) -> dict:
         cmp("K3_row", m.row_pass(y, field), m.row_pass_plain(y, field),
             (field.name, n, "single"))
 
+    def tables(field, n):
+        """A random prepared [n] table (GF16: with 0x10000 at every 7th
+        row) and a mask with about half its rows set."""
+        v = rand_field(field.p, (n,), gen)
+        if not field.use_mont:
+            v.view(torch.int32)[::7] = 0x10000
+        mask = torch.randint(0, 2, (n,), dtype=torch.int32, device="cuda",
+                             generator=gen).view(torch.uint32)
+        return v, mask
+
+    def decode_pair(field, n, lanes):
+        """The decode pair's passes at n: K5 (inverse), K6, K7, K7-sel."""
+        c1 = m._pair_split(n)
+        r1 = n // c1
+        v, mask = tables(field, n)
+        x = rand_field(field.p, (c1, r1, lanes), gen)
+        cmp("K5_col_vec", m.col_pass_vec(x, field, v, inverse=True),
+            m.col_pass_plain(x, field, inverse=True, pre_vec=v),
+            (field.name, n, "pair"))
+        y1 = rand_field(field.p, (r1, c1, lanes), gen)
+        cmp("K6_seam_vec", m.seam_pass_vec(y1, field, v),
+            m.seam_pass_plain(y1, field, pre_vec2=v), (field.name, n))
+        y2 = rand_field(field.p, (c1, r1, lanes), gen)
+        orig = rand_field(field.p, (c1, r1, lanes), gen)
+        cmp("K7_row_post", m.row_pass_post(y2, field, v),
+            m.row_pass_plain(y2, field, post_vec=v), (field.name, n, "pair"))
+        cmp("K7_row_post_sel", m.row_pass_post(y2, field, v, mask, orig),
+            m.row_pass_plain(y2, field, post_vec=v, sel_mask=mask,
+                             sel_orig=orig), (field.name, n, "pair"))
+
+    def decode_single(field, n, lanes):
+        """The all-device decode's single transforms at n: K5 forward and
+        inverse, K7-sel."""
+        c = m._split(n)
+        v, mask = tables(field, n)
+        x = rand_field(field.p, (c, n // c, lanes), gen)
+        for inv in (False, True):
+            cmp("K5_col_vec", m.col_pass_vec(x, field, v, inverse=inv),
+                m.col_pass_plain(x, field, inverse=inv, pre_vec=v),
+                (field.name, n, inv))
+        y = rand_field(field.p, (n // c, c, lanes), gen)
+        cmp("K7_row_post_sel", m.row_pass_post(y, field, v, mask, y),
+            m.row_pass_plain(y, field, post_vec=v, sel_mask=mask, sel_orig=y),
+            (field.name, n, "single"))
+
     # main-path shapes: encode_r2 (k = 2^19), encode_r4 (k = 2^18, the
-    # coset NTTs' K4), ntt (2^20), wire (k = 2^14); GF16 at its largest
+    # coset NTTs' K4), ntt (2^20), wire (k = 2^14); the decode pair at
+    # 2^20 (decode) and 2^13 (decode_blocks), the single-transform decode
+    # at 2^13 (decode_small); GF16 at its largest
+    decode_pair(GF32, 1 << 20, 16)
+    decode_pair(GF32, 1 << 13, 16)
+    decode_single(GF32, 1 << 13, 16)
+    decode_pair(GF16, 1 << 16, 16)
+    say("[kernels] decode shapes, 16 lanes, GF32 and GF16: K5-K7 == plain")
     pair(GF32, 1 << 19, 16)
     single(GF32, 1 << 18, 16, GF32.root_of_order(1 << 20))
     single(GF32, 1 << 20, 16)
@@ -231,8 +314,10 @@ def phase_kernels(gen) -> dict:
         for k in (4, 8, 1 << 7):
             pair(field, k, 13)
             single(field, k, 13, field.root_of_order(4 * k))
+            decode_pair(field, k, 13)
+            decode_single(field, k, 13)
     say("[kernels] orders 4, 8, 128, 13 lanes, GF32 and GF16: "
-        "K1-K4 == plain")
+        "K1-K7 == plain")
     return worst
 
 
@@ -295,6 +380,10 @@ def profile_once(fn, name: str) -> None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # the tracer can miss the window's first kernel: let a tiny fill
+        # take that place, outside the timed call
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -352,6 +441,11 @@ def check_edge_lanes(name: str, got: torch.Tensor, ref_fn,
               f"{name} lanes {l0}-{l0 + 7} != plain staged")
     say(f"[{name}] lanes 0-7 and {lanes - 8}-{lanes - 1} == plain staged "
         f"transforms")
+
+
+def gf_sum(t: torch.Tensor) -> int:
+    from fastecc_tpu_torch import gf
+    return int(gf.widen(t).sum().item())
 
 
 def all_below_p(t: torch.Tensor, p: int) -> bool:
@@ -484,6 +578,164 @@ def phase_wire(gen, launches, times):
     profile_once(lambda: rs.encode_blocks(raw, GF32), "wire")
 
 
+def garbage_rows(cw: torch.Tensor, erased: np.ndarray, p: int, gen):
+    """A copy of ``cw`` with the rows in ``erased`` overwritten by random
+    field values (the decoder must not read them)."""
+    bad = cw.clone()
+    rows = torch.from_numpy(erased).cuda()
+    bad.view(torch.int32)[rows] = rand_field(
+        p, (len(erased), cw.shape[1]), gen).view(torch.int32)
+    return bad
+
+
+def phase_decode(gen, launches, times, shapes):
+    from fastecc_tpu_torch import decode, rs, testing
+    from fastecc_tpu_torch.fields import GF32
+    from fastecc_tpu_torch.kernels import ntt_mfa as m
+    from fastecc_tpu_torch.utils.timer import median, time_samples
+
+    k, lanes = 1 << 19, 512
+    n = 2 * k
+    cw = rs.encode(rand_field(GF32.p, (k, lanes), gen), GF32, n)
+    erased = testing.random_erasures(n, n - k, seed=0x5EED)
+    bad = garbage_rows(cw, erased, GF32.p, gen)
+    check(not torch.equal(bad, cw), "garbage rows differ from the codeword")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tabs = run_path("decode_tables", lambda: decode.prepare_decode_tables(
+        erased, n, GF32), launches, ("K1_col", "K3_row"))
+    times["tables_s"] = time.perf_counter() - t0
+    mask, lp, ip = tabs
+    check(int(gf_sum(mask)) == n - k, "mask marks the erased rows")
+    say(f"[decode] device tables for e = 2^19 in {times['tables_s']:.3f} s")
+
+    out = run_path("decode", lambda: decode.decode_prepared(bad, *tabs, GF32),
+                   launches, ("K5_col_vec", "K6_seam_vec", "K7_row_post_sel"))
+    check({kk: v for kk, v in launches["decode"].items() if v} == {
+        "K5_col_vec": 1, "K6_seam_vec": 1, "K7_row_post_sel": 1},
+        "decode_prepared runs exactly K5 -> K6 -> K7-sel")
+    check(torch.equal(out, cw), "decode_prepared != the encoder's codeword")
+    say(f"[decode] decode_prepared == rs.encode's codeword on all {lanes} "
+        f"lanes, {n - k} erased rows")
+    del out
+    raw = run_path("decode_nomerge", lambda: decode.decode_prepared(
+        bad, *tabs, GF32, merge=False), launches,
+        ("K5_col_vec", "K6_seam_vec", "K7_row_post"))
+    rows = torch.from_numpy(erased).cuda()
+    check(torch.equal(raw.view(torch.int32)[rows], cw.view(torch.int32)[rows]),
+          "merge=False erased rows != the codeword")
+    say("[decode_nomerge] erased rows == the codeword")
+    del raw, rows
+    samples = time_samples(lambda: decode.decode_prepared(bad, *tabs, GF32),
+                           iters=5, warmup=1)
+    t = median(samples)
+    times["decode_s"] = t
+    times["decode_gbps"] = n * lanes * 4 / t / 1e9
+    say(f"[decode] median {t * 1e3:.3f} ms of "
+        f"{[round(x * 1e3, 3) for x in samples]} -> "
+        f"{times['decode_gbps']:.2f} GB/s codeword")
+    profile_once(lambda: decode.decode_prepared(bad, *tabs, GF32), "decode")
+
+    # per-kernel device times at the main-path shapes
+    dx = decode._xderiv_on(GF32.name, n, "cuda:0")
+    c1 = m._pair_split(n)
+    r1 = n // c1
+    x3 = bad.reshape(c1, r1, lanes)
+    orig = bad.reshape(c1, r1, lanes)          # [R2, C2, L] = [C1, R1, L]
+    col1 = m.col_pass_vec(x3, GF32, lp, inverse=True)
+    col2 = m.seam_pass_vec(col1, GF32, dx)
+    times["K5_col_vec"] = event_ms(
+        lambda: m.col_pass_vec(x3, GF32, lp, inverse=True))
+    times["K6_seam_vec"] = event_ms(lambda: m.seam_pass_vec(col1, GF32, dx))
+    times["K7_row_post"] = event_ms(lambda: m.row_pass_post(col2, GF32, ip))
+    times["K7_row_post_sel"] = event_ms(
+        lambda: m.row_pass_post(col2, GF32, ip, mask, orig))
+    for kk, sh in (("K5_col_vec", x3), ("K6_seam_vec", col1),
+                   ("K7_row_post", col2), ("K7_row_post_sel", col2)):
+        shapes[kk] = tuple(sh.shape)
+    times["sel_frac"] = (n - k) / n
+    times["plain_K5_col_vec"] = chunked_ms(
+        lambda x: m.col_pass_plain(x, GF32, inverse=True, pre_vec=lp), x3,
+        128)
+    times["plain_K6_seam_vec"] = chunked_ms(
+        lambda x: m.seam_pass_plain(x, GF32, pre_vec2=dx), col1, 128)
+    times["plain_K7_row_post"] = chunked_ms(
+        lambda x: m.row_pass_plain(x, GF32, post_vec=ip), col2, 128)
+    times["plain_K7_row_post_sel"] = chunked_ms(
+        lambda x, o: m.row_pass_plain(x, GF32, post_vec=ip, sel_mask=mask,
+                                      sel_orig=o), col2, 128, orig)
+    for kk in ("K5_col_vec", "K6_seam_vec", "K7_row_post", "K7_row_post_sel"):
+        say(f"[decode] {kk} {times[kk]:.3f} ms on {shapes[kk]}, "
+            f"plain {times['plain_' + kk]:.1f} ms")
+    del cw, bad, x3, orig, col1, col2, tabs, mask, lp, ip
+    torch.cuda.empty_cache()
+
+
+def phase_decode_small(gen, launches, times):
+    from fastecc_tpu_torch import decode, packing, rs, testing
+    from fastecc_tpu_torch.fields import GF32
+    from fastecc_tpu_torch.utils.timer import median, time_samples
+
+    # BASELINE.json:10: 2^12 of 2^13 lost, the all-device decode
+    k, lanes = 1 << 12, 1024
+    n = 2 * k
+    cw = rs.encode(rand_field(GF32.p, (k, lanes), gen), GF32, n)
+    erased = testing.random_erasures(n, n - k, seed=10)
+    bad = garbage_rows(cw, erased, GF32.p, gen)
+    out = run_path("decode_small", lambda: decode.decode(bad, erased, GF32,
+                                                         k=k), launches,
+                   ("K1_col", "K3_row", "K5_col_vec", "K7_row_post_sel"))
+    check(torch.equal(out, cw), "decode (all-device) != codeword")
+    samples = time_samples(lambda: decode.decode(bad, erased, GF32, k=k),
+                           iters=3, warmup=0)
+    times["decode_small_s"] = median(samples)
+    say(f"[decode_small] decode 2^13 x {lanes}, e = 2^12 == codeword; "
+        f"median {times['decode_small_s'] * 1e3:.3f} ms (tables included)")
+    del cw, bad, out
+
+    # decode_blocks over exactly k survivors, data and parity mixed
+    block = 4096
+    raw = torch.randint(0, 256, (k, block), dtype=torch.uint8, device="cuda",
+                        generator=gen)
+    raw[0] = 0xFF                                     # all-escape block
+    parity = rs.encode_blocks(raw, GF32)
+    raw_np, par_np = raw.cpu().numpy(), parity.cpu().numpy()
+    rng = np.random.default_rng(0xB10C)
+    keep = np.concatenate([[0], rng.choice(np.arange(1, n), size=k - 1,
+                                           replace=False)])
+    dpos = set(rs.data_positions(n, k).tolist())
+    ppos = {int(p): i for i, p in enumerate(rs.parity_positions(n, k))}
+    surv = {int(p): (raw_np[p // 2] if p in dpos else par_np[ppos[p]]
+                     ).tobytes() for p in keep}
+    n_data = sum(int(p) in dpos for p in keep)
+    got = run_path("decode_blocks", lambda: decode.decode_blocks(
+        surv, n, k, GF32), launches,
+        ("K5_col_vec", "K6_seam_vec", "K7_row_post_sel"))
+    check(torch.equal(got, raw), "decode_blocks != the raw blocks")
+    say(f"[decode_blocks] {k} survivors ({n_data} data, {k - n_data} "
+        f"parity) of {n} 4 KB blocks == the raw bytes")
+    del raw, parity, got, surv
+
+    # GF32 wire decode, parts form, at n = 2^18 (bench.py:297)
+    kw = 1 << 17
+    words = torch.randint(-(1 << 31), 1 << 31, (kw, block // 4),
+                          dtype=torch.int32, device="cuda",
+                          generator=gen).view(torch.uint32)
+    par = rs.encode_blocks_parts(words, GF32)
+    check(tuple(par.shape) == (kw, packing.parity_bytes(GF32, block) // 4),
+          "wire parity parts shape")
+    dw = run_path("wire_decode", lambda: decode.decode_wire_parts(
+        par, 2 * kw, kw, GF32), launches, ("K1_col", "K2_seam", "K3_row"))
+    check(torch.equal(dw, words), "decode_wire_parts != the raw blocks")
+    samples = time_samples(lambda: decode.decode_wire_parts(
+        par, 2 * kw, kw, GF32), iters=5, warmup=1)
+    times["wire_decode_s"] = median(samples)
+    say(f"[wire_decode] 2^17 x 4 KB blocks from parity == raw; median "
+        f"{times['wire_decode_s'] * 1e3:.3f} ms")
+    del words, par, dw
+    torch.cuda.empty_cache()
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -514,6 +766,8 @@ def main() -> int:
     phase_encode(gen, launches, times, shapes)
     phase_ntt(gen, launches, times)
     phase_wire(gen, launches, times)
+    phase_decode(gen, launches, times, shapes)
+    phase_decode_small(gen, launches, times)
 
     total = {k: sum(p[k] for p in launches.values()) for k in REPLACES}
     for k, v in total.items():
@@ -521,7 +775,7 @@ def main() -> int:
     card = card_line()
     kernels = []
     for k in REPLACES:
-        b_ms, b_by = bound(k, GF32, shapes[k])
+        b_ms, b_by = bound(k, GF32, shapes[k], times["sel_frac"])
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[k], "launches": total[k],
@@ -533,11 +787,17 @@ def main() -> int:
     say(f"[summary] encode 2^20 x 1024 GF32: {times['encode_s'] * 1e3:.3f} ms"
         f" = {times['encode_gbps']:.2f} GB/s codeword; NTT 2^20 x 512: "
         f"{times['ntt_s'] * 1e3:.3f} ms; wire 2^14 blocks: "
-        f"{times['wire_s'] * 1e3:.3f} ms; {time.perf_counter() - t_start:.0f}"
-        f" s total")
+        f"{times['wire_s'] * 1e3:.3f} ms; decode 2^20 x 512 GF32, e = 2^19: "
+        f"{times['decode_s'] * 1e3:.3f} ms = {times['decode_gbps']:.2f} GB/s "
+        f"codeword (tables {times['tables_s'] * 1e3:.1f} ms); decode 2^13 x "
+        f"1024: {times['decode_small_s'] * 1e3:.3f} ms; wire decode 2^17 "
+        f"blocks: {times['wire_decode_s'] * 1e3:.3f} ms; "
+        f"{time.perf_counter() - t_start:.0f} s total")
     say(card)
+    by_path = {path: {k: v for k, v in d.items() if v}
+               for path, d in launches.items()}
     say(json.dumps({"card": card, "kernels": kernels,
-                    "launches_by_path": launches}, separators=(",", ":")))
+                    "launches_by_path": by_path}, separators=(",", ":")))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,9 @@
 """fastecc_tpu_torch: the PyTorch/CUDA port of fastecc_tpu.
 
-The codec's encode path on one NVIDIA H100: Reed-Solomon encode over
-GF(0xFFF00001) and GF(0x10001) via NTTs whose passes are CUDA kernels
-written for Hopper (``csrc/``), bit for bit equal to the JAX package.
+The codec's encode and erasure-decode paths on one NVIDIA H100:
+Reed-Solomon over GF(0xFFF00001) and GF(0x10001) via NTTs whose passes
+are CUDA kernels written for Hopper (``csrc/``), bit for bit equal to
+the JAX package.
 The port imports neither JAX nor the JAX package.
 
 Public API (module names mirror ``fastecc_tpu``):
@@ -10,6 +11,11 @@ Public API (module names mirror ``fastecc_tpu``):
   ntt.ntt_auto                     — NTT along axis 0 (kernels on CUDA)
   rs.encode_parity / rs.encode     — field-domain RS encode
   rs.encode_blocks(_parts)         — raw bytes in, wire parity out (GF32)
+  decode.prepare_decode_tables /
+    decode.decode_prepared         — erasure decode (K5 -> K6 -> K7-sel)
+  decode.decode_blocks             — surviving wire blocks in, data out
+  decode.decode_wire_parts         — all-data-erased wire decode
+  testing                          — erasure-pattern generators
   packing                          — the wire format
   interop                          — numpy <-> tensor, device policy
   kernels.ntt_mfa                  — the pass wrappers and their launches

@@ -1,4 +1,4 @@
-// Fused four-step NTT passes for Hopper (sm_90a): kernels K1-K4 of the
+// Fused four-step NTT passes for Hopper (sm_90a): kernels K1-K7 of the
 // port, with a plain C interface loaded through ctypes
 // (fastecc_tpu_torch/kernels/_build.py builds it; kernels/ntt_mfa.py
 // wraps it).
@@ -13,6 +13,16 @@
 //                       four-step twiddle, transposed write)
 //   K3 fecc_row      <- _row_kernel      (pass B: R-point stages,
 //                       natural-order write)
+// and the decode fusions, each with a general prepared [N] table v:
+//   K5 fecc_col_vec      <- _col_kernel_prevec  (K1 with x[m] *= v[m]:
+//                           the locator evaluations l(w^j))
+//   K6 fecc_seam_vec     <- _seam_kernel_vec    (K2 with the middle
+//                           multiply by v[m]: the x d/dx table m mod p)
+//   K7 fecc_row_post     <- _row_kernel_post    (K3, then out[k] *= v[k]:
+//                           the Forney inverse derivative)
+//   K7-sel fecc_row_post_sel <- _row_kernel_post_sel (K7, then
+//                           out[k] = mask[k] ? out[k] : orig[k]: the
+//                           erased-row merge)
 // They compute what the Pallas kernels compute, not how: the output is
 // bit-identical (canonical residues), while the C x R split, the tile and
 // the twiddle tables are this port's own.
@@ -25,6 +35,19 @@
 // odd) ping-ponging between two buffers, and writes the tile once. So a
 // pass moves each element through device memory once in and once out,
 // whatever the number of stages.
+//
+// In every pass the element (a, b) of the [A, B] view is index a * B + b
+// of the natural-order [N] sequence the reference's table is laid over
+// (K5: m = c * R + r; K6: m = c2 * R2 + r2 with C2 = R1, R2 = C1; K7:
+// k = k_r * C + k_c), so a block loads its A table words v[a * B + b]
+// once into shared memory (`vec_row`) beside the tile; the reference's
+// reshape/transpose of the tables was a Mosaic layout device, not
+// ported. Table traffic is N words a pass against the N * L of the data.
+// Every table multiply is the full `mul_full`: a GF16 table can hold
+// 0x10000 (l(w^j) or inv(x l') equal to p - 1). K7-sel reads `orig`
+// only at rows whose mask is 0 (bit-identical to the select, and at
+// e = n/2 a sixth less traffic than reading it everywhere), and
+// multiplies only at rows whose mask is set.
 //
 // What bounds it on the H100: at the encode's main path (k = 2^19 rows x
 // 1024 lanes, 2 GiB per pass each way) a pass's floor is its 4 GiB of
@@ -56,7 +79,18 @@ constexpr int kTileWords = 8192;  // A * TL words per buffer (32 KB)
 constexpr int kMaxLaneTile = 32;
 constexpr int kMaxLen = 1024;     // longest pass the splits give (2^20)
 
-enum Mode : int { kCol = 0, kColPre = 1, kSeam = 2, kRow = 3 };
+enum Mode : int {
+  kCol = 0, kColPre = 1, kSeam = 2, kRow = 3,
+  kColVec = 4, kSeamVec = 5, kRowPost = 6, kRowPostSel = 7
+};
+
+__host__ __device__ constexpr bool is_row(int mode) {
+  return mode == kRow || mode == kRowPost || mode == kRowPostSel;
+}
+
+// Shared words beyond the two tile buffers: one [A] row of factors, and
+// for K7-sel a second [A] row for the mask.
+constexpr int scratch_rows(int mode) { return mode == kRowPostSel ? 2 : 1; }
 
 struct PassArgs {
   const uint32_t* x;
@@ -75,6 +109,17 @@ struct PassArgs {
   int log_tr;
   const uint32_t* pcol;  // [A] rank-1 multiply, row factor
   const uint32_t* prow;  // [B] rank-1 multiply, column factor
+};
+
+// The decode operands travel in a second kernel parameter. Kept in
+// PassArgs they grow it past 128 bytes, and NVVM then reads its fields
+// through a pointer into the parameter space near each use instead of
+// once at entry: on the H100 that made K1 9% and K3 5% slower (a
+// 136-byte against a 112-byte PassArgs, same kernels, same inputs).
+struct TableArgs {
+  const uint32_t* vec;   // [A * B] general table (K5, K6, K7)
+  const uint32_t* mask;  // [A * B] erased-row mask (K7-sel)
+  const uint32_t* orig;  // [A, B, L] rows kept where mask is 0 (K7-sel)
 };
 
 // One radix-2 Stockham DIF stage of size a = A >> s (d = 2^s finished
@@ -163,8 +208,17 @@ __device__ __forceinline__ void rank1_row(uint32_t* scratch, const PassArgs& p,
     scratch[a] = mul_full<F>(p.pcol[a], pr);
 }
 
+// scratch[a] = v[a * B + b] (column b of a general [A, B] table).
+__device__ __forceinline__ void vec_row(uint32_t* scratch,
+                                        const uint32_t* __restrict__ v,
+                                        int A, int B, int b) {
+  for (int a = threadIdx.x; a < A; a += blockDim.x)
+    scratch[a] = v[(size_t)a * B + b];
+}
+
 template <int F, int MODE>
-__global__ void __launch_bounds__(kThreads) pass_kernel(PassArgs p) {
+__global__ void __launch_bounds__(kThreads) pass_kernel(PassArgs p,
+                                                        TableArgs t) {
   extern __shared__ uint32_t smem[];
   const int tile = p.A << p.log_tl;
   uint32_t* buf0 = smem;
@@ -175,22 +229,22 @@ __global__ void __launch_bounds__(kThreads) pass_kernel(PassArgs p) {
   const int b = blockIdx.x / p.lane_tiles;
   const int l0 = lt << p.log_tl;
 
-  if (MODE == kColPre) {
-    rank1_row<F>(scratch, p, b);
-    __syncthreads();
-  }
+  if (MODE == kColPre) rank1_row<F>(scratch, p, b);
+  if (MODE == kColVec) vec_row(scratch, t.vec, p.A, p.B, b);
+  if (MODE == kColPre || MODE == kColVec) __syncthreads();
   for (int e = threadIdx.x; e < tile; e += blockDim.x) {
     int l = e & tl_mask, a = e >> p.log_tl;
     uint32_t v = 0;
     if (l0 + l < p.L) v = p.x[((size_t)a * p.B + b) * p.L + l0 + l];
-    if (MODE == kColPre) v = mul_full<F>(v, scratch[a]);
+    if (MODE == kColPre || MODE == kColVec) v = mul_full<F>(v, scratch[a]);
     buf0[e] = v;
   }
   __syncthreads();
   uint32_t* y = run_stages<F>(buf0, buf1, p.A, p.log_a, p.log_tl, p.tw1, p.w31);
 
-  if (MODE == kSeam) {
-    rank1_row<F>(scratch, p, b);
+  if (MODE == kSeam || MODE == kSeamVec) {
+    if (MODE == kSeam) rank1_row<F>(scratch, p, b);
+    else vec_row(scratch, t.vec, p.A, p.B, b);
     __syncthreads();
     for (int e = threadIdx.x; e < tile; e += blockDim.x)
       y[e] = mul_full<F>(y[e], scratch[e >> p.log_tl]);
@@ -199,11 +253,21 @@ __global__ void __launch_bounds__(kThreads) pass_kernel(PassArgs p) {
                       p.tw2, p.w32);
   }
 
-  if (MODE == kRow) {
+  if (is_row(MODE)) {
+    uint32_t* mrow = scratch + p.A;
+    if (MODE != kRow) vec_row(scratch, t.vec, p.A, p.B, b);
+    if (MODE == kRowPostSel) vec_row(mrow, t.mask, p.A, p.B, b);
+    if (MODE != kRow) __syncthreads();
     // natural order: out[k, b, l] of [A, B, L]
     for (int e = threadIdx.x; e < tile; e += blockDim.x) {
       int l = e & tl_mask, k = e >> p.log_tl;
-      if (l0 + l < p.L) p.out[((size_t)k * p.B + b) * p.L + l0 + l] = y[e];
+      if (l0 + l >= p.L) continue;
+      size_t o = ((size_t)k * p.B + b) * p.L + l0 + l;
+      uint32_t v = y[e];
+      if (MODE == kRowPost) v = mul_full<F>(v, scratch[k]);
+      if (MODE == kRowPostSel)
+        v = mrow[k] != 0u ? mul_full<F>(v, scratch[k]) : t.orig[o];
+      p.out[o] = v;
     }
     return;
   }
@@ -230,8 +294,9 @@ int log2_exact(int v) {
 }
 
 template <int F, int MODE>
-cudaError_t launch(PassArgs p, cudaStream_t stream) {
-  size_t smem = (2 * ((size_t)p.A << p.log_tl) + p.A) * sizeof(uint32_t);
+cudaError_t launch(PassArgs p, TableArgs t, cudaStream_t stream) {
+  size_t smem = (2 * ((size_t)p.A << p.log_tl) + scratch_rows(MODE) * p.A) *
+                sizeof(uint32_t);
   auto kernel = pass_kernel<F, MODE>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -239,12 +304,12 @@ cudaError_t launch(PassArgs p, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
   }
   unsigned blocks = (unsigned)p.B * (unsigned)p.lane_tiles;
-  kernel<<<blocks, kThreads, smem, stream>>>(p);
+  kernel<<<blocks, kThreads, smem, stream>>>(p, t);
   return cudaGetLastError();
 }
 
 template <int MODE>
-int run(int field, PassArgs p, void* stream) {
+int run(int field, PassArgs p, void* stream, TableArgs t = {}) {
   p.log_a = log2_exact(p.A);
   if (p.log_a < 1 || p.A > kMaxLen || p.B < 1 || p.L < 1 || p.log_tr < 0)
     return (int)cudaErrorInvalidValue;
@@ -253,8 +318,8 @@ int run(int field, PassArgs p, void* stream) {
   p.log_tl = log2_exact(tl);
   p.lane_tiles = (p.L + tl - 1) / tl;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = field == fecc::kGF32 ? launch<fecc::kGF32, MODE>(p, s)
-                                       : launch<fecc::kGF16, MODE>(p, s);
+  cudaError_t e = field == fecc::kGF32 ? launch<fecc::kGF32, MODE>(p, t, s)
+                                       : launch<fecc::kGF16, MODE>(p, t, s);
   return (int)e;
 }
 
@@ -327,6 +392,58 @@ int fecc_row(int field, const void* x, void* out, int A, int B, int L,
   p.tw1 = (const uint32_t*)tw;
   p.w31 = (const uint32_t*)w3;
   return run<kRow>(field, p, stream);
+}
+
+// K5: K1 with x[a, b] *= vec[a * B + b] before the stages.
+int fecc_col_vec(int field, const void* x, void* out, int A, int B, int L,
+                 const void* tw, const void* w3, const void* seed,
+                 const void* t0, int tr, const void* vec, void* stream) {
+  PassArgs p = base_args(x, out, A, B, L);
+  p.tw1 = (const uint32_t*)tw;
+  p.w31 = (const uint32_t*)w3;
+  p.seed = (const uint32_t*)seed;
+  p.t0 = (const uint32_t*)t0;
+  p.log_tr = log2_exact(tr);
+  return run<kColVec>(field, p, stream, {(const uint32_t*)vec});
+}
+
+// K6: K2 with the middle multiply y[a, b] *= vec[a * B + b] (a = c2,
+// b = r2) instead of the rank-1 g^m.
+int fecc_seam_vec(int field, const void* x, void* out, int A, int B, int L,
+                  const void* tw1, const void* w31, const void* tw2,
+                  const void* w32, const void* seed, const void* t0, int tr,
+                  const void* vec, void* stream) {
+  PassArgs p = base_args(x, out, A, B, L);
+  p.tw1 = (const uint32_t*)tw1;
+  p.w31 = (const uint32_t*)w31;
+  p.tw2 = (const uint32_t*)tw2;
+  p.w32 = (const uint32_t*)w32;
+  p.seed = (const uint32_t*)seed;
+  p.t0 = (const uint32_t*)t0;
+  p.log_tr = log2_exact(tr);
+  return run<kSeamVec>(field, p, stream, {(const uint32_t*)vec});
+}
+
+// K7: K3, then out[k, b] *= vec[k * B + b].
+int fecc_row_post(int field, const void* x, void* out, int A, int B, int L,
+                  const void* tw, const void* w3, const void* vec,
+                  void* stream) {
+  PassArgs p = base_args(x, out, A, B, L);
+  p.tw1 = (const uint32_t*)tw;
+  p.w31 = (const uint32_t*)w3;
+  return run<kRowPost>(field, p, stream, {(const uint32_t*)vec});
+}
+
+// K7-sel: K7 where mask[k * B + b] != 0, orig[k, b, :] elsewhere.
+int fecc_row_post_sel(int field, const void* x, void* out, int A, int B,
+                      int L, const void* tw, const void* w3, const void* vec,
+                      const void* mask, const void* orig, void* stream) {
+  PassArgs p = base_args(x, out, A, B, L);
+  p.tw1 = (const uint32_t*)tw;
+  p.w31 = (const uint32_t*)w3;
+  return run<kRowPostSel>(field, p, stream,
+                           {(const uint32_t*)vec, (const uint32_t*)mask,
+                            (const uint32_t*)orig});
 }
 
 const char* fecc_error_string(int code) {

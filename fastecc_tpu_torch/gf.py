@@ -188,3 +188,64 @@ def mul_const(field: FieldSpec, a, c: int):
     if field.use_mont:
         return mont_mul(field, a, field.to_mont_host(c))
     return _mul_gf16(a, c % field.p)
+
+
+# ---------------------------------------------------------------------------
+# pow / inverse: square-and-multiply.
+# ---------------------------------------------------------------------------
+
+def pow_const(field: FieldSpec, a, e: int):
+    """a ** e mod p with a Python-int exponent (negative e: inverse
+    powers). Fermat's e mod (p-1) holds only for nonzero bases, so a
+    nonzero e that reduces to 0 becomes p-1: 0 ** (m*(p-1)) stays 0."""
+    orig_nonzero = e != 0
+    e %= field.p - 1
+    if e == 0 and orig_nonzero:
+        e = field.p - 1
+    result = None
+    base = a
+    while e:
+        if e & 1:
+            result = base if result is None else mul(field, result, base)
+        e >>= 1
+        if e:
+            base = mul(field, base, base)
+    if result is None:
+        return torch.ones_like(a)
+    return result
+
+
+def inv(field: FieldSpec, a):
+    """Elementwise inverse a^(p-2) mod p; inv(0) = 0."""
+    return pow_const(field, a, field.p - 2)
+
+
+def pow_base(field: FieldSpec, base: int, e: torch.Tensor):
+    """base ** e mod p for a Python-int base and a tensor of exponents
+    e < 2^(max_log2+1) (square-and-multiply over the bits of e; the
+    twiddles w^j at erasure positions j). u32 exponents give u32 results,
+    int64 exponents int64 carriers."""
+    (ew,), u = _carried(e)
+    result = torch.ones_like(ew, dtype=torch.int64)
+    sq = base % field.p
+    for t in range(field.max_log2 + 1):
+        stepped = mul_const(field, result, sq)
+        result = torch.where(((ew >> t) & 1) == 1, stepped, result)
+        sq = sq * sq % field.p
+    return _ret(result, u)
+
+
+def prepare_device(field: FieldSpec, v):
+    """Prepare values computed on the device for the table multiply (the
+    device-side ``ntt.prepare_consts``): GF32 enters the Montgomery
+    domain, GF16 is the identity."""
+    if field.use_mont:
+        return to_mont(field, v)
+    return v
+
+
+def mul_prepared_device(field: FieldSpec, x, prepared):
+    """x * v mod p where ``prepared = prepare_device(field, v)``."""
+    if field.use_mont:
+        return mont_mul(field, x, prepared)
+    return _mul_gf16(x, prepared)

@@ -39,6 +39,11 @@ SIGNATURES = {
     "fecc_seam": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P,
                   _P, _P],
     "fecc_row": [_I, _P, _P, _I, _I, _I, _P, _P, _P],
+    "fecc_col_vec": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
+    "fecc_seam_vec": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
+                      _P, _P],
+    "fecc_row_post": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "fecc_row_post_sel": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
 }
 
 

@@ -11,11 +11,16 @@ passes over device memory, each keeping a whole sub-transform on chip:
   pass B (row, K3): R-point stages along axis 0 of [R, C, L]; the output
       is natural order (k = k_c + C*k_r, k_r-major).
 
-The RS encode pair NTT_coset(iNTT(x)) runs in three passes: A1, the seam
-(K2: transform 1's pass B, the coset multiply g^m, transform 2's pass A
-in one residency) and B2. The seam needs transform 2 to take the swapped
-split (c2, r2) = (r1, c1): transform 1's pass-B output column IS
-transform 2's pass-A input column.
+The pair NTT(v2 * iNTT(v1 * x)) of both codec paths runs in three
+passes: A1, the seam (K2: transform 1's pass B, the middle multiply,
+transform 2's pass A in one residency) and B2. The seam needs transform 2
+to take the swapped split (c2, r2) = (r1, c1): transform 1's pass-B
+output column IS transform 2's pass-A input column. RS encode multiplies
+in the middle by the coset powers g^m (rank-1 tables); erasure decode
+fuses a general prepared [N] table into each pass instead (K5: the
+locator evaluations before A1; K6: the x d/dx table m in the seam; K7:
+the Forney inverse derivative after B2, and K7-sel also the erased-row
+merge where(mask[k] != 0, out[k], orig[k])).
 
 Each pass has a wrapper and a plain PyTorch version here. The wrapper
 takes the plain version only for a CPU tensor; on a CUDA tensor it
@@ -46,7 +51,9 @@ MIN_ORDER = 4
 MAX_PASS_LEN = 1 << 10
 
 # Launches per kernel, counted by the wrappers where they launch.
-LAUNCHES = {"K1_col": 0, "K2_seam": 0, "K3_row": 0, "K4_col_pre": 0}
+LAUNCHES = {"K1_col": 0, "K2_seam": 0, "K3_row": 0, "K4_col_pre": 0,
+            "K5_col_vec": 0, "K6_seam_vec": 0, "K7_row_post": 0,
+            "K7_row_post_sel": 0}
 
 
 def reset_launches() -> None:
@@ -208,35 +215,61 @@ def _rank1_plain(x, field: FieldSpec, g: int, c: int, r: int):
     return mul_prepared(field, x, pre[:, :, None])
 
 
+def _vec_plain(x, field: FieldSpec, vec):
+    """x [A, B, L] *= vec[a * B + b], a prepared [A * B] table."""
+    (v,), _ = gf._carried(vec)
+    return mul_prepared(field, x, v.reshape(x.shape[0], x.shape[1], 1))
+
+
 def col_pass_plain(x3: torch.Tensor, field: FieldSpec, inverse: bool = False,
-                   scale: bool = True, pre_seed: int | None = None):
-    """Plain pass A: [C, R, L] -> [R, C, L] (optionally with the rank-1
-    prologue x[m] *= pre_seed^m)."""
+                   scale: bool = True, pre_seed: int | None = None,
+                   pre_vec=None):
+    """Plain pass A: [C, R, L] -> [R, C, L], optionally after the rank-1
+    x[m] *= pre_seed^m or the general x[m] *= pre_vec[m] (m = c*R + r)."""
     (x,), u = gf._carried(x3)
     c, r, _ = x.shape
     if pre_seed is not None:
         x = _rank1_plain(x, field, pre_seed, c, r)
+    if pre_vec is not None:
+        x = _vec_plain(x, field, pre_vec)
     y = ntt(x, field, inverse=inverse, scale=False, radix=4)
     y = _twiddle_plain(y, field, c * r, c, inverse, scale, _seed_tr(r))
     return gf._ret(y.permute(1, 0, 2).contiguous(), u)
 
 
-def seam_pass_plain(y1: torch.Tensor, field: FieldSpec, pre_seed2: int):
+def seam_pass_plain(y1: torch.Tensor, field: FieldSpec,
+                    pre_seed2: int | None = None, pre_vec2=None):
     """Plain seam: [R1, C1, L] -> [C1, R1, L]: inverse R1-point stages,
-    x g^m, forward stages (C2 = R1), x T2, transpose."""
+    x g^m (``pre_seed2``) or x v[m] (``pre_vec2``), m = c2*R2 + r2,
+    forward stages (C2 = R1), x T2, transpose."""
     (y,), u = gf._carried(y1)
     r1, c1, _ = y.shape
     c2, r2 = r1, c1
     y = ntt(y, field, inverse=True, scale=False, radix=4)
-    y = _rank1_plain(y, field, pre_seed2, c2, r2)
+    if pre_vec2 is None:
+        y = _rank1_plain(y, field, pre_seed2, c2, r2)
+    else:
+        y = _vec_plain(y, field, pre_vec2)
     y = ntt(y, field, inverse=False, scale=False, radix=4)
     y = _twiddle_plain(y, field, c2 * r2, c2, False, False, _seed_tr(r2))
     return gf._ret(y.permute(1, 0, 2).contiguous(), u)
 
 
-def row_pass_plain(y: torch.Tensor, field: FieldSpec, inverse: bool = False):
-    """Plain pass B: R-point stages along axis 0 of [R, C, L]."""
-    return ntt(y, field, inverse=inverse, scale=False, radix=4)
+def row_pass_plain(y: torch.Tensor, field: FieldSpec, inverse: bool = False,
+                   post_vec=None, sel_mask=None, sel_orig=None):
+    """Plain pass B: R-point stages along axis 0 of [R, C, L], then
+    optionally out[k] *= post_vec[k] and the row select
+    where(sel_mask[k] != 0, out[k], sel_orig[k]) (k = k_r*C + k_c)."""
+    out = ntt(y, field, inverse=inverse, scale=False, radix=4)
+    if post_vec is None:
+        return out
+    (o,), u = gf._carried(out)
+    o = _vec_plain(o, field, post_vec)
+    if sel_mask is not None:
+        (mask, orig), _ = gf._carried(sel_mask, sel_orig)
+        keep = mask.reshape(o.shape[0], o.shape[1], 1) != 0
+        o = torch.where(keep, o, orig.reshape(o.shape))
+    return gf._ret(o, u)
 
 
 # ---------------------------------------------------------------------------
@@ -263,6 +296,29 @@ def _dispatch(x: torch.Tensor, name: str) -> bool:
     return True
 
 
+def _cuda_operand(t: torch.Tensor, x: torch.Tensor, numel: int,
+                  name: str) -> int:
+    """Pointer of a table (or ``orig``) operand of a pass over ``x``:
+    u32, on x's device, contiguous, ``numel`` elements."""
+    if (not isinstance(t, torch.Tensor) or t.dtype != torch.uint32
+            or t.device != x.device or not t.is_contiguous()
+            or t.numel() != numel):
+        raise ValueError(
+            f"{name}: needs a contiguous torch.uint32 operand of {numel} "
+            f"elements on {x.device}, got "
+            f"{getattr(t, 'dtype', type(t))} "
+            f"{tuple(getattr(t, 'shape', ()))} "
+            f"on {getattr(t, 'device', None)}")
+    return t.data_ptr()
+
+
+def _check_sel(post_vec, sel_mask, sel_orig) -> None:
+    if (sel_mask is None) != (sel_orig is None):
+        raise ValueError("sel_mask and sel_orig go together")
+    if sel_mask is not None and post_vec is None:
+        raise ValueError("the fused select requires post_vec")
+
+
 def _field_code(field: FieldSpec) -> int:
     return 0 if field.use_mont else 1
 
@@ -271,7 +327,7 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _launch_col(x3, field, inverse, scale, pre_seed):
+def _launch_col(x3, field, inverse, scale, pre_seed=None, pre_vec=None):
     c, r, lanes = x3.shape
     dev = str(x3.device)
     tr = _seed_tr(r)
@@ -281,15 +337,19 @@ def _launch_col(x3, field, inverse, scale, pre_seed):
     args = [_field_code(field), x3.data_ptr(), out.data_ptr(), c, r, lanes,
             tw.data_ptr(), w3.data_ptr(), seed.data_ptr(), t0.data_ptr(), tr]
     with torch.cuda.device(x3.device):
-        if pre_seed is None:
-            _build.call("fecc_col", *args, _stream(x3))
-            LAUNCHES["K1_col"] += 1
-        else:
+        if pre_vec is not None:
+            vec = _cuda_operand(pre_vec, x3, c * r, "col_pass_vec: pre_vec")
+            _build.call("fecc_col_vec", *args, vec, _stream(x3))
+            LAUNCHES["K5_col_vec"] += 1
+        elif pre_seed is not None:
             pcol, prow = _pre_on(field.name, pre_seed % field.p, c, r, tr,
                                  dev)
             _build.call("fecc_col_pre", *args, pcol.data_ptr(),
                         prow.data_ptr(), _stream(x3))
             LAUNCHES["K4_col_pre"] += 1
+        else:
+            _build.call("fecc_col", *args, _stream(x3))
+            LAUNCHES["K1_col"] += 1
     return out
 
 
@@ -298,7 +358,7 @@ def col_pass(x3: torch.Tensor, field: FieldSpec, inverse: bool = False,
     """K1 (pass A): [C, R, L] u32 -> [R, C, L]."""
     if not _dispatch(x3, "col_pass"):
         return col_pass_plain(x3, field, inverse, scale)
-    return _launch_col(x3, field, inverse, scale, None)
+    return _launch_col(x3, field, inverse, scale)
 
 
 def col_pass_pre(x3: torch.Tensor, field: FieldSpec, pre_seed: int,
@@ -307,14 +367,19 @@ def col_pass_pre(x3: torch.Tensor, field: FieldSpec, pre_seed: int,
     [R, C, L]."""
     if not _dispatch(x3, "col_pass_pre"):
         return col_pass_plain(x3, field, inverse, scale, pre_seed)
-    return _launch_col(x3, field, inverse, scale, pre_seed)
+    return _launch_col(x3, field, inverse, scale, pre_seed=pre_seed)
 
 
-def seam_pass(y1: torch.Tensor, field: FieldSpec,
-              pre_seed2: int) -> torch.Tensor:
-    """K2 (the pair's middle pass): [R1, C1, L] u32 -> [C1, R1, L]."""
-    if not _dispatch(y1, "seam_pass"):
-        return seam_pass_plain(y1, field, pre_seed2)
+def col_pass_vec(x3: torch.Tensor, field: FieldSpec, pre_vec: torch.Tensor,
+                 inverse: bool = False, scale: bool = True) -> torch.Tensor:
+    """K5 (pass A with x[m] *= pre_vec[m], m = c*R + r, a prepared [N]
+    u32 table): [C, R, L] -> [R, C, L]."""
+    if not _dispatch(x3, "col_pass_vec"):
+        return col_pass_plain(x3, field, inverse, scale, pre_vec=pre_vec)
+    return _launch_col(x3, field, inverse, scale, pre_vec=pre_vec)
+
+
+def _launch_seam(y1, field, pre_seed2=None, pre_vec2=None):
     r1, c1, lanes = y1.shape
     c2, r2 = r1, c1
     dev = str(y1.device)
@@ -322,16 +387,41 @@ def seam_pass(y1: torch.Tensor, field: FieldSpec,
     tw1, w31 = _stage_tables_on(field.name, r1, True, dev)
     tw2, w32 = _stage_tables_on(field.name, c2, False, dev)
     seed, t0 = _seeds_on(field.name, c2 * r2, c2, False, False, tr, dev)
-    pcol, prow = _pre_on(field.name, pre_seed2 % field.p, c2, r2, tr, dev)
     out = torch.empty((r2, c2, lanes), dtype=torch.uint32, device=y1.device)
+    args = [_field_code(field), y1.data_ptr(), out.data_ptr(), r1, c1, lanes,
+            tw1.data_ptr(), w31.data_ptr(), tw2.data_ptr(), w32.data_ptr(),
+            seed.data_ptr(), t0.data_ptr(), tr]
     with torch.cuda.device(y1.device):
-        _build.call("fecc_seam", _field_code(field), y1.data_ptr(),
-                    out.data_ptr(), r1, c1, lanes, tw1.data_ptr(),
-                    w31.data_ptr(), tw2.data_ptr(), w32.data_ptr(),
-                    seed.data_ptr(), t0.data_ptr(), tr, pcol.data_ptr(),
-                    prow.data_ptr(), _stream(y1))
-        LAUNCHES["K2_seam"] += 1
+        if pre_vec2 is None:
+            pcol, prow = _pre_on(field.name, pre_seed2 % field.p, c2, r2, tr,
+                                 dev)
+            _build.call("fecc_seam", *args, pcol.data_ptr(), prow.data_ptr(),
+                        _stream(y1))
+            LAUNCHES["K2_seam"] += 1
+        else:
+            vec = _cuda_operand(pre_vec2, y1, c2 * r2,
+                                "seam_pass_vec: pre_vec2")
+            _build.call("fecc_seam_vec", *args, vec, _stream(y1))
+            LAUNCHES["K6_seam_vec"] += 1
     return out
+
+
+def seam_pass(y1: torch.Tensor, field: FieldSpec,
+              pre_seed2: int) -> torch.Tensor:
+    """K2 (the encode pair's middle pass, g^m in the middle): [R1, C1, L]
+    u32 -> [C1, R1, L]."""
+    if not _dispatch(y1, "seam_pass"):
+        return seam_pass_plain(y1, field, pre_seed2)
+    return _launch_seam(y1, field, pre_seed2=pre_seed2)
+
+
+def seam_pass_vec(y1: torch.Tensor, field: FieldSpec,
+                  pre_vec2: torch.Tensor) -> torch.Tensor:
+    """K6 (the decode pair's middle pass, a prepared [N] u32 table v[m]
+    in the middle, m = c2*R2 + r2): [R1, C1, L] -> [C1, R1, L]."""
+    if not _dispatch(y1, "seam_pass_vec"):
+        return seam_pass_plain(y1, field, pre_vec2=pre_vec2)
+    return _launch_seam(y1, field, pre_vec2=pre_vec2)
 
 
 def row_pass(y: torch.Tensor, field: FieldSpec,
@@ -350,38 +440,117 @@ def row_pass(y: torch.Tensor, field: FieldSpec,
     return out
 
 
+def row_pass_post(y: torch.Tensor, field: FieldSpec, post_vec: torch.Tensor,
+                  sel_mask: torch.Tensor | None = None,
+                  sel_orig: torch.Tensor | None = None,
+                  inverse: bool = False) -> torch.Tensor:
+    """K7 (pass B, then out[k] *= post_vec[k], k = k_r*C + k_c) or, with
+    ``sel_mask``/``sel_orig`` ([N] u32 and [R, C, L] u32), K7-sel (then
+    out[k] where sel_mask[k] != 0, else sel_orig[k]): [R, C, L] u32 ->
+    [R, C, L], natural order."""
+    _check_sel(post_vec, sel_mask, sel_orig)
+    if not _dispatch(y, "row_pass_post"):
+        return row_pass_plain(y, field, inverse, post_vec, sel_mask,
+                              sel_orig)
+    r, c, lanes = y.shape
+    tw, w3 = _stage_tables_on(field.name, r, inverse, str(y.device))
+    vec = _cuda_operand(post_vec, y, r * c, "row_pass_post: post_vec")
+    out = torch.empty_like(y)
+    args = [_field_code(field), y.data_ptr(), out.data_ptr(), r, c, lanes,
+            tw.data_ptr(), w3.data_ptr(), vec]
+    with torch.cuda.device(y.device):
+        if sel_mask is None:
+            _build.call("fecc_row_post", *args, _stream(y))
+            LAUNCHES["K7_row_post"] += 1
+        else:
+            mask = _cuda_operand(sel_mask, y, r * c, "row_pass_post: sel_mask")
+            orig = _cuda_operand(sel_orig, y, y.numel(),
+                                 "row_pass_post: sel_orig")
+            _build.call("fecc_row_post_sel", *args, mask, orig, _stream(y))
+            LAUNCHES["K7_row_post_sel"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Transforms.
 # ---------------------------------------------------------------------------
 
+def _pass_b(col, field, inverse, post_vec, sel_mask, sel_orig):
+    """Pass B of a transform: K3, or K7 / K7-sel with the output fusions
+    (``sel_orig`` is the [N, L] original, viewed like ``col``)."""
+    if post_vec is None:
+        return row_pass(col, field, inverse)
+    if sel_orig is not None:
+        sel_orig = sel_orig.contiguous().reshape(col.shape)
+    return row_pass_post(col, field, post_vec, sel_mask, sel_orig, inverse)
+
+
 def ntt_fused(x: torch.Tensor, field: FieldSpec, inverse: bool = False,
-              scale: bool = True, pre_seed: int | None = None) -> torch.Tensor:
+              scale: bool = True, pre_seed: int | None = None,
+              pre_vec: torch.Tensor | None = None,
+              post_vec: torch.Tensor | None = None,
+              sel_mask: torch.Tensor | None = None,
+              sel_orig: torch.Tensor | None = None) -> torch.Tensor:
     """Two-pass NTT along axis 0 of u32 [N, L] (the counterpart of
-    ``ntt_pallas``): pass A (K1, or K4 with ``pre_seed``), then pass B
-    (K3). Bit-exact vs ``ntt.ntt``."""
+    ``ntt_pallas``), bit-exact vs ``ntt.ntt``. Pass A is K1, K4 with
+    ``pre_seed`` (x[m] *= g^m) or K5 with ``pre_vec`` (x[m] *= v[m]); pass
+    B is K3, K7 with ``post_vec`` (out[k] *= v[k]) or K7-sel with
+    ``post_vec`` and ``sel_mask``/``sel_orig`` (out[k] where mask[k] != 0,
+    else orig[k]). Tables are prepared [N] u32 tensors on x's device;
+    ``sel_orig`` is [N, L] u32."""
+    if pre_seed is not None and pre_vec is not None:
+        raise ValueError("pre_seed and pre_vec are mutually exclusive")
+    _check_sel(post_vec, sel_mask, sel_orig)
     n, lanes = x.shape
     _check_order(x, n)
     c = _split(n)
     x3 = x.contiguous().reshape(c, n // c, lanes)
-    if pre_seed is None:
-        col = col_pass(x3, field, inverse, scale)
-    else:
+    if pre_vec is not None:
+        col = col_pass_vec(x3, field, pre_vec, inverse, scale)
+    elif pre_seed is not None:
         col = col_pass_pre(x3, field, pre_seed, inverse, scale)
-    return row_pass(col, field, inverse).reshape(n, lanes)
+    else:
+        col = col_pass(x3, field, inverse, scale)
+    return _pass_b(col, field, inverse, post_vec, sel_mask,
+                   sel_orig).reshape(n, lanes)
+
+
+def ntt_pair(x: torch.Tensor, field: FieldSpec, pre_seed2: int | None = None,
+             pre_vec1: torch.Tensor | None = None,
+             pre_vec2: torch.Tensor | None = None,
+             post_vec: torch.Tensor | None = None,
+             sel_mask: torch.Tensor | None = None,
+             sel_orig: torch.Tensor | None = None) -> torch.Tensor:
+    """NTT(v2 * iNTT(v1 * x)) along axis 0 of u32 [N, L], the
+    two-transform shape of both codec paths (the counterpart of
+    ``ntt_pair_pallas``), in three passes: A1 (inverse columns, N^-1
+    folded into the twiddle; K1, or K5 with ``pre_vec1``), the seam (K2
+    with the coset powers ``pre_seed2=g``, or K6 with the table
+    ``pre_vec2``: exactly one of the two) and B2 (K3, or K7 / K7-sel with
+    ``post_vec`` and ``sel_mask``/``sel_orig``, as in :func:`ntt_fused`).
+    Bit-exact vs the two staged transforms."""
+    if (pre_seed2 is None) == (pre_vec2 is None):
+        raise ValueError("exactly one of pre_seed2/pre_vec2 (a pair with "
+                         "no middle multiply is the identity)")
+    _check_sel(post_vec, sel_mask, sel_orig)
+    n, lanes = x.shape
+    _check_order(x, n)
+    c1 = _pair_split(n)
+    x3 = x.contiguous().reshape(c1, n // c1, lanes)
+    if pre_vec1 is None:
+        col1 = col_pass(x3, field, inverse=True, scale=True)
+    else:
+        col1 = col_pass_vec(x3, field, pre_vec1, inverse=True, scale=True)
+    if pre_vec2 is None:
+        col2 = seam_pass(col1, field, pre_seed2)
+    else:
+        col2 = seam_pass_vec(col1, field, pre_vec2)
+    return _pass_b(col2, field, False, post_vec, sel_mask,
+                   sel_orig).reshape(n, lanes)
 
 
 def ntt_coset_pair(x: torch.Tensor, field: FieldSpec,
                    pre_seed: int) -> torch.Tensor:
-    """The RS-encode pair NTT_g-coset(iNTT(x)) along axis 0 of u32 [N, L],
-    bit-exact vs ``ntt_auto(ntt_auto(x, inverse=True), pre_seed=g)``, in
-    three passes: A1 (K1: inverse columns, N^-1 folded into the twiddle),
-    the seam (K2) and B2 (K3). The counterpart of ``ntt_coset_pair_pallas``
-    (``ntt_pair_pallas(pre_seed2=g)``) without its opt-in one-pass
-    dispatch."""
-    n, lanes = x.shape
-    _check_order(x, n)
-    c1 = _pair_split(n)
-    col1 = col_pass(x.contiguous().reshape(c1, n // c1, lanes), field,
-                    inverse=True, scale=True)
-    col2 = seam_pass(col1, field, pre_seed)
-    return row_pass(col2, field, inverse=False).reshape(n, lanes)
+    """The RS-encode pair NTT_g-coset(iNTT(x)): :func:`ntt_pair` with the
+    coset powers g^m in the middle (K1 -> K2 -> K3)."""
+    return ntt_pair(x, field, pre_seed2=pre_seed)

@@ -8,8 +8,8 @@ same prepared constants) and the plain PyTorch transforms:
     order in and out, no bit-reversal;
   * ``ntt_four_step``: the C x R matrix-Fourier decomposition;
   * ``ntt_auto``: the entry point. It runs the fused two-pass transform
-    of ``kernels/ntt_mfa.py``: the Hopper kernels on a CUDA tensor, their
-    plain versions on a CPU tensor;
+    of ``kernels/ntt_mfa.py``, with decode's table fusions: the Hopper
+    kernels on a CUDA tensor, their plain versions on a CPU tensor;
   * ``ntt_host`` / ``naive_dft``: numpy oracles.
 
 Layout: the transform runs along **axis 0**; trailing axes are
@@ -273,24 +273,29 @@ def ntt_auto(x, field: FieldSpec, inverse: bool = False, scale: bool = True,
     """The transform entry point: NTT along axis 0 of a u32 [N, ...]
     tensor (trailing axes are lanes) through the fused two-pass transform
     (``kernels.ntt_mfa.ntt_fused``). On a CUDA tensor that is always the
-    Hopper kernels — pass A (K1, or K4 with ``pre_seed``) then pass B
-    (K3); on a CPU tensor it is their plain versions. ``pre_seed=g``
-    applies the input multiply x[m] *= g^m. A numpy input goes to
-    ``device`` (default: the card).
+    Hopper kernels, on a CPU tensor their plain versions. A numpy input
+    goes to ``device`` (default: the card).
 
-    ``pre_vec``, ``post_vec`` and ``sel_mask``/``sel_orig`` are decode's
-    fusions (kernels K5-K7), not yet ported."""
+    Fusions: ``pre_seed=g`` multiplies the input by g^m (pass A is K4),
+    ``pre_vec`` by a prepared [N] table (K5; exclusive with pre_seed).
+    ``post_vec`` multiplies the output by a prepared [N] table (pass B is
+    K7); with ``sel_mask``/``sel_orig`` (given together, only with
+    post_vec) rows where the mask is 0 take ``sel_orig`` instead (K7-sel).
+    Tables may be tensors or numpy arrays; they go to x's device."""
     from .interop import as_tensor
     from .kernels import ntt_mfa
 
-    if any(v is not None for v in (pre_vec, post_vec, sel_mask, sel_orig)):
-        raise NotImplementedError(
-            "pre_vec/post_vec/sel_* are decode fusions (kernels K5-K7), "
-            "not yet ported")
     x = as_tensor(x, device)
     n = x.shape[0]
-    y = ntt_mfa.ntt_fused(x.reshape(n, -1), field, inverse=inverse,
-                          scale=scale, pre_seed=pre_seed)
+
+    def on_x(v, shape):
+        return None if v is None else as_tensor(v, x.device).reshape(shape)
+
+    y = ntt_mfa.ntt_fused(
+        x.reshape(n, -1), field, inverse=inverse, scale=scale,
+        pre_seed=pre_seed, pre_vec=on_x(pre_vec, n),
+        post_vec=on_x(post_vec, n), sel_mask=on_x(sel_mask, n),
+        sel_orig=on_x(sel_orig, (n, -1)))
     return y.reshape(x.shape)
 
 

@@ -157,3 +157,68 @@ def test_field_constants_match_reference():
             assert getattr(f, attr) == getattr(ref, attr), (name, attr)
         for lg in range(f.max_log2 + 1):
             assert f.root_of_order(1 << lg) == ref.root_of_order(1 << lg)
+
+
+def extras_elems(field):
+    """0, 1, p-1, p-2 and 0x10000 (p-1 itself in GF16) plus random."""
+    e = np.array([0, 1, field.p - 1, field.p - 2, 0x10000 % field.p],
+                 dtype=np.uint32)
+    return np.concatenate([e, RNG.integers(0, field.p, 500, dtype=np.uint64)
+                           .astype(np.uint32)])
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+@pytest.mark.parametrize("e", [0, 1, 2, 7, -1, -3, 1 << 20])
+def test_pow_const_matches_reference(field, e):
+    a = extras_elems(field)
+    e = {1 << 20: field.p - 1}.get(e, e)   # p-1: 0 stays 0, others go to 1
+    got = to_numpy_u32(gf.pow_const(field, t(a), e))
+    np.testing.assert_array_equal(
+        got, np.asarray(jgf.pow_const(_ref(field), jnp.asarray(a), e)))
+    np.testing.assert_array_equal(
+        got.astype(object),
+        [pow(int(v), e, field.p) if v else (1 if e == 0 else 0) for v in a])
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_inv_matches_reference(field):
+    a = extras_elems(field)
+    got = to_numpy_u32(gf.inv(field, t(a)))
+    np.testing.assert_array_equal(
+        got, np.asarray(jgf.inv(_ref(field), jnp.asarray(a))))
+    assert got[0] == 0                                   # inv(0) = 0
+    np.testing.assert_array_equal(
+        got[1:].astype(object) * a[1:].astype(object) % field.p, 1)
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_pow_base_matches_reference(field):
+    w = field.root_of_order(1 << 10)
+    e = np.concatenate([np.array([0, 1, (1 << 10) - 1, 1 << 10,
+                                  (1 << field.max_log2) - 1], np.uint32),
+                        RNG.integers(0, 1 << field.max_log2, 300,
+                                     dtype=np.uint64).astype(np.uint32)])
+    want = np.asarray(jgf.pow_base(_ref(field), w, jnp.asarray(e)))
+    np.testing.assert_array_equal(to_numpy_u32(gf.pow_base(field, w, t(e))),
+                                  want)
+    carried = gf.pow_base(field, w, torch.from_numpy(e.astype(np.int64)))
+    assert carried.dtype == torch.int64
+    np.testing.assert_array_equal(carried.numpy(), want)
+    np.testing.assert_array_equal(
+        want.astype(object), [pow(w, int(v), field.p) for v in e])
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_prepare_device_and_mul_prepared_device(field):
+    a, b = pairs(field)
+    a = np.concatenate([a, extras_elems(field)])
+    b = np.concatenate([b, extras_elems(field)[::-1]])
+    rf = _ref(field)
+    prep = gf.prepare_device(field, t(b))
+    np.testing.assert_array_equal(
+        to_numpy_u32(prep), np.asarray(jgf.prepare_device(rf, jnp.asarray(b))))
+    got = to_numpy_u32(gf.mul_prepared_device(field, t(a), prep))
+    np.testing.assert_array_equal(got, np.asarray(jgf.mul_prepared_device(
+        rf, jnp.asarray(a), jgf.prepare_device(rf, jnp.asarray(b)))))
+    np.testing.assert_array_equal(
+        got.astype(object), a.astype(object) * b.astype(object) % field.p)

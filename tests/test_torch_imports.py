@@ -29,8 +29,8 @@ def test_port_imports_no_jax():
     code = (
         "import sys\n"
         "import fastecc_tpu_torch\n"
-        "from fastecc_tpu_torch import fields, gf, ntt, packing, rs, "
-        "interop\n"
+        "from fastecc_tpu_torch import decode, fields, gf, ntt, packing, rs, "
+        "interop, testing\n"
         "from fastecc_tpu_torch.kernels import ntt_mfa, _build\n"
         "from fastecc_tpu_torch.utils import timer\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "

@@ -1,4 +1,4 @@
-"""Port vs reference: the fused passes K1-K4 (fastecc_tpu_torch.kernels.
+"""Port vs reference: the fused passes K1-K7 (fastecc_tpu_torch.kernels.
 ntt_mfa) against the Pallas kernels they replace.
 
 On the CPU each wrapper runs its plain version; the JAX side runs the
@@ -36,6 +36,18 @@ def rand_field(field, shape):
         np.uint32)
 
 
+def rand_tables(field, n):
+    """Prepared [n] tables (v1, v2, post) and a mask with about half its
+    rows set. GF16 tables hold 0x10000 (p - 1) at some rows, as the
+    decode's l(w^j) and inv(x l') can."""
+    vecs = [rand_field(field, n) for _ in range(3)]
+    if not field.use_mont:
+        for v in vecs:
+            v[RNG.choice(n, size=n // 8, replace=False)] = 0x10000
+    mask = (RNG.random(n) < 0.5).astype(np.uint32)
+    return vecs, mask
+
+
 def _ref(field):
     return jfields.FIELDS[field.name]
 
@@ -64,6 +76,97 @@ def test_passes_match_pallas_interpret(field, n):
                                           interpret=True))
         np.testing.assert_array_equal(
             to_numpy_u32(m.ntt_fused(tx, field, inverse=True)), want)
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+@pytest.mark.parametrize("n", [1 << 7, 1 << 8, 1 << 10])
+def test_decode_fusions_match_pallas_interpret(field, n):
+    """K5+K7 and K5+K7-sel (ntt_fused with pre_vec/post_vec/sel_*) vs
+    ntt_pallas, and the decode pair K5 -> K6 -> K7-sel / K7 (ntt_pair,
+    merge on and off) vs ntt_pair_pallas, in interpret mode, 128 lanes."""
+    x = rand_field(field, (n, 128))
+    orig = rand_field(field, (n, 128))
+    (v1, v2, post), mask = rand_tables(field, n)
+    rf = _ref(field)
+    j = {k: jnp.asarray(a) for k, a in
+         dict(x=x, orig=orig, v1=v1, v2=v2, post=post, mask=mask).items()}
+    t = {k: from_numpy_u32(np.asarray(a), "cpu") for k, a in j.items()}
+    inv = n == 1 << 8
+    want = np.asarray(jmfa.ntt_pallas(j["x"], rf, inverse=inv,
+                                      pre_vec=j["v1"], post_vec=j["post"],
+                                      interpret=True))
+    np.testing.assert_array_equal(to_numpy_u32(m.ntt_fused(
+        t["x"], field, inverse=inv, pre_vec=t["v1"], post_vec=t["post"])),
+        want)
+    want = np.asarray(jmfa.ntt_pallas(j["x"], rf, pre_vec=j["v1"],
+                                      post_vec=j["post"], sel_mask=j["mask"],
+                                      sel_orig=j["orig"], interpret=True))
+    got = to_numpy_u32(m.ntt_fused(t["x"], field, pre_vec=t["v1"],
+                                   post_vec=t["post"], sel_mask=t["mask"],
+                                   sel_orig=t["orig"]))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[mask == 0], orig[mask == 0])
+    for merge in (False, True):
+        sel = dict(sel_mask=j["mask"], sel_orig=j["x"]) if merge else {}
+        want = np.asarray(jmfa.ntt_pair_pallas(
+            j["x"], rf, pre_vec1=j["v1"], pre_vec2=j["v2"],
+            post_vec=j["post"], interpret=True, tile=(8, 128), **sel))
+        sel = dict(sel_mask=t["mask"], sel_orig=t["x"]) if merge else {}
+        got = m.ntt_pair(t["x"], field, pre_vec1=t["v1"], pre_vec2=t["v2"],
+                         post_vec=t["post"], **sel)
+        np.testing.assert_array_equal(to_numpy_u32(got), want)
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_decode_passes_match_staged_reference(field):
+    """Each new pass's plain version at a small split vs the reference's
+    staged jnp composition: K5 (table, then pass A), K6 (the seam with a
+    table in the middle) and K7-sel (pass B, table, select)."""
+    from fastecc_tpu.ntt import mul_prepared as jmul
+    n, c, lanes = 1 << 6, 4, 5
+    r = n // c
+    x = rand_field(field, (n, lanes))
+    (v1, v2, post), mask = rand_tables(field, n)
+    rf = _ref(field)
+    jx = jnp.asarray(x)
+    x3 = from_numpy_u32(x, "cpu").reshape(c, r, lanes)
+    tv = {k: from_numpy_u32(a, "cpu") for k, a in
+          dict(v1=v1, v2=v2, post=post, mask=mask).items()}
+    # K5 + K3 is the NTT of v1 * x
+    col = m.col_pass_plain(x3, field, pre_vec=tv["v1"])
+    want = np.asarray(jntt_staged(jmul(rf, jx, jnp.asarray(v1)[:, None]), rf))
+    np.testing.assert_array_equal(
+        to_numpy_u32(m.row_pass_plain(col, field)).reshape(n, lanes), want)
+    # K1 -> K6 -> K7-sel is the decode pair on the swapped split
+    col1 = m.col_pass_plain(x3, field, inverse=True)
+    col2 = m.seam_pass_plain(col1, field, pre_vec2=tv["v2"])
+    got = m.row_pass_plain(col2, field, post_vec=tv["post"],
+                           sel_mask=tv["mask"],
+                           sel_orig=x3.reshape(col2.shape))
+    coeffs = jntt_staged(jx, rf, inverse=True)
+    y = jmul(rf, jntt_staged(jmul(rf, coeffs, jnp.asarray(v2)[:, None]), rf),
+             jnp.asarray(post)[:, None])
+    want = np.where(mask[:, None] != 0, np.asarray(y), x)
+    np.testing.assert_array_equal(to_numpy_u32(got).reshape(n, lanes), want)
+
+
+def test_fusion_contracts_raise_value_error():
+    """The reference's asserts on the fusions are ValueErrors here."""
+    f = fields.GF32
+    x = from_numpy_u32(rand_field(f, (16, 2)), "cpu")
+    v = from_numpy_u32(rand_field(f, 16), "cpu")
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        m.ntt_fused(x, f, pre_seed=3, pre_vec=v)
+    with pytest.raises(ValueError, match="requires post_vec"):
+        m.ntt_fused(x, f, sel_mask=v, sel_orig=x)
+    with pytest.raises(ValueError, match="go together"):
+        m.ntt_fused(x, f, post_vec=v, sel_mask=v)
+    with pytest.raises(ValueError, match="exactly one"):
+        m.ntt_pair(x, f)
+    with pytest.raises(ValueError, match="exactly one"):
+        m.ntt_pair(x, f, pre_seed2=3, pre_vec2=v)
+    with pytest.raises(ValueError, match="go together"):
+        m.row_pass_post(x.reshape(4, 4, 2), f, v, sel_orig=x)
 
 
 @pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
@@ -140,9 +243,13 @@ def test_launch_counts_only_count_launches():
     """Plain versions (CPU tensors) never touch the launch counts."""
     m.reset_launches()
     x = from_numpy_u32(rand_field(fields.GF32, (64, 4)), "cpu")
+    v = from_numpy_u32(rand_field(fields.GF32, 64), "cpu")
     m.ntt_coset_pair(x, fields.GF32, fields.GF32.root_of_order(128))
     m.ntt_fused(x, fields.GF32, pre_seed=5)
-    assert set(m.LAUNCHES.values()) == {0}
+    m.ntt_fused(x, fields.GF32, pre_vec=v, post_vec=v, sel_mask=v,
+                sel_orig=x)
+    m.ntt_pair(x, fields.GF32, pre_vec1=v, pre_vec2=v, post_vec=v)
+    assert len(m.LAUNCHES) == 8 and set(m.LAUNCHES.values()) == {0}
 
 
 def test_ctypes_signatures_match_c_entries():

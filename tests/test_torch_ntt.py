@@ -118,10 +118,29 @@ def test_ntt_auto_lane_axes_and_numpy_input():
 
 
 def test_ntt_auto_decode_fusions_not_ported():
-    x = from_numpy_u32(rand_field(fields.GF32, (16, 2)), "cpu")
-    for kw in ("pre_vec", "post_vec"):
-        with pytest.raises(NotImplementedError, match="K5-K7"):
-            ntt.ntt_auto(x, fields.GF32, **{kw: x[:, 0]})
+    """The decode fusions, once missing here, now run (K5, K7, K7-sel):
+    ntt_auto with pre_vec / post_vec / sel_* == the reference's in both
+    fields, and the contracts the reference asserts raise ValueError."""
+    n = 1 << 5
+    mask = (np.arange(n) % 3 == 0).astype(np.uint32)
+    for field in FIELDS:
+        x = rand_field(field, (n, 3))
+        v = rand_field(field, (2, n))
+        orig = rand_field(field, (n, 3))
+        tx = from_numpy_u32(x, "cpu")
+        for kw in ({"pre_vec": v[0]}, {"inverse": True, "post_vec": v[1]},
+                   {"pre_vec": v[0], "post_vec": v[1], "sel_mask": mask,
+                    "sel_orig": orig}):
+            want = np.asarray(jntt.ntt_auto(
+                jnp.asarray(x), _ref(field),
+                **{k: jnp.asarray(a) if isinstance(a, np.ndarray) else a
+                   for k, a in kw.items()}))
+            got = to_numpy_u32(ntt.ntt_auto(tx, field, **kw))
+            np.testing.assert_array_equal(got, want, err_msg=str(list(kw)))
+    with pytest.raises(ValueError, match="requires post_vec"):
+        ntt.ntt_auto(tx, field, sel_mask=mask, sel_orig=x)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        ntt.ntt_auto(tx, field, pre_seed=3, pre_vec=v[0])
 
 
 @pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
