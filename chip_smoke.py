@@ -7,12 +7,14 @@ Drives ``fastecc_tpu_torch`` (never JAX or ``fastecc_tpu``) through its
 main path on the card and fails loudly on any fault. Phases:
 
   1. build   — compile the Hopper kernels from ``fastecc_tpu_torch/csrc``;
-  2. kernels — each of K1-K7 (K7 in both its forms) against its plain
-               PyTorch version on the card, at the shapes phases 4-8 give
+  2. kernels — each of K1-K10 (K7 in both its forms) against its plain
+               PyTorch version on the card, at the shapes phases 4-10 give
                it (on a 16-lane slice) and at small orders with a ragged
                lane count, both fields, with random prepared tables (GF16
-               ones holding 0x10000) and masks about half set; bit-exact
-               (``torch.equal``, tolerance 0: exact integer arithmetic);
+               ones holding 0x10000) and masks about half set, and K10 on
+               outputs that are ~90% 0x10000 (saturated bitmap words);
+               bit-exact (``torch.equal``, tolerance 0: exact integer
+               arithmetic);
   3. golden  — the JAX package's pinned SHA-256 digests (codewords of
                tests/test_rs.py, GF32 wire blob of tests/test_wire_golden.py)
                reproduced through the kernels;
@@ -28,7 +30,15 @@ main path on the card and fails loudly on any fault. Phases:
                against encode_parity of the packed data, and its first
                and last 8 lanes (the ragged edge at 1088) against the
                plain staged transforms;
-  7. decode  — the reference bench's decode (bench.py:184): GF32,
+  7. wire16  — the reference bench's GF16 wire encode (bench.py:244):
+               k = 2^13 blocks of 64 KB, encode_blocks_gf16_parts (K8 ->
+               K9 -> K10) against the generic route on the card (pack_data
+               -> encode_parity on K1 -> K2 -> K3 -> serialize_parity) on
+               every lane, with escapes present, and its first and last 8
+               lanes against the plain staged transforms; median of 5 timed
+               calls (wire GB/s = n * B / time); then encode_blocks at
+               B = 4096, bytes against the generic route's;
+  8. decode  — the reference bench's decode (bench.py:184): GF32,
                n = 2^20, k = 2^19, 512 lanes, the codeword from rs.encode
                on the card with e = 2^19 random erasures overwritten with
                garbage; tables from prepare_decode_tables (the device
@@ -36,20 +46,27 @@ main path on the card and fails loudly on any fault. Phases:
                checked against the codeword on all 512 lanes, and the
                merge=False form (K7) at the erased rows; median of 5
                timed calls;
-  8. decode_small — BASELINE.json:10 as users meet it: the all-device
+  9. decode_small — BASELINE.json:10 as users meet it: the all-device
                decode at n = 2^13, e = 2^12, 1024 lanes; decode_blocks
                over exactly k of 2^13 4 KB blocks (data and parity mixed,
                one all-0xFF block); decode_wire_parts (GF32, n = 2^18,
-               4 KB blocks) against the raw blocks' u32 image.
+               4 KB blocks) against the raw blocks' u32 image;
+ 10. extras  — verify_codeword on phase 4's full-width GF32 codeword
+               (True, then False after one word changes);
+               update_parity_multi over three blocks at that width against
+               a re-encode; encode_parity_batch against per-stripe calls;
+               encode_parity_stream and decode_stream on host arrays
+               against one call; each timed.
 
-Launch counts are reset to 0 before each main-path run (phases 4-8) and
+Launch counts are reset to 0 before each main-path run (phases 4-10) and
 read right after it; each run must launch every kernel of its path. The
-second-to-last line is a JSON object with, per kernel, its launches,
-its time at the main-path shape, the plain version's time, and the bound
-(the larger of bytes over the memory rate and integer multiplies over
-the multiply rate); the last line is the {"ok": true, ...} device
-record. Exits non-zero, printing no result, without a CUDA device or
-without the package beside it.
+third-to-last line lists the launches by path; the second-to-last is a
+JSON object with the card and, per kernel, its launches, its time at the
+main-path shape, the plain version's time, and the bound (the larger of
+bytes over the memory rate and integer multiplies over the multiply
+rate); the last line is the {"ok": true, ...} device record. Exits
+non-zero, printing no result, without a CUDA device or without the
+package beside it.
 """
 
 from __future__ import annotations
@@ -87,7 +104,11 @@ REPLACES = {
     "K6_seam_vec": "fastecc_tpu/kernels/ntt_mfa.py:563",
     "K7_row_post": "fastecc_tpu/kernels/ntt_mfa.py:308",
     "K7_row_post_sel": "fastecc_tpu/kernels/ntt_mfa.py:320",
+    "K8_col_wire16": "fastecc_tpu/kernels/ntt_mfa.py:1099",
+    "K9_seam_wire16": "fastecc_tpu/kernels/ntt_mfa.py:1123",
+    "K10_row_wire16": "fastecc_tpu/kernels/ntt_mfa.py:1147",
 }
+WIRE16 = ("K8_col_wire16", "K9_seam_wire16", "K10_row_wire16")
 SOURCE = "fastecc_tpu_torch/csrc/ntt_mfa.cu"
 
 
@@ -156,7 +177,11 @@ def stage_mulmods(a: int) -> int:
 
 def pass_mulmods(kind: str, a: int, sel_frac: float = 1.0) -> float:
     """Per lane-column multiplies of a pass with transform length a
-    (``sel_frac``: the share of rows K7-sel multiplies, e/n)."""
+    (``sel_frac``: the share of rows K7-sel multiplies, e/n). The wire
+    passes are K1, K2 and K3 on two halves (per-half lane columns)."""
+    twin = dict(zip(WIRE16, ("K1_col", "K2_seam", "K3_row")))
+    if kind in twin:
+        return 2 * pass_mulmods(twin[kind], a)
     if kind == "K3_row":
         return stage_mulmods(a)
     if kind in ("K1_col", "K7_row_post"):
@@ -170,9 +195,10 @@ def pass_mulmods(kind: str, a: int, sel_frac: float = 1.0) -> float:
 
 def bound(kind: str, field, shape, sel_frac: float = 1.0
           ) -> tuple[float, str]:
-    """(least time in ms, what bounds it) for a pass over ``shape``. Bytes:
-    the input read and the output written once, the [N] tables read once,
-    and for K7-sel the original read at surviving rows only."""
+    """(least time in ms, what bounds it) for a pass over ``shape`` (for
+    the wire passes, one half's [A, B, Wu]). Bytes: the input read and the
+    output written once, the [N] tables read once, and for K7-sel the
+    original read at surviving rows only."""
     a, b, lanes = shape
     words = a * b * lanes
     nbytes = 2 * 4 * words                            # read once, write once
@@ -180,6 +206,12 @@ def bound(kind: str, field, shape, sel_frac: float = 1.0
         nbytes += 4 * a * b                           # the [N] table
     if kind == "K7_row_post_sel":
         nbytes += 4 * words * (1 - sel_frac) + 8 * a * b   # orig; table, mask
+    if kind == "K8_col_wire16":
+        nbytes = 4 * words + 8 * words                # pairs in; lo, hi out
+    if kind == "K9_seam_wire16":
+        nbytes = 16 * words                           # lo, hi in and out
+    if kind == "K10_row_wire16":
+        nbytes = 8 * words + 4 * words + words // 2   # lo, hi in; stored, bitmap
     # GF32: the two words of a*b; for p = 0xFFF00001 the REDC's m and
     # (m*p) >> 32 are shift/add chains (fastecc_tpu_torch/gf.py mont_mul)
     muls_per_mod = 2 if field.use_mont else 1
@@ -293,6 +325,55 @@ def phase_kernels(gen) -> dict:
             m.row_pass_plain(y, field, post_vec=v, sel_mask=mask, sel_orig=y),
             (field.name, n, "single"))
 
+    def wire16(k, wu):
+        """The wire pair's passes at k over wu lanes: K8, K9, K10."""
+        g = GF16.root_of_order(2 * k)
+        c1 = m._pair_split(k)
+        r1 = k // c1
+        x = torch.randint(-(1 << 31), 1 << 31, (c1, r1, wu),
+                          dtype=torch.int32, device="cuda",
+                          generator=gen).view(torch.uint32)
+        cmp("K8_col_wire16", m.col_pass_wire16(x, GF16),
+            m.col_pass_wire16_plain(x, GF16), ("wire16", k, wu))
+        y = rand_field(GF16.p, (2, r1, c1, wu), gen)
+        cmp("K9_seam_wire16", m.seam_pass_wire16(y, GF16, g),
+            m.seam_pass_wire16_plain(y, GF16, g), ("wire16", k, wu))
+        z = rand_field(GF16.p, (2, c1, r1, wu), gen)
+        for got, want in zip(m.wire16_pass_b2(z[0], z[1], GF16),
+                             m.row_pass_wire16_plain(z[0], z[1], GF16)):
+            cmp("K10_row_wire16", got, want, ("wire16", k, wu))
+
+    def dense_escapes(r2, c2, wu):
+        """K10 on inputs whose transform output is ~90% 0x10000 in each
+        half (tests/test_pallas.py's adversarial case): bitmap groups with
+        many bits at once, saturated 0xFFFF words among them."""
+        from fastecc_tpu_torch import interop, ntt
+        rng = np.random.default_rng(7)
+        k = r2 * c2
+
+        def half():
+            vals = rng.integers(0, 0x10000, (r2, c2, wu)).astype(np.uint32)
+            want = np.where(rng.random((r2, c2, wu)) < 0.9,
+                            np.uint32(0x10000), vals)
+            pre = ntt.ntt_host(want.reshape(r2, c2 * wu), GF16, inverse=True)
+            return want.reshape(k, wu), interop.from_numpy_u32(
+                pre.reshape(r2, c2, wu))
+
+        want_lo, lo = half()
+        want_hi, hi = half()
+        st = (want_lo & 0xFFFF) | ((want_hi & 0xFFFF) << np.uint32(16))
+        sh = (2 * np.arange(8)).astype(np.uint32)
+        bm = (((want_lo >> 16).reshape(k, wu // 8, 8) << sh)
+              | ((want_hi >> 16).reshape(k, wu // 8, 8) << (sh + 1))).sum(
+                  axis=-1).astype(np.uint32)
+        check((bm == 0xFFFF).any(), "dense case has saturated words")
+        got = m.wire16_pass_b2(lo, hi, GF16)
+        for g_, plain, w in zip(got, m.row_pass_wire16_plain(lo, hi, GF16),
+                                (st, bm)):
+            cmp("K10_row_wire16", g_, plain, ("dense escapes", r2, c2, wu))
+            cmp("K10_row_wire16", g_, interop.from_numpy_u32(w),
+                ("dense escapes, expected", r2, c2, wu))
+
     # main-path shapes: encode_r2 (k = 2^19), encode_r4 (k = 2^18, the
     # coset NTTs' K4), ntt (2^20), wire (k = 2^14); the decode pair at
     # 2^20 (decode) and 2^13 (decode_blocks), the single-transform decode
@@ -318,6 +399,13 @@ def phase_kernels(gen) -> dict:
             decode_single(field, k, 13)
     say("[kernels] orders 4, 8, 128, 13 lanes, GF32 and GF16: "
         "K1-K7 == plain")
+    # the wire16 phase's k = 2^13 (both block sizes), GF16's largest pair,
+    # and small orders with Wu a multiple of 8 but not of the lane tile
+    for k, wu in ((1 << 13, 16), (1 << 15, 16), (4, 8), (1 << 7, 40)):
+        wire16(k, wu)
+    dense_escapes(16, 16, 256)
+    say("[kernels] wire16 at k = 2^13, 2^15 (16 lanes), 4 (8), 2^7 (40) "
+        "and dense escapes: K8-K10 == plain")
     return worst
 
 
@@ -578,6 +666,112 @@ def phase_wire(gen, launches, times):
     profile_once(lambda: rs.encode_blocks(raw, GF32), "wire")
 
 
+def wire16_edge_ref(words: torch.Tensor, n: int):
+    """(stored, bitmap word) of 8 lanes of u32 pairs from the plain staged
+    transforms: each half encoded on its own, then re-packed."""
+    from fastecc_tpu_torch import gf
+    from fastecc_tpu_torch.fields import GF16
+    x = gf.widen(words)
+    lo, hi = (gf.widen(staged_encode_ref(gf.narrow(h), GF16, n))
+              for h in (x & 0xFFFF, x >> 16))
+    shifts = 2 * torch.arange(8, device=x.device)
+    bits = ((lo >> 16) << shifts) | ((hi >> 16) << (shifts + 1))
+    return (gf.narrow((lo & 0xFFFF) | ((hi & 0xFFFF) << 16)),
+            gf.narrow(bits.sum(dim=1)))
+
+
+def generic_wire16(raw: torch.Tensor) -> torch.Tensor:
+    """The generic GF16 route, an independent composition: pack_data ->
+    encode_parity (K1 -> K2 -> K3) -> serialize_parity."""
+    from fastecc_tpu_torch import packing, rs
+    from fastecc_tpu_torch.fields import GF16
+    return packing.serialize_parity(
+        rs.encode_parity(packing.pack_data(raw, GF16), GF16), GF16)
+
+
+def phase_wire16(gen, launches, times, shapes):
+    from fastecc_tpu_torch import gf, rs
+    from fastecc_tpu_torch.fields import GF16
+    from fastecc_tpu_torch.kernels import ntt_mfa as m
+    from fastecc_tpu_torch.utils.timer import median, time_samples
+
+    # bench.py:244: GF16, 2^13 blocks of 64 KB (2^14 u32 pairs per block)
+    k, block = 1 << 13, 1 << 16
+    n, wu = 2 * k, block // 4
+    raw = torch.randint(0, 256, (k, block), dtype=torch.uint8, device="cuda",
+                        generator=gen)
+    words = raw.view(torch.uint32)
+    stored, bm = run_path("wire16", lambda: rs.encode_blocks_gf16_parts(words),
+                          launches, WIRE16)
+    check(tuple(stored.shape) == (k, wu) and tuple(bm.shape) == (k, wu // 8),
+          "wire16 parts shapes")
+    wire = run_path("wire16_generic", lambda: generic_wire16(raw), launches,
+                    ("K1_col", "K2_seam", "K3_row"))
+    check(torch.equal(rs.wire_gf16_from_parts(stored, bm), wire),
+          "encode_blocks_gf16_parts != the generic route's wire bytes")
+    esc = int((gf.widen(bm) != 0).sum().item())
+    check(esc > 0, "no escape bits at the wire16 shape")
+    del wire
+    for l0 in (0, wu - 8):
+        st_ref, bm_ref = wire16_edge_ref(words[:, l0:l0 + 8].contiguous(), n)
+        check(torch.equal(stored[:, l0:l0 + 8], st_ref)
+              and torch.equal(bm[:, l0 // 8], bm_ref),
+              f"wire16 lanes {l0}-{l0 + 7} != plain staged")
+    say(f"[wire16] parts == the generic route's wire bytes on all {wu} "
+        f"pair lanes ({esc} bitmap words with escapes); lanes 0-7 and "
+        f"{wu - 8}-{wu - 1} == plain staged transforms")
+    del stored, bm
+    samples = time_samples(lambda: rs.encode_blocks_gf16_parts(words),
+                           iters=5, warmup=1)
+    t = median(samples)
+    times["wire16_s"] = t
+    times["wire16_gbps"] = n * block / t / 1e9
+    gsamples = time_samples(lambda: generic_wire16(raw), iters=3, warmup=1)
+    times["wire16_generic_s"] = median(gsamples)
+    say(f"[wire16] 2^13 x 64 KB median {t * 1e3:.3f} ms of "
+        f"{[round(s * 1e3, 3) for s in samples]} -> "
+        f"{times['wire16_gbps']:.2f} GB/s wire (n*B); the generic route "
+        f"{times['wire16_generic_s'] * 1e3:.3f} ms (a figure, not a claim)")
+    profile_once(lambda: rs.encode_blocks_gf16_parts(words), "wire16")
+
+    # per-kernel device times at the main-path shapes
+    g = GF16.root_of_order(n)
+    x3 = words.reshape(m._pair_split(k), -1, wu)
+    h1 = m.col_pass_wire16(x3, GF16)
+    h2 = m.seam_pass_wire16(h1, GF16, g)
+    times["K8_col_wire16"] = event_ms(lambda: m.col_pass_wire16(x3, GF16))
+    times["K9_seam_wire16"] = event_ms(lambda: m.seam_pass_wire16(h1, GF16, g))
+    times["K10_row_wire16"] = event_ms(
+        lambda: m.wire16_pass_b2(h2[0], h2[1], GF16))
+    shapes["K8_col_wire16"] = tuple(x3.shape)
+    shapes["K9_seam_wire16"] = tuple(h1.shape[1:])
+    shapes["K10_row_wire16"] = tuple(h2.shape[1:])
+    times["plain_K8_col_wire16"] = chunked_ms(
+        lambda x: m.col_pass_wire16_plain(x, GF16), x3, 128)
+    times["plain_K9_seam_wire16"] = chunked_ms(
+        lambda y: m.seam_pass_wire16_plain(y, GF16, g), h1, 128)
+    times["plain_K10_row_wire16"] = chunked_ms(
+        lambda lo, hi: m.row_pass_wire16_plain(lo, hi, GF16), h2[0], 128,
+        h2[1])
+    for kk in WIRE16:
+        say(f"[wire16] {kk} {times[kk]:.3f} ms on {shapes[kk]} per half, "
+            f"plain {times['plain_' + kk]:.1f} ms")
+    del x3, h1, h2
+
+    # encode_blocks, bytes in and out, at the default 4 KB wire format
+    raw4 = raw[:, :4096].contiguous()
+    del raw, words
+    blob = run_path("wire16_blocks", lambda: rs.encode_blocks(raw4, GF16),
+                    launches, WIRE16)
+    check(blob.dtype == torch.uint8 and torch.equal(blob,
+                                                    generic_wire16(raw4)),
+          "GF16 encode_blocks != the generic route's bytes")
+    say(f"[wire16_blocks] encode_blocks 2^13 x 4 KB == the generic route's "
+        f"{tuple(blob.shape)} bytes")
+    del raw4, blob
+    torch.cuda.empty_cache()
+
+
 def garbage_rows(cw: torch.Tensor, erased: np.ndarray, p: int, gen):
     """A copy of ``cw`` with the rows in ``erased`` overwritten by random
     field values (the decoder must not read them)."""
@@ -736,6 +930,91 @@ def phase_decode_small(gen, launches, times):
     torch.cuda.empty_cache()
 
 
+def phase_extras(gen, launches, times):
+    from fastecc_tpu_torch import decode, gf, rs, testing
+    from fastecc_tpu_torch.fields import GF32
+    from fastecc_tpu_torch.interop import to_numpy_u32 as host_u32
+    from fastecc_tpu_torch.utils.timer import median, time_samples
+
+    # verify_codeword on phase 4's full-width codeword, then one word off
+    k, lanes = 1 << 19, 1024
+    n = 2 * k
+    data = rand_field(GF32.p, (k, lanes), gen)
+    cw = rs.encode(data, GF32, n)
+    ok = run_path("verify", lambda: rs.verify_codeword(cw, GF32, k),
+                  launches, ("K1_col", "K3_row"))
+    check(bool(ok), "verify_codeword(encode(data)) is False")
+    times["verify_s"] = median(time_samples(
+        lambda: rs.verify_codeword(cw, GF32, k), iters=3, warmup=0))
+    word = cw.view(torch.int32)[12345:12346, 678:679]
+    word.copy_(gf.narrow((gf.widen(word.view(torch.uint32)) + 1)
+                         % GF32.p).view(torch.int32))
+    check(not bool(rs.verify_codeword(cw, GF32, k)),
+          "verify_codeword misses a changed word")
+    say(f"[verify] 2^20 x 1024 codeword: True, False after one word "
+        f"changes; {times['verify_s'] * 1e3:.3f} ms")
+    del cw
+
+    # a partial-stripe write of three blocks at the same width
+    par = rs.encode_parity(data, GF32, n)
+    idxs = (0, 12345, k - 1)
+    rows = torch.tensor(idxs, device="cuda")
+    old = data.view(torch.int32)[rows].view(torch.uint32)
+    new = rand_field(GF32.p, (len(idxs), lanes), gen)
+    upd = run_path("update_parity", lambda: rs.update_parity_multi(
+        par, idxs, old, new, GF32), launches, ())
+    data.view(torch.int32)[rows] = new.view(torch.int32)
+    check(torch.equal(upd, rs.encode_parity(data, GF32, n)),
+          "update_parity_multi != re-encode")
+    times["update_s"] = median(time_samples(lambda: rs.update_parity_multi(
+        par, idxs, old, new, GF32), iters=3, warmup=0))
+    say(f"[update_parity] 3 of 2^19 blocks x 1024 lanes == re-encode; "
+        f"{times['update_s'] * 1e3:.3f} ms")
+    del data, par, old, new, upd
+    torch.cuda.empty_cache()
+
+    # many small stripes in one encode
+    batch = rand_field(GF32.p, (16, 1 << 13, 64), gen)
+    got = run_path("batch", lambda: rs.encode_parity_batch(batch, GF32),
+                   launches, ("K1_col", "K2_seam", "K3_row"))
+    for i in range(batch.shape[0]):
+        check(torch.equal(got[i], rs.encode_parity(batch[i], GF32)),
+              f"encode_parity_batch stripe {i} != its own encode")
+    say("[batch] 16 stripes of 2^13 x 64 == per-stripe encode_parity")
+
+    # out-of-core streams over lane chunks: host arrays in and out
+    ks, ls = 1 << 16, 2048
+    ns = 2 * ks
+    host = host_u32(rand_field(GF32.p, (ks, ls), gen))
+    sp = run_path("encode_stream", lambda: rs.encode_parity_stream(
+        host, GF32, chunk_lanes=512), launches,
+        ("K1_col", "K2_seam", "K3_row"))
+    check(np.array_equal(sp, host_u32(rs.encode_parity(host, GF32))),
+          "encode_parity_stream != one encode_parity")
+    times["encode_stream_s"] = median(time_samples(
+        lambda: rs.encode_parity_stream(host, GF32, chunk_lanes=512),
+        iters=3, warmup=0))
+    times["encode_onecall_s"] = median(time_samples(
+        lambda: host_u32(rs.encode_parity(host, GF32)), iters=3, warmup=0))
+    cwh = host_u32(rs.encode(host, GF32))
+    erased = testing.random_erasures(ns, ns - ks, seed=0x57)
+    bad = cwh.copy()
+    bad[erased] = 0x12345
+    ds = run_path("decode_stream", lambda: decode.decode_stream(
+        bad, erased, GF32, chunk_lanes=512), launches,
+        ("K5_col_vec", "K6_seam_vec", "K7_row_post_sel"))
+    check(np.array_equal(ds, cwh), "decode_stream != the codeword")
+    times["decode_stream_s"] = median(time_samples(
+        lambda: decode.decode_stream(bad, erased, GF32, chunk_lanes=512),
+        iters=3, warmup=0))
+    say(f"[streams] encode_parity_stream 2^16 x {ls} (4 chunks) == one "
+        f"call: {times['encode_stream_s'] * 1e3:.3f} ms (one call with its "
+        f"copies {times['encode_onecall_s'] * 1e3:.3f} ms); decode_stream "
+        f"2^17 x {ls}, e = 2^16 == the codeword: "
+        f"{times['decode_stream_s'] * 1e3:.3f} ms (tables included)")
+    torch.cuda.empty_cache()
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -751,7 +1030,7 @@ def main() -> int:
               "false)", file=sys.stderr)
         return 2
     import fastecc_tpu_torch  # noqa: F401  (fails outside the repo)
-    from fastecc_tpu_torch.fields import GF32
+    from fastecc_tpu_torch.fields import GF16, GF32
 
     t_start = time.perf_counter()
     say(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
@@ -766,8 +1045,10 @@ def main() -> int:
     phase_encode(gen, launches, times, shapes)
     phase_ntt(gen, launches, times)
     phase_wire(gen, launches, times)
+    phase_wire16(gen, launches, times, shapes)
     phase_decode(gen, launches, times, shapes)
     phase_decode_small(gen, launches, times)
+    phase_extras(gen, launches, times)
 
     total = {k: sum(p[k] for p in launches.values()) for k in REPLACES}
     for k, v in total.items():
@@ -775,7 +1056,8 @@ def main() -> int:
     card = card_line()
     kernels = []
     for k in REPLACES:
-        b_ms, b_by = bound(k, GF32, shapes[k], times["sel_frac"])
+        b_ms, b_by = bound(k, GF16 if k in WIRE16 else GF32, shapes[k],
+                           times["sel_frac"])
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[k], "launches": total[k],
@@ -791,13 +1073,19 @@ def main() -> int:
         f"{times['decode_s'] * 1e3:.3f} ms = {times['decode_gbps']:.2f} GB/s "
         f"codeword (tables {times['tables_s'] * 1e3:.1f} ms); decode 2^13 x "
         f"1024: {times['decode_small_s'] * 1e3:.3f} ms; wire decode 2^17 "
-        f"blocks: {times['wire_decode_s'] * 1e3:.3f} ms; "
+        f"blocks: {times['wire_decode_s'] * 1e3:.3f} ms; GF16 wire 2^13 x "
+        f"64 KB: {times['wire16_s'] * 1e3:.3f} ms = "
+        f"{times['wire16_gbps']:.2f} GB/s wire (generic route "
+        f"{times['wire16_generic_s'] * 1e3:.3f} ms); verify 2^20 x 1024: "
+        f"{times['verify_s'] * 1e3:.3f} ms; update 3 blocks: "
+        f"{times['update_s'] * 1e3:.3f} ms; "
         f"{time.perf_counter() - t_start:.0f} s total")
-    say(card)
     by_path = {path: {k: v for k, v in d.items() if v}
                for path, d in launches.items()}
-    say(json.dumps({"card": card, "kernels": kernels,
-                    "launches_by_path": by_path}, separators=(",", ":")))
+    say(json.dumps({"launches_by_path": by_path}, separators=(",", ":")))
+    say(card)
+    say(json.dumps({"card": card, "kernels": kernels},
+                   separators=(",", ":")))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,8 +11,13 @@ Public API (module names mirror ``fastecc_tpu``):
   ntt.ntt_auto                     — NTT along axis 0 (kernels on CUDA)
   rs.encode_parity / rs.encode     — field-domain RS encode
   rs.encode_blocks(_parts)         — raw bytes in, wire parity out (GF32)
+  rs.encode_blocks_gf16_parts /
+    rs.wire_gf16_from_parts        — the GF16 wire pair (K8 -> K9 -> K10)
+  rs.update_parity(_multi), rs.verify_codeword, rs.encode_parity_batch,
+    rs.encode_parity_stream        — partial writes, scrub, batches, streams
   decode.prepare_decode_tables /
     decode.decode_prepared         — erasure decode (K5 -> K6 -> K7-sel)
+  decode.decode_stream             — out-of-core decode over lane chunks
   decode.decode_blocks             — surviving wire blocks in, data out
   decode.decode_wire_parts         — all-data-erased wire decode
   testing                          — erasure-pattern generators

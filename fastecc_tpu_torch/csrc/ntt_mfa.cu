@@ -23,6 +23,14 @@
 //   K7-sel fecc_row_post_sel <- _row_kernel_post_sel (K7, then
 //                           out[k] = mask[k] ? out[k] : orig[k]: the
 //                           erased-row merge)
+// and the GF16 wire pair, whose lanes are u32 pairs of little-endian u16
+// wire words:
+//   K8 fecc_col_wire16  <- _col_kernel_wire16  (K1 on lo = x & 0xFFFF and
+//                          on hi = x >> 16)
+//   K9 fecc_seam_wire16 <- _seam_kernel_wire16 (K2 on lo and on hi)
+//   K10 fecc_row_wire16 <- _row_kernel_wire16  (K3 on lo and on hi, then
+//                          stored = lo16 | hi16 << 16 and the escape
+//                          bitmap)
 // They compute what the Pallas kernels compute, not how: the output is
 // bit-identical (canonical residues), while the C x R split, the tile and
 // the twiddle tables are this port's own.
@@ -59,6 +67,23 @@
 // A <= 1024) keeps both buffers at 32 KB so three blocks share an SM; no
 // TMA, cp.async ring or persistent blocks yet (later work). Ragged lane
 // edges are masked.
+//
+// The wire pair. Lo and hi are independent lane sets; the reference kept
+// them as two arrays only because a lane concatenate is a paid relayout
+// on the TPU. Here K8 and K9 put the half in the grid (the fastest block
+// index, so a column's two blocks run side by side and K8's second read
+// of the same input tile comes from L2) and keep both halves in one
+// [2, ...] tensor. K10 needs both halves of a row in one block to re-pack
+// them, so it runs lo's stages, parks the result and runs hi's in a third
+// tile buffer, then writes the stored words and one escape word per group
+// of 8 lanes (bit 2t for lo, 2t + 1 for hi of lane 8g + t: v >> 16 is the
+// escape flag, as GF16 values are <= 0x10000). The reference's MXU
+// compaction and transposed bitmap were Mosaic workarounds, not ported.
+// Its extra pointers ride TableArgs, which keeps PassArgs at 112 bytes.
+// At the bench's shape (k = 2^13 blocks of 64 KB: 512 MiB of pairs in) the
+// three passes move 1.5, 2 and 1.56 GiB, a 1.62 ms floor at 3.35 TB/s;
+// their GF16 multiplies (one 32-bit product each) need under a tenth of
+// that.
 
 #include <cstddef>
 #include <cstdint>
@@ -81,16 +106,33 @@ constexpr int kMaxLen = 1024;     // longest pass the splits give (2^20)
 
 enum Mode : int {
   kCol = 0, kColPre = 1, kSeam = 2, kRow = 3,
-  kColVec = 4, kSeamVec = 5, kRowPost = 6, kRowPostSel = 7
+  kColVec = 4, kSeamVec = 5, kRowPost = 6, kRowPostSel = 7,
+  kColWire16 = 8, kSeamWire16 = 9, kRowWire16 = 10
 };
 
 __host__ __device__ constexpr bool is_row(int mode) {
   return mode == kRow || mode == kRowPost || mode == kRowPostSel;
 }
 
-// Shared words beyond the two tile buffers: one [A] row of factors, and
-// for K7-sel a second [A] row for the mask.
-constexpr int scratch_rows(int mode) { return mode == kRowPostSel ? 2 : 1; }
+// K8 and K9 run each column twice, once per half (the grid's fastest
+// index); their input and output are [2, A * B * L] (K8's input is one).
+__host__ __device__ constexpr bool has_halves(int mode) {
+  return mode == kColWire16 || mode == kSeamWire16;
+}
+
+constexpr bool is_wire16(int mode) { return mode >= kColWire16; }
+
+// [A, TL] tile buffers: two to ping-pong the stages, a third for K10's
+// parked lo result.
+__host__ __device__ constexpr int tile_bufs(int mode) {
+  return mode == kRowWire16 ? 3 : 2;
+}
+
+// Shared words beyond the tile buffers: one [A] row of factors, for
+// K7-sel a second [A] row for the mask, none for K10.
+constexpr int scratch_rows(int mode) {
+  return mode == kRowPostSel ? 2 : mode == kRowWire16 ? 0 : 1;
+}
 
 struct PassArgs {
   const uint32_t* x;
@@ -116,10 +158,13 @@ struct PassArgs {
 // through a pointer into the parameter space near each use instead of
 // once at entry: on the H100 that made K1 9% and K3 5% slower (a
 // 136-byte against a 112-byte PassArgs, same kernels, same inputs).
+// K10's hi input and bitmap output travel here for the same reason.
 struct TableArgs {
   const uint32_t* vec;   // [A * B] general table (K5, K6, K7)
   const uint32_t* mask;  // [A * B] erased-row mask (K7-sel)
   const uint32_t* orig;  // [A, B, L] rows kept where mask is 0 (K7-sel)
+  const uint32_t* hi;    // [A, B, L] hi half; x holds lo (K10)
+  uint32_t* bitmap;      // [A * B, L / 8] escape words (K10)
 };
 
 // One radix-2 Stockham DIF stage of size a = A >> s (d = 2^s finished
@@ -216,6 +261,58 @@ __device__ __forceinline__ void vec_row(uint32_t* scratch,
     scratch[a] = v[(size_t)a * B + b];
 }
 
+// K10 on column b, lanes [l0, l0 + TL): the stages on the lo tile (p.x)
+// and the hi tile (t.hi), then the re-pack and the escape words.
+template <int F>
+__device__ __forceinline__ void row_wire16(const PassArgs& p,
+                                           const TableArgs& t,
+                                           uint32_t* smem, int b, int l0) {
+  const int tile = p.A << p.log_tl;
+  const int tl_mask = (1 << p.log_tl) - 1;
+  uint32_t* buf0 = smem;
+  uint32_t* buf1 = smem + tile;
+  uint32_t* buf2 = smem + 2 * tile;
+  for (int e = threadIdx.x; e < tile; e += blockDim.x) {
+    int l = e & tl_mask, a = e >> p.log_tl;
+    uint32_t vl = 0, vh = 0;
+    if (l0 + l < p.L) {
+      size_t i = ((size_t)a * p.B + b) * p.L + l0 + l;
+      vl = p.x[i];
+      vh = t.hi[i];
+    }
+    buf0[e] = vl;
+    buf2[e] = vh;
+  }
+  __syncthreads();
+  uint32_t* lo = run_stages<F>(buf0, buf1, p.A, p.log_a, p.log_tl, p.tw1,
+                               p.w31);
+  uint32_t* hi = run_stages<F>(buf2, lo == buf0 ? buf1 : buf0, p.A, p.log_a,
+                               p.log_tl, p.tw1, p.w31);
+  // natural order, as K3: stored[k, b, l] of [A, B, L]; a u32 shift drops
+  // hi's bit 16, so 0x10000 is stored as 0 in either half
+  for (int e = threadIdx.x; e < tile; e += blockDim.x) {
+    int l = e & tl_mask, k = e >> p.log_tl;
+    if (l0 + l < p.L)
+      p.out[((size_t)k * p.B + b) * p.L + l0 + l] =
+          (lo[e] & 0xFFFFu) | (hi[e] << 16);
+  }
+  // bitmap[k * B + b, g] for the TL / 8 groups of this tile (L % 8 == 0
+  // and TL >= 8, so a group is wholly inside or wholly past the edge)
+  const int log_g = p.log_tl - 3;
+  const int words = p.L >> 3;
+  for (int e = threadIdx.x; e < (p.A << log_g); e += blockDim.x) {
+    int g = e & ((1 << log_g) - 1), k = e >> log_g;
+    int w = (l0 >> 3) + g;
+    if (w >= words) continue;
+    int e0 = (k << p.log_tl) + (g << 3);
+    uint32_t bits = 0;
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      bits |= (lo[e0 + q] >> 16) << (2 * q) | (hi[e0 + q] >> 16) << (2 * q + 1);
+    t.bitmap[((size_t)k * p.B + b) * words + w] = bits;
+  }
+}
+
 template <int F, int MODE>
 __global__ void __launch_bounds__(kThreads) pass_kernel(PassArgs p,
                                                         TableArgs t) {
@@ -223,27 +320,38 @@ __global__ void __launch_bounds__(kThreads) pass_kernel(PassArgs p,
   const int tile = p.A << p.log_tl;
   uint32_t* buf0 = smem;
   uint32_t* buf1 = smem + tile;
-  uint32_t* scratch = smem + 2 * tile;  // [A] per-row factors
+  uint32_t* scratch = smem + tile_bufs(MODE) * tile;  // [A] per-row factors
   const int tl_mask = (1 << p.log_tl) - 1;
-  const int lt = blockIdx.x % p.lane_tiles;
-  const int b = blockIdx.x / p.lane_tiles;
+  const int half = has_halves(MODE) ? blockIdx.x & 1 : 0;
+  const unsigned blk = has_halves(MODE) ? blockIdx.x >> 1 : blockIdx.x;
+  const int lt = blk % p.lane_tiles;
+  const int b = blk / p.lane_tiles;
   const int l0 = lt << p.log_tl;
+  // K8 and K9 write half `half` of a [2, ...] output; K9 reads one too
+  const size_t half_off = (size_t)half * p.A * p.B * p.L;
+  const uint32_t* x = p.x + (MODE == kSeamWire16 ? half_off : 0);
+  uint32_t* out = p.out + half_off;
 
+  if (MODE == kRowWire16) {
+    row_wire16<F>(p, t, smem, b, l0);
+    return;
+  }
   if (MODE == kColPre) rank1_row<F>(scratch, p, b);
   if (MODE == kColVec) vec_row(scratch, t.vec, p.A, p.B, b);
   if (MODE == kColPre || MODE == kColVec) __syncthreads();
   for (int e = threadIdx.x; e < tile; e += blockDim.x) {
     int l = e & tl_mask, a = e >> p.log_tl;
     uint32_t v = 0;
-    if (l0 + l < p.L) v = p.x[((size_t)a * p.B + b) * p.L + l0 + l];
+    if (l0 + l < p.L) v = x[((size_t)a * p.B + b) * p.L + l0 + l];
     if (MODE == kColPre || MODE == kColVec) v = mul_full<F>(v, scratch[a]);
+    if (MODE == kColWire16) v = half ? v >> 16 : v & 0xFFFFu;
     buf0[e] = v;
   }
   __syncthreads();
   uint32_t* y = run_stages<F>(buf0, buf1, p.A, p.log_a, p.log_tl, p.tw1, p.w31);
 
-  if (MODE == kSeam || MODE == kSeamVec) {
-    if (MODE == kSeam) rank1_row<F>(scratch, p, b);
+  if (MODE == kSeam || MODE == kSeamVec || MODE == kSeamWire16) {
+    if (MODE != kSeamVec) rank1_row<F>(scratch, p, b);
     else vec_row(scratch, t.vec, p.A, p.B, b);
     __syncthreads();
     for (int e = threadIdx.x; e < tile; e += blockDim.x)
@@ -283,7 +391,7 @@ __global__ void __launch_bounds__(kThreads) pass_kernel(PassArgs p,
   for (int e = threadIdx.x; e < tile; e += blockDim.x) {
     int l = e & tl_mask, k = e >> p.log_tl;
     if (l0 + l < p.L)
-      p.out[((size_t)b * p.A + k) * p.L + l0 + l] = mul_full<F>(y[e], scratch[k]);
+      out[((size_t)b * p.A + k) * p.L + l0 + l] = mul_full<F>(y[e], scratch[k]);
   }
 }
 
@@ -295,7 +403,8 @@ int log2_exact(int v) {
 
 template <int F, int MODE>
 cudaError_t launch(PassArgs p, TableArgs t, cudaStream_t stream) {
-  size_t smem = (2 * ((size_t)p.A << p.log_tl) + scratch_rows(MODE) * p.A) *
+  size_t smem = (tile_bufs(MODE) * ((size_t)p.A << p.log_tl) +
+                 scratch_rows(MODE) * p.A) *
                 sizeof(uint32_t);
   auto kernel = pass_kernel<F, MODE>;
   if (smem > 48 * 1024) {
@@ -303,11 +412,13 @@ cudaError_t launch(PassArgs p, TableArgs t, cudaStream_t stream) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  unsigned blocks = (unsigned)p.B * (unsigned)p.lane_tiles;
+  unsigned blocks = (unsigned)p.B * (unsigned)p.lane_tiles *
+                    (has_halves(MODE) ? 2u : 1u);
   kernel<<<blocks, kThreads, smem, stream>>>(p, t);
   return cudaGetLastError();
 }
 
+// The wire modes are GF16 only (their lanes are u16 wire words).
 template <int MODE>
 int run(int field, PassArgs p, void* stream, TableArgs t = {}) {
   p.log_a = log2_exact(p.A);
@@ -315,11 +426,18 @@ int run(int field, PassArgs p, void* stream, TableArgs t = {}) {
     return (int)cudaErrorInvalidValue;
   int tl = kTileWords / p.A;
   if (tl > kMaxLaneTile) tl = kMaxLaneTile;
+  if (MODE == kRowWire16 && (p.L % 8 != 0 || tl < 8))
+    return (int)cudaErrorInvalidValue;     // whole bitmap groups per tile
   p.log_tl = log2_exact(tl);
   p.lane_tiles = (p.L + tl - 1) / tl;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = field == fecc::kGF32 ? launch<fecc::kGF32, MODE>(p, t, s)
-                                       : launch<fecc::kGF16, MODE>(p, t, s);
+  cudaError_t e;
+  if constexpr (is_wire16(MODE))
+    e = field == fecc::kGF16 ? launch<fecc::kGF16, MODE>(p, t, s)
+                             : cudaErrorInvalidValue;
+  else
+    e = field == fecc::kGF32 ? launch<fecc::kGF32, MODE>(p, t, s)
+                             : launch<fecc::kGF16, MODE>(p, t, s);
   return (int)e;
 }
 
@@ -444,6 +562,52 @@ int fecc_row_post_sel(int field, const void* x, void* out, int A, int B,
   return run<kRowPostSel>(field, p, stream,
                            {(const uint32_t*)vec, (const uint32_t*)mask,
                             (const uint32_t*)orig});
+}
+
+// K8: [A=C1, B=R1, L=Wu] u32 pairs of LE u16 words -> [2, R1, C1, L]:
+// K1 on lo = x & 0xFFFF (half 0) and on hi = x >> 16 (half 1).
+int fecc_col_wire16(int field, const void* x, void* out, int A, int B, int L,
+                    const void* tw, const void* w3, const void* seed,
+                    const void* t0, int tr, void* stream) {
+  PassArgs p = base_args(x, out, A, B, L);
+  p.tw1 = (const uint32_t*)tw;
+  p.w31 = (const uint32_t*)w3;
+  p.seed = (const uint32_t*)seed;
+  p.t0 = (const uint32_t*)t0;
+  p.log_tr = log2_exact(tr);
+  return run<kColWire16>(field, p, stream);
+}
+
+// K9: [2, A=R1, B=C1, L] -> [2, C1, R1, L]; K2 on each half.
+int fecc_seam_wire16(int field, const void* x, void* out, int A, int B, int L,
+                     const void* tw1, const void* w31, const void* tw2,
+                     const void* w32, const void* seed, const void* t0, int tr,
+                     const void* pcol, const void* prow, void* stream) {
+  PassArgs p = base_args(x, out, A, B, L);
+  p.tw1 = (const uint32_t*)tw1;
+  p.w31 = (const uint32_t*)w31;
+  p.tw2 = (const uint32_t*)tw2;
+  p.w32 = (const uint32_t*)w32;
+  p.seed = (const uint32_t*)seed;
+  p.t0 = (const uint32_t*)t0;
+  p.log_tr = log2_exact(tr);
+  p.pcol = (const uint32_t*)pcol;
+  p.prow = (const uint32_t*)prow;
+  return run<kSeamWire16>(field, p, stream);
+}
+
+// K10: lo, hi [A=R2, B=C2, L] -> stored [R2, C2, L] (natural order, as
+// K3) and bitmap [R2 * C2, L / 8]; L % 8 == 0.
+int fecc_row_wire16(int field, const void* lo, const void* hi, void* stored,
+                    void* bitmap, int A, int B, int L, const void* tw,
+                    const void* w3, void* stream) {
+  PassArgs p = base_args(lo, stored, A, B, L);
+  p.tw1 = (const uint32_t*)tw;
+  p.w31 = (const uint32_t*)w3;
+  TableArgs t{};
+  t.hi = (const uint32_t*)hi;
+  t.bitmap = (uint32_t*)bitmap;
+  return run<kRowWire16>(field, p, stream, t);
 }
 
 const char* fecc_error_string(int code) {

@@ -39,6 +39,7 @@ from .interop import as_tensor, resolve_device
 from .kernels import ntt_mfa
 from .ntt import _log2, mul_prepared, ntt_auto, ntt_host, prepare_consts
 from .rs import data_positions, parity_positions  # noqa: F401 (re-export)
+from .rs import _chunk, _upload, stream_lane_chunks
 
 
 @functools.lru_cache(maxsize=None)
@@ -342,6 +343,32 @@ def decode_prepared(codeword, mask, l_eval_prep, lp_inv_prep,
     return out.reshape(cw.shape)
 
 
+def decode_stream(codeword: np.ndarray, erased_idx, field: FieldSpec,
+                  chunk_lanes: int = 1024, out: np.ndarray | None = None,
+                  k: int | None = None, device=None) -> np.ndarray:
+    """Out-of-core decode for codewords larger than device memory: the
+    host [n, L] u32 codeword streams through ``device`` (default: the
+    card) in ``chunk_lanes``-wide slices with the depth-2 pipeline of
+    ``rs.stream_lane_chunks``; the tables are built once and every chunk
+    runs :func:`decode_prepared`. Returns (or fills ``out`` with) the
+    [n, L] host result, bit-identical to :func:`decode_host_prepared`.
+    Pass ``k`` for the e <= n - k guard."""
+    n, lanes = codeword.shape
+    erased = _positions(erased_idx, "cpu").numpy()
+    _check_recoverable(int(erased.size), n, k)
+    chunk = _chunk(lanes, chunk_lanes)
+    dev = resolve_device(device)
+    tables = prepare_decode_tables(erased, n, field, device=dev)
+    if out is None:
+        out = np.empty((n, lanes), dtype=np.uint32)
+
+    def dispatch(off):
+        return decode_prepared(_upload(codeword[:, off:off + chunk], dev),
+                               *tables, field)
+
+    return stream_lane_chunks(lanes, chunk, dispatch, out, dev)
+
+
 def decode_host_prepared(codeword, erased_idx, field: FieldSpec,
                          k: int | None = None, device=None) -> torch.Tensor:
     """Full decode with tables from :func:`prepare_decode_tables` on the
@@ -429,12 +456,12 @@ def decode_blocks(survivors: dict, n: int, k: int, field: FieldSpec,
     edge, so the wire's lane count needs no padding.
 
     ``check=True`` (the consistency check and error correction of the
-    reference) waits for ``verify_codeword`` and ``correct_errors``,
-    which are not ported yet: it raises ``NotImplementedError``."""
+    reference) waits for ``correct_errors``, which is not ported yet: it
+    raises ``NotImplementedError``."""
     if check:
         raise NotImplementedError(
-            "decode_blocks(check=True) needs verify_codeword and "
-            "correct_errors, which are not yet ported")
+            "decode_blocks(check=True) needs correct_errors, which is not "
+            "yet ported")
     if len(survivors) < k:
         raise ValueError(f"unrecoverable: {len(survivors)} survivors < k={k}")
     cw, present = survivors_to_codeword(survivors, n, k, field, block_bytes)

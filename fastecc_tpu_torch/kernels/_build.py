@@ -44,6 +44,11 @@ SIGNATURES = {
                       _P, _P],
     "fecc_row_post": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "fecc_row_post_sel": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "fecc_col_wire16": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+    "fecc_seam_wire16": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
+                         _P, _P, _P],
+    # (field, lo, hi, stored, bitmap, A, B, L, tw, w3, stream)
+    "fecc_row_wire16": [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
 }
 
 

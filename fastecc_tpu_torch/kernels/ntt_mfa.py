@@ -22,6 +22,14 @@ locator evaluations before A1; K6: the x d/dx table m in the seam; K7:
 the Forney inverse derivative after B2, and K7-sel also the erased-row
 merge where(mask[k] != 0, out[k], orig[k])).
 
+The GF16 wire pair (:func:`ntt_coset_pair_wire16`) is the encode pair
+over [k, Wu] u32 pairs of little-endian u16 wire words: K8 splits each
+pair into lo = x & 0xFFFF and hi = x >> 16 and runs K1 on both, K9 runs
+K2 on both, and K10 runs K3 on both and writes the wire parity directly:
+stored = lo16 | hi16 << 16 (0x10000 stored as 0) and the escape bitmap.
+Lo and hi are independent lane sets; between passes they are one
+[2, ...] tensor, half 0 lo and half 1 hi.
+
 Each pass has a wrapper and a plain PyTorch version here. The wrapper
 takes the plain version only for a CPU tensor; on a CUDA tensor it
 launches its Hopper kernel (``csrc/ntt_mfa.cu``) or raises, and counts
@@ -53,7 +61,8 @@ MAX_PASS_LEN = 1 << 10
 # Launches per kernel, counted by the wrappers where they launch.
 LAUNCHES = {"K1_col": 0, "K2_seam": 0, "K3_row": 0, "K4_col_pre": 0,
             "K5_col_vec": 0, "K6_seam_vec": 0, "K7_row_post": 0,
-            "K7_row_post_sel": 0}
+            "K7_row_post_sel": 0, "K8_col_wire16": 0, "K9_seam_wire16": 0,
+            "K10_row_wire16": 0}
 
 
 def reset_launches() -> None:
@@ -276,23 +285,25 @@ def row_pass_plain(y: torch.Tensor, field: FieldSpec, inverse: bool = False,
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
 
-def _cuda_input(x: torch.Tensor, name: str) -> None:
-    if x.dtype != torch.uint32 or x.dim() != 3 or not x.is_contiguous():
-        raise ValueError(f"{name}: needs a contiguous 3-D torch.uint32 "
+def _cuda_input(x: torch.Tensor, name: str, dims: int = 3) -> None:
+    """A pass input: contiguous u32 of ``dims`` axes, transform along
+    axis -3 (K9 takes [2, A, B, L])."""
+    if x.dtype != torch.uint32 or x.dim() != dims or not x.is_contiguous():
+        raise ValueError(f"{name}: needs a contiguous {dims}-D torch.uint32 "
                          f"tensor, got {x.dtype} {tuple(x.shape)}")
-    if not 2 <= x.shape[0] <= MAX_PASS_LEN:
-        raise ValueError(f"{name}: transform length {x.shape[0]} outside "
+    if not 2 <= x.shape[-3] <= MAX_PASS_LEN:
+        raise ValueError(f"{name}: transform length {x.shape[-3]} outside "
                          f"[2, {MAX_PASS_LEN}]")
 
 
-def _dispatch(x: torch.Tensor, name: str) -> bool:
+def _dispatch(x: torch.Tensor, name: str, dims: int = 3) -> bool:
     """True to launch the kernel (CUDA tensor), False for the plain
     version (CPU tensor); raises on any other device."""
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    _cuda_input(x, name)
+    _cuda_input(x, name, dims)
     return True
 
 
@@ -554,3 +565,155 @@ def ntt_coset_pair(x: torch.Tensor, field: FieldSpec,
     """The RS-encode pair NTT_g-coset(iNTT(x)): :func:`ntt_pair` with the
     coset powers g^m in the middle (K1 -> K2 -> K3)."""
     return ntt_pair(x, field, pre_seed2=pre_seed)
+
+
+# ---------------------------------------------------------------------------
+# The GF16 wire pair (K8 -> K9 -> K10).
+# ---------------------------------------------------------------------------
+
+# GF16's largest rate-1/2 order: p - 1 = 2^16 is its two-adic order, and
+# the pair's coset seed is a root of order 2k.
+MAX_WIRE16_K = 1 << 15
+
+
+def _wire16_supported(k: int, wu: int) -> bool:
+    """The port's gate for the fused GF16 wire pair over [k, Wu] u32
+    pairs: k a power of two in [4, 2^15] and whole bitmap groups of 8
+    lanes. (The reference's tile conditions are TPU tile facts.)"""
+    return (MIN_ORDER <= k <= MAX_WIRE16_K and k & (k - 1) == 0
+            and wu > 0 and wu % 8 == 0)
+
+
+def _check_gf16(field: FieldSpec, name: str) -> None:
+    if field.use_mont:
+        raise ValueError(f"{name}: the wire pair is the GF16 path")
+
+
+def col_pass_wire16_plain(x3: torch.Tensor, field: FieldSpec) -> torch.Tensor:
+    """Plain K8: [C1, R1, Wu] u32 pairs of LE u16 words -> [2, R1, C1, Wu]:
+    the encode pair's pass A1 (inverse, N^-1 folded in) on lo = x & 0xFFFF
+    (half 0) and on hi = x >> 16 (half 1)."""
+    (x,), u = gf._carried(x3)
+    halves = [col_pass_plain(h, field, inverse=True, scale=True)
+              for h in (x & 0xFFFF, x >> 16)]
+    return gf._ret(torch.stack(halves), u)
+
+
+def seam_pass_wire16_plain(y: torch.Tensor, field: FieldSpec,
+                           pre_seed2: int) -> torch.Tensor:
+    """Plain K9: [2, R1, C1, Wu] -> [2, C1, R1, Wu], K2 on each half."""
+    (y,), u = gf._carried(y)
+    return gf._ret(torch.stack([seam_pass_plain(h, field, pre_seed2)
+                                for h in y]), u)
+
+
+def row_pass_wire16_plain(lo2: torch.Tensor, hi2: torch.Tensor,
+                          field: FieldSpec):
+    """Plain K10: lo, hi [R2, C2, Wu] -> (stored [k, Wu], bitmap
+    [k, Wu/8]), k = R2*C2 in natural order. stored = lo16 | hi16 << 16
+    (0x10000 stored as 0); bitmap word g of a row holds bit 2t (lo) and
+    2t+1 (hi) for lane 8g + t where the value is 0x10000."""
+    (lo, hi), u = gf._carried(lo2, hi2)
+    r2, c2, wu = lo.shape
+    lo = row_pass_plain(lo, field).reshape(r2 * c2, wu)
+    hi = row_pass_plain(hi, field).reshape(r2 * c2, wu)
+    stored = (lo & 0xFFFF) | ((hi & 0xFFFF) << 16)
+    esc = ((lo >> 16) | ((hi >> 16) << 1)).reshape(r2 * c2, wu // 8, 8)
+    shifts = 2 * torch.arange(8, dtype=torch.int64, device=lo.device)
+    bitmap = (esc << shifts).sum(dim=-1)
+    return gf._ret(stored, u), gf._ret(bitmap, u)
+
+
+def col_pass_wire16(x3: torch.Tensor, field: FieldSpec) -> torch.Tensor:
+    """K8 (the wire pair's pass A1): [C1, R1, Wu] u32 pairs -> [2, R1, C1,
+    Wu], lo in half 0 and hi in half 1."""
+    _check_gf16(field, "col_pass_wire16")
+    if not _dispatch(x3, "col_pass_wire16"):
+        return col_pass_wire16_plain(x3, field)
+    c, r, lanes = x3.shape
+    dev = str(x3.device)
+    tr = _seed_tr(r)
+    tw, w3 = _stage_tables_on(field.name, c, True, dev)
+    seed, t0 = _seeds_on(field.name, c * r, c, True, True, tr, dev)
+    out = torch.empty((2, r, c, lanes), dtype=torch.uint32, device=x3.device)
+    with torch.cuda.device(x3.device):
+        _build.call("fecc_col_wire16", _field_code(field), x3.data_ptr(),
+                    out.data_ptr(), c, r, lanes, tw.data_ptr(), w3.data_ptr(),
+                    seed.data_ptr(), t0.data_ptr(), tr, _stream(x3))
+        LAUNCHES["K8_col_wire16"] += 1
+    return out
+
+
+def seam_pass_wire16(y: torch.Tensor, field: FieldSpec,
+                     pre_seed2: int) -> torch.Tensor:
+    """K9 (the wire pair's middle pass, g^m in the middle): [2, R1, C1,
+    Wu] u32 -> [2, C1, R1, Wu]."""
+    _check_gf16(field, "seam_pass_wire16")
+    if not _dispatch(y, "seam_pass_wire16", dims=4):
+        return seam_pass_wire16_plain(y, field, pre_seed2)
+    if y.shape[0] != 2:
+        raise ValueError(f"seam_pass_wire16: needs [2, R1, C1, Wu] halves, "
+                         f"got {tuple(y.shape)}")
+    _, r1, c1, lanes = y.shape
+    c2, r2 = r1, c1
+    dev = str(y.device)
+    tr = _seed_tr(r2)
+    tw1, w31 = _stage_tables_on(field.name, r1, True, dev)
+    tw2, w32 = _stage_tables_on(field.name, c2, False, dev)
+    seed, t0 = _seeds_on(field.name, c2 * r2, c2, False, False, tr, dev)
+    pcol, prow = _pre_on(field.name, pre_seed2 % field.p, c2, r2, tr, dev)
+    out = torch.empty((2, r2, c2, lanes), dtype=torch.uint32, device=y.device)
+    with torch.cuda.device(y.device):
+        _build.call("fecc_seam_wire16", _field_code(field), y.data_ptr(),
+                    out.data_ptr(), r1, c1, lanes, tw1.data_ptr(),
+                    w31.data_ptr(), tw2.data_ptr(), w32.data_ptr(),
+                    seed.data_ptr(), t0.data_ptr(), tr, pcol.data_ptr(),
+                    prow.data_ptr(), _stream(y))
+        LAUNCHES["K9_seam_wire16"] += 1
+    return out
+
+
+def wire16_pass_b2(lo2: torch.Tensor, hi2: torch.Tensor, field: FieldSpec):
+    """K10 (the wire pair's pass B2, callable on its own): lo, hi
+    [R2, C2, Wu] u32 -> (stored [k, Wu], bitmap [k, Wu/8]) u32, the wire
+    parity's two parts (see :func:`row_pass_wire16_plain`); Wu % 8 == 0."""
+    _check_gf16(field, "wire16_pass_b2")
+    if lo2.dim() != 3 or hi2.shape != lo2.shape or lo2.shape[2] % 8:
+        raise ValueError(f"wire16_pass_b2: needs lo and hi of one [R2, C2, "
+                         f"Wu] shape with Wu % 8 == 0, got "
+                         f"{tuple(lo2.shape)} and {tuple(hi2.shape)}")
+    if not _dispatch(lo2, "wire16_pass_b2"):
+        return row_pass_wire16_plain(lo2, hi2, field)
+    r, c, lanes = lo2.shape
+    hi = _cuda_operand(hi2, lo2, lo2.numel(), "wire16_pass_b2: hi2")
+    tw, w3 = _stage_tables_on(field.name, r, False, str(lo2.device))
+    stored = torch.empty((r * c, lanes), dtype=torch.uint32,
+                         device=lo2.device)
+    bitmap = torch.empty((r * c, lanes // 8), dtype=torch.uint32,
+                         device=lo2.device)
+    with torch.cuda.device(lo2.device):
+        _build.call("fecc_row_wire16", _field_code(field), lo2.data_ptr(), hi,
+                    stored.data_ptr(), bitmap.data_ptr(), r, c, lanes,
+                    tw.data_ptr(), w3.data_ptr(), _stream(lo2))
+        LAUNCHES["K10_row_wire16"] += 1
+    return stored, bitmap
+
+
+def ntt_coset_pair_wire16(x_pairs: torch.Tensor, field: FieldSpec,
+                          pre_seed: int):
+    """The GF16 wire-domain RS-encode pair (the counterpart of
+    ``ntt_coset_pair_wire16_pallas``): [k, Wu] u32 pairs of LE u16 wire
+    words in, (stored [k, Wu], bitmap [k, Wu/8]) u32 out, in three passes
+    K8 -> K9 -> K10 on the port's pair split. Bit-exact equal to
+    serialize_parity(encode_parity(pack_data(...))) split at the
+    stored/bitmap boundary. GF16 only (each pass checks)."""
+    k, wu = x_pairs.shape
+    if not _wire16_supported(k, wu):
+        raise ValueError(f"ntt_coset_pair_wire16: needs k a power of two in "
+                         f"[{MIN_ORDER}, {MAX_WIRE16_K}] and Wu % 8 == 0, "
+                         f"got k={k} Wu={wu}")
+    c1 = _pair_split(k)
+    halves = col_pass_wire16(x_pairs.contiguous().reshape(c1, k // c1, wu),
+                             field)
+    halves = seam_pass_wire16(halves, field, pre_seed)
+    return wire16_pass_b2(halves[0], halves[1], field)

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels on the card: each of K1-K7 against its plain
+"""The port's CUDA kernels on the card: each of K1-K10 against its plain
 version, and the entry points on the card against the same calls on the
 CPU. Every test here needs a CUDA device and skips without one.
 
@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from fastecc_tpu_torch import decode, fields, ntt, rs, testing
+from fastecc_tpu_torch import decode, fields, gf, ntt, rs, testing
 from fastecc_tpu_torch.interop import from_numpy_u32
 from fastecc_tpu_torch.kernels import ntt_mfa as m
 
@@ -134,6 +134,85 @@ def test_card_refuses_what_it_does_not_run(cuda_device):
     x = from_numpy_u32(rand_field(fields.GF32, (2, 4)), cuda_device)
     with pytest.raises(ValueError, match="order >= 4"):
         ntt.ntt_auto(x, fields.GF32)
-    raw = torch.zeros((4, 64), dtype=torch.uint8, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="K8-K10"):
-        rs.encode_blocks(raw, fields.GF16)
+    words = torch.zeros((4, 16), dtype=torch.uint32, device=cuda_device)
+    with pytest.raises(ValueError, match="rate-1/2"):
+        rs.encode_blocks_gf16_parts(words, 16)
+
+
+@pytest.mark.parametrize("k,wu", [(4, 8), (1 << 7, 40), (1 << 10, 64),
+                                  (1 << 15, 8)])
+def test_wire16_kernels_match_plain_on_card(k, wu, cuda_device):
+    """K8, K9 and K10 vs their plain versions on the card, with Wu a
+    multiple of 8 but not of the lane tile; K10 also on outputs that are
+    mostly 0x10000 (dense escape words)."""
+    f = fields.GF16
+    g = f.root_of_order(2 * k)
+    c1 = m._pair_split(k)
+    r1 = k // c1
+    pairs = RNG.integers(0, 1 << 32, size=(c1, r1, wu), dtype=np.uint64)
+    x = from_numpy_u32(pairs.astype(np.uint32), cuda_device)
+    assert torch.equal(m.col_pass_wire16(x, f),
+                       m.col_pass_wire16_plain(x, f))
+    y = from_numpy_u32(rand_field(f, (2, r1, c1, wu)), cuda_device)
+    assert torch.equal(m.seam_pass_wire16(y, f, g),
+                       m.seam_pass_wire16_plain(y, f, g))
+    want = np.where(RNG.random((2, c1, r1, wu)) < 0.9, np.uint32(0x10000),
+                    rand_field(f, (2, c1, r1, wu)))
+    pre = np.stack([ntt.ntt_host(h.reshape(c1, -1), f, inverse=True)
+                    for h in want]).reshape(want.shape)
+    for z in (rand_field(f, (2, c1, r1, wu)), pre):
+        z = from_numpy_u32(z, cuda_device)
+        for a, b in zip(m.wire16_pass_b2(z[0], z[1], f),
+                        m.row_pass_wire16_plain(z[0], z[1], f)):
+            assert torch.equal(a, b)
+
+
+def test_wire16_encode_on_card_matches_cpu(cuda_device):
+    """encode_blocks(GF16) on the card runs K8 -> K9 -> K10 and gives the
+    CPU's bytes; a shape outside the wire pair's gate takes K1 -> K3."""
+    k = 1 << 8
+    raw = RNG.integers(0, 256, (k, 4096), dtype=np.uint8)
+    m.reset_launches()
+    got = rs.encode_blocks(raw, fields.GF16)
+    assert [m.LAUNCHES[n] for n in ("K8_col_wire16", "K9_seam_wire16",
+                                    "K10_row_wire16")] == [1, 1, 1]
+    assert torch.equal(got.cpu(), rs.encode_blocks(raw, fields.GF16,
+                                                   device="cpu"))
+    odd = raw[:, :100]
+    m.reset_launches()
+    got = rs.encode_blocks(odd, fields.GF16)
+    assert m.LAUNCHES["K2_seam"] == 1 and m.LAUNCHES["K8_col_wire16"] == 0
+    assert torch.equal(got.cpu(), rs.encode_blocks(odd, fields.GF16,
+                                                   device="cpu"))
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_extras_on_card_match_cpu(field, cuda_device):
+    """update_parity_multi, verify_codeword, encode_parity_batch and the
+    two streams on the card == on the CPU."""
+    k, lanes = 1 << 7, 64
+    n = 2 * k
+    data = rand_field(field, (k, lanes))
+    par = rs.encode_parity(data, field, device="cpu")
+    new = rand_field(field, (2, lanes))
+    idxs = (3, k - 1)
+    args = (idxs, data[list(idxs)], new, field)
+    assert torch.equal(rs.update_parity_multi(par.cuda(), *args).cpu(),
+                       rs.update_parity_multi(par, *args))
+    cw = gf.widen(rs.encode(data, field))
+    assert bool(rs.verify_codeword(gf.narrow(cw), field, k))
+    cw[5, 7] = (cw[5, 7] + 1) % field.p
+    assert not bool(rs.verify_codeword(gf.narrow(cw), field, k))
+    batch = rand_field(field, (3, k, 8))
+    assert torch.equal(rs.encode_parity_batch(batch, field).cpu(),
+                       rs.encode_parity_batch(batch, field, device="cpu"))
+    np.testing.assert_array_equal(
+        rs.encode_parity_stream(data, field, chunk_lanes=16),
+        rs.encode_parity_stream(data, field, chunk_lanes=16, device="cpu"))
+    cwh = rs.encode(data, field, device="cpu").view(torch.int32).numpy().view(
+        np.uint32)
+    erased = testing.random_erasures(n, k, seed=4)
+    np.testing.assert_array_equal(
+        decode.decode_stream(cwh, erased, field, chunk_lanes=16),
+        decode.decode_stream(cwh, erased, field, chunk_lanes=16,
+                             device="cpu"))
