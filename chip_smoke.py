@@ -56,15 +56,31 @@ main path on the card and fails loudly on any fault. Phases:
                update_parity_multi over three blocks at that width against
                a re-encode; encode_parity_batch against per-stripe calls;
                encode_parity_stream and decode_stream on host arrays
-               against one call; each timed.
+               against one call; each timed;
+ 11. peaks   — the microbenchmark kernels against their plain versions,
+               bit-exact: K13 (the copy) at ragged sizes and unaligned, K14
+               (the chains) for every variant at depth 3 and at its default
+               depth on four 512-row tiles, K15 (the fused chains) on the
+               three fused configs at one and two row tiles, depth 2; then
+               microbench.measure_peaks() at the reference's full sizes (a
+               1024 MiB copy, 64 MiB chains, 64 row tiles), printed as one
+               JSON line; then each kernel again at those sizes against
+               its plain version (the 256 MiB and 1 GiB copies, every
+               variant on 64 MiB at its default depth, every fused config
+               on 64 row tiles), timed there, with torch's copy_ as K13's
+               library time; and profiling.encode_roofline(2^20, 1024)
+               under the published and the measured peaks beside phase
+               encode's time.
 
-Launch counts are reset to 0 before each main-path run (phases 4-10) and
-read right after it; each run must launch every kernel of its path. The
-third-to-last line lists the launches by path; the second-to-last is a
-JSON object with the card and, per kernel, its launches, its time at the
-main-path shape, the plain version's time, and the bound (the larger of
-bytes over the memory rate and integer multiplies over the multiply
-rate); the last line is the {"ok": true, ...} device record. Exits
+Launch counts are reset to 0 before each main-path run (phases 4-11) and
+read right after it; each run must launch every kernel of its path. Near
+the end come the launches by path, one detail line per kernel (source,
+the TPU kernel it replaces, the shape it was timed at), a JSON object
+with, per kernel, its launches, its time at the main-path shape, the
+plain version's time, the library call's where one computes the same
+function, and the bound (the larger of bytes over the memory rate and
+integer multiplies over the multiply rate), then the card's name and
+power limit; the last line is the {"ok": true, ...} device record. Exits
 non-zero, printing no result, without a CUDA device or without the
 package beside it.
 """
@@ -107,9 +123,14 @@ REPLACES = {
     "K8_col_wire16": "fastecc_tpu/kernels/ntt_mfa.py:1099",
     "K9_seam_wire16": "fastecc_tpu/kernels/ntt_mfa.py:1123",
     "K10_row_wire16": "fastecc_tpu/kernels/ntt_mfa.py:1147",
+    "K13_copy": "fastecc_tpu/kernels/microbench.py:37",
+    "K14_chain": "fastecc_tpu/kernels/microbench.py:210",
+    "K15_fused_chain": "fastecc_tpu/kernels/microbench.py:271",
 }
 WIRE16 = ("K8_col_wire16", "K9_seam_wire16", "K10_row_wire16")
-SOURCE = "fastecc_tpu_torch/csrc/ntt_mfa.cu"
+PEAKS = ("K13_copy", "K14_chain", "K15_fused_chain")
+SOURCE = {k: "fastecc_tpu_torch/csrc/" + (
+    "microbench.cu" if k in PEAKS else "ntt_mfa.cu") for k in REPLACES}
 
 
 def check(cond: bool, what: str) -> None:
@@ -133,6 +154,14 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((gf.widen(a) - gf.widen(b)).abs().max().item())
 
 
+def compare(worst: dict, name: str, got: torch.Tensor, want: torch.Tensor,
+            what) -> None:
+    """Fail unless the kernel's ``got`` equals the plain ``want`` bit for
+    bit; records the largest error under ``name``."""
+    worst[name] = max(worst.get(name, 0), max_abs_err(got, want))
+    check(torch.equal(got, want), f"{name} != plain at {what}")
+
+
 def event_ms(fn, reps: int = 5) -> float:
     """Mean device time of ``fn()`` in ms over ``reps`` runs (CUDA events),
     after one warm-up run."""
@@ -148,17 +177,21 @@ def event_ms(fn, reps: int = 5) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def chunked_ms(fn, x: torch.Tensor, chunk: int, *more) -> float:
+def chunked_ms(fn, x: torch.Tensor, chunk: int, *more,
+               outs: list | None = None) -> float:
     """Device time in ms of ``fn`` applied to every ``chunk``-lane slice
     of ``x`` (and of each tensor in ``more``, sliced alike; lanes are the
     last axis and independent): the plain versions at full width need
-    more memory than the card has."""
+    more memory than the card has. ``outs``, if given, collects each
+    slice's result in lane order."""
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
     for l0 in range(0, x.shape[-1], chunk):
-        fn(*(t[..., l0:l0 + chunk].contiguous() for t in (x,) + more))
+        y = fn(*(t[..., l0:l0 + chunk].contiguous() for t in (x,) + more))
+        if outs is not None:
+            outs.append(y)
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1)
@@ -191,6 +224,27 @@ def pass_mulmods(kind: str, a: int, sel_frac: float = 1.0) -> float:
     if kind in ("K4_col_pre", "K5_col_vec"):
         return stage_mulmods(a) + 2 * a               # + pre multiply, twiddle
     return 2 * stage_mulmods(a) + 2 * a               # seams K2, K6
+
+
+def peaks_bound(kind: str, shape) -> tuple[float, str]:
+    """(least time in ms, what bounds it) of a microbenchmark kernel at
+    ``shape``. K13 copies n words: 8n bytes. K14 (solinas, [rows, 128] at
+    depth d) reads x and z and writes y, 12 bytes per element, and does 2
+    multiplies per step (the two words of a*b). K15 ([c, rows, 128] at
+    depth d) reads and writes each word once and does a c-point
+    transform's multiplies d times, 2 per GF32 mulmod."""
+    if kind == "K13_copy":
+        nbytes, muls = 8 * shape[0], 0
+    elif kind == "K14_chain":
+        rows, lanes, depth = shape
+        nbytes, muls = 12 * rows * lanes, 2 * rows * lanes * depth
+    else:
+        c, rows, lanes, depth = shape
+        nbytes = 8 * c * rows * lanes
+        muls = 2 * stage_mulmods(c) * rows * lanes * depth
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = muls / INT_MULS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def bound(kind: str, field, shape, sel_frac: float = 1.0
@@ -242,12 +296,10 @@ def phase_kernels(gen) -> dict:
     from fastecc_tpu_torch.fields import GF16, GF32
     from fastecc_tpu_torch.kernels import ntt_mfa as m
 
-    worst = {k: 0 for k in REPLACES}
+    worst = {k: 0 for k in REPLACES if k not in PEAKS}
 
     def cmp(name, got, want, what):
-        err = max_abs_err(got, want)
-        worst[name] = max(worst[name], err)
-        check(torch.equal(got, want), f"{name} != plain at {what}")
+        compare(worst, name, got, want, what)
 
     def pair(field, k, lanes):
         """The encode pair's passes at k: K1 (inverse), K2, K3."""
@@ -504,12 +556,13 @@ def run_path(name: str, fn, launches: dict, expect: tuple):
     """Run ``fn`` once with the counts reset just before and read just
     after; records them under ``name`` and fails unless every kernel in
     ``expect`` launched."""
-    from fastecc_tpu_torch.kernels import ntt_mfa
+    from fastecc_tpu_torch.kernels import microbench, ntt_mfa
     torch.cuda.synchronize()
     ntt_mfa.reset_launches()
+    microbench.reset_launches()
     out = fn()
     torch.cuda.synchronize()
-    launches[name] = dict(ntt_mfa.LAUNCHES)
+    launches[name] = {**ntt_mfa.LAUNCHES, **microbench.LAUNCHES}
     say(f"[{name}] launches {launches[name]}")
     for k in expect:
         check(launches[name][k] > 0, f"{name} did not launch {k}")
@@ -1015,6 +1068,119 @@ def phase_extras(gen, launches, times):
     torch.cuda.empty_cache()
 
 
+def phase_peaks(gen, launches, times, shapes, worst):
+    from fastecc_tpu_torch.fields import FIELDS, GF32
+    from fastecc_tpu_torch.kernels import microbench as mb
+    from fastecc_tpu_torch.utils import profiling
+
+    def cmp(name, got, want, what):
+        compare(worst, name, got, want, what)
+
+    # K13 at ragged sizes, and from a pointer that is not 16-byte aligned
+    words = torch.randint(-(1 << 31), 1 << 31, ((1 << 20) + 3,),
+                          dtype=torch.int32, device="cuda",
+                          generator=gen).view(torch.uint32)
+    for n in (1, 5, (1 << 20) + 3):
+        cmp("K13_copy", mb.copy(words[:n]), words[:n].clone(), n)
+    cmp("K13_copy", mb.copy(words[1:]), words[1:].clone(), "unaligned")
+    # K14, every variant, at depth 3 and at its default depth
+    x, z = mb.chain_inputs(4 * mb._TS, "cuda")
+    for v in mb._VARIANTS:
+        deep = mb._COMPOSITE_DEPTH if v in mb._COMPOSITE else mb._DEFAULT_DEPTH
+        for depth in (3, deep):
+            cmp("K14_chain", mb.chain(x, z, v, depth),
+                mb.chain_plain(x, z, v, depth), (v, depth))
+    # K15 on the three fused configs
+    for key, cfg in mb._FUSED_CONFIGS.items():
+        field = FIELDS[cfg["field_name"]]
+        for rows_tiles in (1, 2):
+            xf = mb.fused_inputs(field, cfg["c"], rows_tiles, "cuda")
+            cmp("K15_fused_chain", mb.fused_chain(xf, field, 2),
+                mb.fused_chain_plain(xf, field, 2), (key, rows_tiles))
+    say(f"[peaks] K13 (ragged, unaligned), K14 ({len(mb._VARIANTS)} "
+        f"variants at depth 3 and their default), K15 (3 configs, 1-2 row "
+        f"tiles, depth 2) == plain")
+    del words, x, z, xf
+
+    # the main path: the reference's measure_peaks at its full sizes
+    peaks = run_path("peaks", mb.measure_peaks, launches, PEAKS)
+    want = ({"hbm_stream_gbps"} | {mb.peak_key(v) for v in mb._VARIANTS}
+            | set(mb._FUSED_CONFIGS))
+    check(set(peaks) == want, f"measure_peaks keys {sorted(peaks)}")
+    check(all(np.isfinite(v) and v > 0 for v in peaks.values()),
+          "every peak is a positive rate")
+    line = json.dumps({"peaks": peaks}, separators=(",", ":"))
+    check(len(line) < 1500, f"peaks line is {len(line)} characters")
+    say(line)
+    times["peaks"] = peaks
+
+    # Each kernel again at the main path's shapes, against its plain
+    # version, then timed there for its row. K13 on the 256 MiB and 1 GiB
+    # copies (many grid-stride passes per thread), beside torch's copy_
+    for mib in (256, 1024):
+        src = torch.arange(mib << 18, dtype=torch.int32,
+                           device="cuda").view(torch.uint32)
+        dst = torch.empty_like(src)
+        cmp("K13_copy", mb.copy(src), src, f"{mib} MiB")
+        k13 = event_ms(lambda: mb.copy(src))
+        lib = event_ms(lambda: dst.copy_(src))
+        say(f"[peaks] {mib} MiB copy: K13 {k13:.4f} ms "
+            f"({2 * src.numel() * 4 / k13 / 1e6:.1f} GB/s), copy_ "
+            f"{lib:.4f} ms ({2 * src.numel() * 4 / lib / 1e6:.1f} GB/s)")
+    times["K13_copy"], times["library_K13_copy"] = k13, lib
+    times["plain_K13_copy"] = event_ms(lambda: src.clone())
+    shapes["K13_copy"] = (src.numel(),)
+    del src, dst
+    # K14: every variant on the 64 MiB [131072, 128] at its default depth;
+    # the row is the solinas chain at depth 128
+    rows = 64 * 1024 * 1024 // (4 * mb._TL)
+    x, z = mb.chain_inputs(rows, "cuda")
+    for v in mb._VARIANTS:
+        deep = mb._COMPOSITE_DEPTH if v in mb._COMPOSITE else mb._DEFAULT_DEPTH
+        cmp("K14_chain", mb.chain(x, z, v, deep),
+            mb.chain_plain(x, z, v, deep), (v, "64 MiB", deep))
+    times["K14_chain"] = event_ms(lambda: mb.chain(x, z, "solinas", 128))
+    times["plain_K14_chain"] = event_ms(
+        lambda: mb.chain_plain(x, z, "solinas", 128), reps=1)
+    shapes["K14_chain"] = (rows, mb._TL, 128)
+    del x, z
+    # K15: every fused config at 64 row tiles and depth 2, against the
+    # plain chain over 32-lane slices; the row is fused_gf32_c2048
+    for key, cfg in mb._FUSED_CONFIGS.items():
+        field = FIELDS[cfg["field_name"]]
+        xf = mb.fused_inputs(field, cfg["c"], 64, "cuda")
+        outs = []
+        plain_ms = chunked_ms(lambda v: mb.fused_chain_plain(v, field, 2),
+                              xf, 32, outs=outs)
+        cmp("K15_fused_chain", mb.fused_chain(xf, field, 2),
+            torch.cat(outs, dim=-1), (key, "64 row tiles"))
+        del outs
+        if key == "fused_gf32_c2048_gops":
+            times["K15_fused_chain"] = event_ms(
+                lambda: mb.fused_chain(xf, GF32, 2))
+            times["plain_K15_fused_chain"] = plain_ms
+            shapes["K15_fused_chain"] = tuple(xf.shape) + (2,)
+        del xf
+    torch.cuda.empty_cache()
+    say(f"[peaks] at the main path's shapes == plain: K13 (256 MiB, 1 GiB), "
+        f"K14 ({len(mb._VARIANTS)} variants, 64 MiB, default depth), K15 "
+        f"(3 configs, 64 row tiles, depth 2)")
+    for kk in PEAKS:
+        say(f"[peaks] {kk} {times[kk]:.4f} ms on {shapes[kk]}, plain "
+            f"{times['plain_' + kk]:.1f} ms")
+
+    # the encode's roofline under the published and the measured peaks
+    # (a one-pipe model: its compute time can be up to 2x the least time)
+    for name, pk in (("published", None), ("measured", peaks)):
+        r = profiling.encode_roofline(1 << 20, 1024, peaks=pk)
+        say(f"[peaks] encode_roofline(2^20, 1024), one-pipe, {name} peaks: "
+            f"{r['speed_of_light_s'] * 1e3:.4f} ms ({r['bound']}-bound; "
+            f"memory {r['t_memory_bound_s'] * 1e3:.4f}, compute "
+            f"{r['t_compute_bound_s'] * 1e3:.4f} ms); phase encode "
+            f"{times['encode_s'] * 1e3:.3f} ms = "
+            f"{times['encode_s'] / r['speed_of_light_s']:.2f}x")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1049,6 +1215,7 @@ def main() -> int:
     phase_decode(gen, launches, times, shapes)
     phase_decode_small(gen, launches, times)
     phase_extras(gen, launches, times)
+    phase_peaks(gen, launches, times, shapes, worst)
 
     total = {k: sum(p[k] for p in launches.values()) for k in REPLACES}
     for k, v in total.items():
@@ -1056,15 +1223,21 @@ def main() -> int:
     card = card_line()
     kernels = []
     for k in REPLACES:
-        b_ms, b_by = bound(k, GF16 if k in WIRE16 else GF32, shapes[k],
-                           times["sel_frac"])
+        if k in PEAKS:
+            b_ms, b_by = peaks_bound(k, shapes[k])
+        else:
+            b_ms, b_by = bound(k, GF16 if k in WIRE16 else GF32, shapes[k],
+                               times["sel_frac"])
+        lib = times.get("library_" + k)
+        say(f"[kernel] {k}: source {SOURCE[k]}, replaces {REPLACES[k]}, "
+            f"timed on {list(shapes[k])}")
         kernels.append({
-            "name": k, "route": "cuda", "source": SOURCE,
+            "name": k, "route": "cuda", "source": SOURCE[k],
             "replaces": REPLACES[k], "launches": total[k],
             "max_abs_err": worst[k], "ms": round(times[k], 4),
             "plain_ms": round(times["plain_" + k], 2),
             "bound_ms": round(b_ms, 4), "bound_by": b_by,
-            "library_ms": None, "shape": list(shapes[k]),
+            "library_ms": None if lib is None else round(lib, 4),
         })
     say(f"[summary] encode 2^20 x 1024 GF32: {times['encode_s'] * 1e3:.3f} ms"
         f" = {times['encode_gbps']:.2f} GB/s codeword; NTT 2^20 x 512: "
@@ -1078,14 +1251,15 @@ def main() -> int:
         f"{times['wire16_gbps']:.2f} GB/s wire (generic route "
         f"{times['wire16_generic_s'] * 1e3:.3f} ms); verify 2^20 x 1024: "
         f"{times['verify_s'] * 1e3:.3f} ms; update 3 blocks: "
-        f"{times['update_s'] * 1e3:.3f} ms; "
+        f"{times['update_s'] * 1e3:.3f} ms; copy "
+        f"{times['peaks']['hbm_stream_gbps']} GB/s, raw mul "
+        f"{times['peaks']['raw_mul_gops']} Gops/s; "
         f"{time.perf_counter() - t_start:.0f} s total")
     by_path = {path: {k: v for k, v in d.items() if v}
                for path, d in launches.items()}
     say(json.dumps({"launches_by_path": by_path}, separators=(",", ":")))
+    say(json.dumps({"kernels": kernels}, separators=(",", ":")))
     say(card)
-    say(json.dumps({"card": card, "kernels": kernels},
-                   separators=(",", ":")))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -24,6 +24,10 @@ Public API (module names mirror ``fastecc_tpu``):
   packing                          — the wire format
   interop                          — numpy <-> tensor, device policy
   kernels.ntt_mfa                  — the pass wrappers and their launches
+  kernels.microbench               — the card's peaks (copy, chains, fused
+                                     chains: K13-K15), measure_peaks
+  utils.profiling                  — the roofline model, torch.profiler
+  cli                              — gf-bench and roofline
 
 Entry points run on the card unless the caller passes CPU tensors or
 ``device="cpu"``; without a GPU they raise rather than fall back.

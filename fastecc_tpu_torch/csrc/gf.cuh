@@ -63,6 +63,45 @@ template <> __device__ __forceinline__ uint32_t mul_tw<kGF32>(uint32_t a, uint32
   return mul_full<kGF32>(a, b);
 }
 
+// The Solinas REDC for p = 0xFFF00001 = 2^32 - 2^20 + 1, the counterpart of
+// fastecc_tpu/gf.py mont_mul's default branch: only the two words of a * b
+// are multiplies. With n' = p - 2, m = lo * n' = -(lo + (lo << 20)) and
+// (m * p) >> 32 = m - (m >> 12) - [m < (m & 0xFFF) << 20]. The quotient
+// u = hi + mp_hi + [lo != 0] < 2p is reduced by the carry trick of add:
+// t2 = hi + carry + (2^32 - p) never wraps, and s = mp_hi + t2 wraps
+// exactly when u >= p. Bit-identical to mul_full<kGF32> (the generic REDC,
+// four multiplies), which the passes call.
+__device__ __forceinline__ uint32_t mul_solinas(uint32_t a, uint32_t b) {
+  uint32_t lo = a * b;
+  uint32_t hi = __umulhi(a, b);
+  uint32_t m = 0u - (lo + (lo << 20));
+  uint32_t mp_hi = m - (m >> 12) - (m < ((m & 0xFFFu) << 20) ? 1u : 0u);
+  uint32_t t2 = hi + (lo != 0u ? 1u : 0u) + kBias32;
+  uint32_t s = mp_hi + t2;
+  return s < t2 ? s : s - kBias32;
+}
+
+// The reference microbenchmark's "*-masksel" forms
+// (fastecc_tpu/kernels/microbench.py _addmod_masksel, _mont_mul_masksel):
+// the final select written as mask arithmetic, s - (bias & -[no wrap]).
+__device__ __forceinline__ uint32_t add_masksel(uint32_t a, uint32_t b) {
+  uint32_t t = b + kBias32;
+  uint32_t s = a + t;
+  uint32_t nw = s >= t ? 1u : 0u;
+  return s - (kBias32 & (0u - nw));
+}
+
+__device__ __forceinline__ uint32_t mul_solinas_masksel(uint32_t a, uint32_t b) {
+  uint32_t lo = a * b;
+  uint32_t hi = __umulhi(a, b);
+  uint32_t m = 0u - (lo + (lo << 20));
+  uint32_t mp_hi = m - (m >> 12) - (m < ((m & 0xFFFu) << 20) ? 1u : 0u);
+  uint32_t t2 = hi + (lo != 0u ? 1u : 0u) + kBias32;
+  uint32_t s = mp_hi + t2;
+  uint32_t nw = s >= t2 ? 1u : 0u;
+  return s - (kBias32 & (0u - nw));
+}
+
 template <> __device__ __forceinline__ uint32_t add<kGF16>(uint32_t a, uint32_t b) {
   uint32_t s = a + b;
   return s >= kP16 ? s - kP16 : s;

@@ -2,7 +2,8 @@
 
 The sources under ``fastecc_tpu_torch/csrc/`` have a plain C interface, so
 ``nvcc`` compiles them in seconds into a shared library (no PyTorch
-headers), loaded with ``ctypes``. The build happens on first use, into
+headers), loaded with ``ctypes``: one ``nvcc`` per source, all started
+together, then one link. The build happens on first use, into
 ``build/torch_kernels/`` at the repository root, under a name that hashes
 the sources and flags, so an edited source never loads a stale library.
 Every pointer and the stream pass as ``c_void_p``; every entry returns
@@ -25,10 +26,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("ntt_mfa.cu",)
-HEADERS = ("gf.cuh",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("ntt_mfa.cu", "microbench.cu")
+HEADERS = ("gf.cuh", "stages.cuh")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry -> argtypes (field, x, out, A, B, L, tables..., stream)
@@ -49,6 +51,12 @@ SIGNATURES = {
                          _P, _P, _P],
     # (field, lo, hi, stored, bitmap, A, B, L, tw, w3, stream)
     "fecc_row_wire16": [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # microbench.cu: (x, out, n, stream)
+    "fecc_copy": [_P, _P, ctypes.c_longlong, _P],
+    # (variant, x, z, out, rows, depth, stream)
+    "fecc_chain": [_I, _P, _P, _P, _I, _I, _P],
+    # (field, x, out, c, L, tw, w3, depth, stream)
+    "fecc_fused_chain": [_I, _P, _P, _I, _I, _P, _P, _I, _P],
 }
 
 
@@ -94,21 +102,33 @@ def build() -> Build:
     if target.exists():
         return Build(target, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(CSRC / s) for s in SOURCES)]
+    tmpdir = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     t0 = time.perf_counter()
+    log = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        objs = [tmpdir / (Path(s).stem + ".o") for s in SOURCES]
+        procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, "-c", "-o", str(o),
+                                   str(CSRC / s)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(SOURCES, objs)]
+        outs = [p.communicate()[0] for p in procs]
+        log.extend(outs)
+        for s, p, out in zip(SOURCES, procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {s} ({p.returncode}):\n"
+                                   f"{out}")
+        lib = tmpdir / "lib.so"
+        proc = subprocess.run([nvcc(), *ARCH, "-shared", "-o", str(lib),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        log.append(proc.stdout + proc.stderr)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, target)        # atomic: no reader sees half a file
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{log[-1]}")
+        os.replace(lib, target)        # atomic: no reader sees half a file
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return Build(target, time.perf_counter() - t0, proc.stdout + proc.stderr)
+        shutil.rmtree(tmpdir, ignore_errors=True)
+    return Build(target, time.perf_counter() - t0, "".join(log))
 
 
 def library() -> ctypes.CDLL:

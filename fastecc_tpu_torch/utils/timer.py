@@ -38,3 +38,11 @@ def median(samples) -> float:
     s = sorted(samples)
     m = len(s) // 2
     return float(s[m]) if len(s) % 2 else float((s[m - 1] + s[m]) / 2)
+
+
+def time_fn(fn, *args, iters: int = 3, warmup: int = 1) -> float:
+    """Best of ``iters`` fenced wall-time samples of ``fn(*args)`` in
+    seconds. Peak rates take the minimum (a slower sample is contention,
+    and the peaks feed lower bounds on time); headlines take the
+    :func:`median` of :func:`time_samples`."""
+    return min(time_samples(fn, *args, iters=iters, warmup=warmup))

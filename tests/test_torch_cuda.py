@@ -1,6 +1,6 @@
-"""The port's CUDA kernels on the card: each of K1-K10 against its plain
-version, and the entry points on the card against the same calls on the
-CPU. Every test here needs a CUDA device and skips without one.
+"""The port's CUDA kernels on the card: each of K1-K10 and K13-K15
+against its plain version, and the entry points on the card against the
+same calls on the CPU. Every test here needs a CUDA device and skips without one.
 
 The file imports neither JAX nor the JAX package, so it also runs on a
 machine with the card and no JAX; there the JAX-pinning conftest is left
@@ -15,6 +15,7 @@ import torch
 
 from fastecc_tpu_torch import decode, fields, gf, ntt, rs, testing
 from fastecc_tpu_torch.interop import from_numpy_u32
+from fastecc_tpu_torch.kernels import microbench as mb
 from fastecc_tpu_torch.kernels import ntt_mfa as m
 
 torch.set_num_threads(1)
@@ -216,3 +217,48 @@ def test_extras_on_card_match_cpu(field, cuda_device):
         decode.decode_stream(cwh, erased, field, chunk_lanes=16),
         decode.decode_stream(cwh, erased, field, chunk_lanes=16,
                              device="cpu"))
+
+
+def test_copy_kernel_matches_plain_on_card(cuda_device):
+    """K13 == clone at ragged sizes and on a pointer that is not 16-byte
+    aligned (the scalar path), and over 64 MiB, where the grid (one wave
+    of blocks) strides over the array many times."""
+    words = torch.from_numpy(RNG.integers(0, 1 << 32, 4099, dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32))
+    x = words.to(cuda_device).view(torch.uint32)
+    big = torch.arange((1 << 24) + 5, dtype=torch.int32,
+                       device=cuda_device).view(torch.uint32)
+    mb.reset_launches()
+    for n in (1, 3, 4, 1027, 4099):
+        assert torch.equal(mb.copy(x[:n]), x[:n].clone())
+    assert torch.equal(mb.copy(x[1:]), x[1:].clone())
+    assert torch.equal(mb.copy(big), big)
+    assert torch.equal(mb.copy(big[1:]), big[1:])
+    assert mb.LAUNCHES["K13_copy"] == 8
+
+
+@pytest.mark.parametrize("variant", list(mb._VARIANTS))
+def test_chain_kernel_matches_plain_on_card(variant, cuda_device):
+    """K14 == its plain version for every variant at depth 3 and at the
+    variant's default depth, on four 512-row tiles."""
+    x, z = mb.chain_inputs(4 * mb._TS, cuda_device)
+    deep = (mb._COMPOSITE_DEPTH if variant in mb._COMPOSITE
+            else mb._DEFAULT_DEPTH)
+    for depth in (0, 3, deep):
+        assert torch.equal(mb.chain(x, z, variant, depth),
+                           mb.chain_plain(x, z, variant, depth)), depth
+
+
+@pytest.mark.parametrize("key", list(mb._FUSED_CONFIGS))
+def test_fused_chain_kernel_matches_plain_on_card(key, cuda_device):
+    """K15 == its plain version on the three fused configs, one and two
+    row tiles, depth 2, and at c = 2 with a ragged lane count."""
+    cfg = mb._FUSED_CONFIGS[key]
+    field = fields.FIELDS[cfg["field_name"]]
+    for rows_tiles in (1, 2):
+        x = mb.fused_inputs(field, cfg["c"], rows_tiles, cuda_device)
+        assert torch.equal(mb.fused_chain(x, field, 2),
+                           mb.fused_chain_plain(x, field, 2)), rows_tiles
+    y = from_numpy_u32(rand_field(field, (2, 37)), cuda_device)
+    assert torch.equal(mb.fused_chain(y, field, 3),
+                       mb.fused_chain_plain(y, field, 3))

@@ -31,8 +31,9 @@ def test_port_imports_no_jax():
         "import fastecc_tpu_torch\n"
         "from fastecc_tpu_torch import decode, fields, gf, ntt, packing, rs, "
         "interop, testing\n"
-        "from fastecc_tpu_torch.kernels import ntt_mfa, _build\n"
-        "from fastecc_tpu_torch.utils import timer\n"
+        "from fastecc_tpu_torch import cli\n"
+        "from fastecc_tpu_torch.kernels import ntt_mfa, _build, microbench\n"
+        "from fastecc_tpu_torch.utils import timer, profiling\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.') "
         "or m == 'fastecc_tpu' or m.startswith('fastecc_tpu.'))\n"

@@ -255,9 +255,9 @@ def test_launch_counts_only_count_launches():
 
 
 def test_ctypes_signatures_match_c_entries():
-    """Each C entry in ntt_mfa.cu has as many parameters as its ctypes
-    argtypes, with ints and pointers in the same places."""
-    src = (_build.CSRC / "ntt_mfa.cu").read_text()
+    """Each C entry in the CUDA sources has as many parameters as its
+    ctypes argtypes, with ints and pointers in the same places."""
+    src = "".join((_build.CSRC / s).read_text() for s in _build.SOURCES)
     for name, argtypes in _build.SIGNATURES.items():
         sig = re.search(rf"int {name}\(([^)]*)\)", src)
         assert sig, name
