@@ -7,14 +7,16 @@ Drives ``fastecc_tpu_torch`` (never JAX or ``fastecc_tpu``) through its
 main path on the card and fails loudly on any fault. Phases:
 
   1. build   — compile the Hopper kernels from ``fastecc_tpu_torch/csrc``;
-  2. kernels — each of K1-K10 (K7 in both its forms) against its plain
-               PyTorch version on the card, at the shapes phases 4-10 give
+  2. kernels — each of K1-K12 (K7 in both its forms) against its plain
+               PyTorch version on the card, at the shapes phases 4-12 give
                it (on a 16-lane slice) and at small orders with a ragged
                lane count, both fields, with random prepared tables (GF16
                ones holding 0x10000) and masks about half set, and K10 on
                outputs that are ~90% 0x10000 (saturated bitmap words);
-               bit-exact (``torch.equal``, tolerance 0: exact integer
-               arithmetic);
+               K11 at k = 32, 2^10, 2^13 over 1088 and 13 lanes in both
+               fields, K12 at those k over Wu = 8, 40, 1024 and on dense
+               escapes (the escape counts printed); bit-exact
+               (``torch.equal``, tolerance 0: exact integer arithmetic);
   3. golden  — the JAX package's pinned SHA-256 digests (codewords of
                tests/test_rs.py, GF32 wire blob of tests/test_wire_golden.py)
                reproduced through the kernels;
@@ -57,7 +59,28 @@ main path on the card and fails loudly on any fault. Phases:
                a re-encode; encode_parity_batch against per-stripe calls;
                encode_parity_stream and decode_stream on host arrays
                against one call; each timed;
- 11. peaks   — the microbenchmark kernels against their plain versions,
+ 11. lanes   — the one-pass lanes pair, switched on
+               (``ntt_mfa.LANES_PAIR_ENABLED``) around these runs: the GF32
+               batch encode of 64 stripes of 2^10 + 2^10 4 KB blocks
+               (BASELINE.json:7's shape, 65,536 lanes) and encode_parity at
+               k = 2^13 x 1024 lanes (K11), the GF32 wire decode at n = 2^13
+               (K11 with the inverse seed), the GF16 wire encode at 2^13 x
+               64 KB blocks and GF16 encode_blocks at 2^13 x 4 KB blocks
+               (K12; BASELINE.json:9); each against the same call with the
+               flag off (the three-pass route) on every lane, the batch and
+               k = 2^13 also on their edge lanes against the plain staged
+               transforms; median of 5 calls of both routes at each shape;
+               then each route's kernels on 128 MiB at k = 2^10 .. 2^13
+               (GF32 and the GF16 wire pair), held equal and timed;
+ 12. errors  — unknown-position error correction: correct_errors on the
+               full-width GF32 codeword (n = 2^20, 1024 lanes) with 16
+               corrupted rows (8 replaced, 8 with one word of one lane + 1)
+               and a fixed entropy, then with 2^12 known erasures besides;
+               a clean codeword and corruption beyond (n-k)/2 at n = 2^13;
+               decode_blocks(check=True) at n = 2^13 (BASELINE.json:10)
+               over k + 64 survivors of which 16 lie; locate_errors and
+               correct_errors timed, the phase's peak device memory;
+ 13. peaks   — the microbenchmark kernels against their plain versions,
                bit-exact: K13 (the copy) at ragged sizes and unaligned, K14
                (the chains) for every variant at depth 3 and at its default
                depth on four 512-row tiles, K15 (the fused chains) on the
@@ -72,7 +95,7 @@ main path on the card and fails loudly on any fault. Phases:
                under the published and the measured peaks beside phase
                encode's time.
 
-Launch counts are reset to 0 before each main-path run (phases 4-11) and
+Launch counts are reset to 0 before each main-path run (phases 4-13) and
 read right after it; each run must launch every kernel of its path. Near
 the end come the launches by path, one detail line per kernel (source,
 the TPU kernel it replaces, the shape it was timed at), a JSON object
@@ -87,6 +110,7 @@ package beside it.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import subprocess
@@ -123,14 +147,18 @@ REPLACES = {
     "K8_col_wire16": "fastecc_tpu/kernels/ntt_mfa.py:1099",
     "K9_seam_wire16": "fastecc_tpu/kernels/ntt_mfa.py:1123",
     "K10_row_wire16": "fastecc_tpu/kernels/ntt_mfa.py:1147",
+    "K11_pair_lanes": "fastecc_tpu/kernels/ntt_mfa.py:902",
+    "K12_pair_lanes_wire16": "fastecc_tpu/kernels/ntt_mfa.py:966",
     "K13_copy": "fastecc_tpu/kernels/microbench.py:37",
     "K14_chain": "fastecc_tpu/kernels/microbench.py:210",
     "K15_fused_chain": "fastecc_tpu/kernels/microbench.py:271",
 }
 WIRE16 = ("K8_col_wire16", "K9_seam_wire16", "K10_row_wire16")
+LANES = ("K11_pair_lanes", "K12_pair_lanes_wire16")
 PEAKS = ("K13_copy", "K14_chain", "K15_fused_chain")
 SOURCE = {k: "fastecc_tpu_torch/csrc/" + (
-    "microbench.cu" if k in PEAKS else "ntt_mfa.cu") for k in REPLACES}
+    "microbench.cu" if k in PEAKS else "lanes.cu" if k in LANES
+    else "ntt_mfa.cu") for k in REPLACES}
 
 
 def check(cond: bool, what: str) -> None:
@@ -250,9 +278,21 @@ def peaks_bound(kind: str, shape) -> tuple[float, str]:
 def bound(kind: str, field, shape, sel_frac: float = 1.0
           ) -> tuple[float, str]:
     """(least time in ms, what bounds it) for a pass over ``shape`` (for
-    the wire passes, one half's [A, B, Wu]). Bytes: the input read and the
-    output written once, the [N] tables read once, and for K7-sel the
-    original read at surviving rows only."""
+    the wire passes, one half's [A, B, Wu]; for the lanes pair [k, L]).
+    Bytes: the input read and the output written once, the [N] tables
+    read once, and for K7-sel the original read at surviving rows only.
+    The lanes pair runs two k-point transforms and the mid multiply on
+    each lane column, K12 on both halves of each pair: pairs in, stored
+    words and the bitmap out (8.5 bytes a pair)."""
+    muls_per_mod = 2 if field.use_mont else 1
+    if kind in LANES:
+        k, lanes = shape
+        halves = 2 if kind == "K12_pair_lanes_wire16" else 1
+        nbytes = (8.5 if halves == 2 else 8) * k * lanes
+        muls = halves * (2 * stage_mulmods(k) + k) * lanes * muls_per_mod
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = muls / INT_MULS_PER_S * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     a, b, lanes = shape
     words = a * b * lanes
     nbytes = 2 * 4 * words                            # read once, write once
@@ -268,7 +308,6 @@ def bound(kind: str, field, shape, sel_frac: float = 1.0
         nbytes = 8 * words + 4 * words + words // 2   # lo, hi in; stored, bitmap
     # GF32: the two words of a*b; for p = 0xFFF00001 the REDC's m and
     # (m*p) >> 32 are shift/add chains (fastecc_tpu_torch/gf.py mont_mul)
-    muls_per_mod = 2 if field.use_mont else 1
     muls = pass_mulmods(kind, a, sel_frac) * b * lanes * muls_per_mod
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = muls / INT_MULS_PER_S * 1e3
@@ -293,10 +332,12 @@ def phase_kernels(gen) -> dict:
     """Each kernel vs its plain version at the shapes the main-path runs
     below give it (on a 16-lane slice), and at small orders with a ragged
     lane count, in both fields; returns the worst error per kernel."""
+    from fastecc_tpu_torch import gf
     from fastecc_tpu_torch.fields import GF16, GF32
     from fastecc_tpu_torch.kernels import ntt_mfa as m
 
     worst = {k: 0 for k in REPLACES if k not in PEAKS}
+    escapes = {}
 
     def cmp(name, got, want, what):
         compare(worst, name, got, want, what)
@@ -426,6 +467,28 @@ def phase_kernels(gen) -> dict:
             cmp("K10_row_wire16", g_, interop.from_numpy_u32(w),
                 ("dense escapes, expected", r2, c2, wu))
 
+    def lanes(field, k, lanes_):
+        """K11 over [k, lanes_]."""
+        g = field.root_of_order(2 * k)
+        x = rand_field(field.p, (k, lanes_), gen)
+        cmp("K11_pair_lanes", m.ntt_pair_lanes(x, field, g),
+            m.pair_lanes_plain(x, field, g), (field.name, k, lanes_))
+
+    def lanes_wire16(k, wu, dense=False):
+        """K12 over [k, wu] random u32 pairs or, with ``dense``, pairs whose
+        outputs are ~90% 0x10000; records the escape bits it wrote."""
+        g = GF16.root_of_order(2 * k)
+        x = (dense_escape_pairs(k, wu, g, gen) if dense else torch.randint(
+            -(1 << 31), 1 << 31, (k, wu), dtype=torch.int32, device="cuda",
+            generator=gen).view(torch.uint32))
+        got = m.ntt_pair_lanes_wire16(x, GF16, g)
+        for a, b in zip(got, m.pair_lanes_wire16_plain(x, GF16, g)):
+            cmp("K12_pair_lanes_wire16", a, b, ("lanes wire16", k, wu, dense))
+        bits = gf.widen(got[1])
+        escapes[(k, wu, dense)] = (
+            int(sum(((bits >> b) & 1).sum().item() for b in range(16))),
+            int((bits == 0xFFFF).sum().item()))
+
     # main-path shapes: encode_r2 (k = 2^19), encode_r4 (k = 2^18, the
     # coset NTTs' K4), ntt (2^20), wire (k = 2^14); the decode pair at
     # 2^20 (decode) and 2^13 (decode_blocks), the single-transform decode
@@ -458,7 +521,45 @@ def phase_kernels(gen) -> dict:
     dense_escapes(16, 16, 256)
     say("[kernels] wire16 at k = 2^13, 2^15 (16 lanes), 4 (8), 2^7 (40) "
         "and dense escapes: K8-K10 == plain")
+    # the lanes pair at the gate's ends and the batch's k = 2^10; lane
+    # tiles of 32, 8 and 2
+    for field in (GF32, GF16):
+        for k in (32, 1 << 10, 1 << 13):
+            for lanes_ in (1088, 13):
+                lanes(field, k, lanes_)
+    say("[kernels] K11 at k = 32, 2^10, 2^13 over 1088 and 13 lanes, GF32 "
+        "and GF16: == plain")
+    for k in (32, 1 << 10, 1 << 13):
+        for wu in (8, 40, 1024):
+            lanes_wire16(k, wu)
+        lanes_wire16(k, 40 if k < 1 << 13 else 1024, dense=True)
+    check(escapes[(1 << 13, 1024, False)][0] > 0,
+          "no escapes in K12's parity at k = 2^13, Wu = 1024")
+    check(all(v[1] > 0 for (_, _, d), v in escapes.items() if d),
+          "dense K12 cases have saturated bitmap words")
+    say("[kernels] K12 at k = 32, 2^10, 2^13 over Wu = 8, 40, 1024 and "
+        "dense escapes: == plain; escape bits (saturated words): " +
+        ", ".join(f"k={k} Wu={wu}{' dense' if d else ''}: {b} ({sat})"
+                  for (k, wu, d), (b, sat) in escapes.items()))
     return worst
+
+
+def dense_escape_pairs(k: int, wu: int, g: int, gen) -> torch.Tensor:
+    """[k, wu] u32 pairs whose wire pair output (seed g) is ~90% 0x10000
+    in each half: the pair with seed g^-1, the pair's inverse, applied to
+    such outputs. Preimage values of 0x10000, which a u16 word cannot
+    hold, become 0 (that lane column loses its density)."""
+    from fastecc_tpu_torch import gf
+    from fastecc_tpu_torch.fields import GF16
+    from fastecc_tpu_torch.kernels import ntt_mfa as m
+    halves = []
+    for _ in range(2):
+        vals = gf.widen(rand_field(GF16.p, (k, wu), gen))
+        dense = torch.rand((k, wu), device="cuda", generator=gen) < 0.9
+        want = gf.narrow(torch.where(dense, 0x10000, vals))
+        pre = gf.widen(m.pair_lanes_plain(want, GF16, GF16.inv_host(g)))
+        halves.append(torch.where(pre == 0x10000, 0, pre))
+    return gf.narrow(halves[0] | (halves[1] << 16))
 
 
 def _blocks_gf32() -> np.ndarray:
@@ -1068,6 +1169,303 @@ def phase_extras(gen, launches, times):
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def lanes_pair(on: bool):
+    """The lanes pair switched on or off (ntt_mfa.LANES_PAIR_ENABLED, the
+    reference's FASTECC_LANES_PAIR opt-in) for the block; restored after."""
+    from fastecc_tpu_torch.kernels import ntt_mfa
+    was = ntt_mfa.LANES_PAIR_ENABLED
+    ntt_mfa.LANES_PAIR_ENABLED = on
+    try:
+        yield
+    finally:
+        ntt_mfa.LANES_PAIR_ENABLED = was
+
+
+def same(a, b) -> bool:
+    """torch.equal, also over tuples of tensors (the wire parts)."""
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(map(torch.equal, a, b))
+    return torch.equal(a, b)
+
+
+def phase_lanes(gen, launches, times, shapes):
+    from fastecc_tpu_torch import decode, gf, rs
+    from fastecc_tpu_torch.fields import GF16, GF32
+    from fastecc_tpu_torch.kernels import ntt_mfa as m
+    from fastecc_tpu_torch.utils.timer import median, time_samples
+
+    three_pass = ("K1_col", "K2_seam", "K3_row")
+
+    def routes(name, fn, lanes_kernel, off_kernels=three_pass):
+        """fn() with the lanes pair on (which must launch ``lanes_kernel``
+        and nothing else) and off (the three-pass route), held equal on
+        every lane; then median of 5 timed calls of each route."""
+        with lanes_pair(True):
+            got = run_path(name, fn, launches, (lanes_kernel,))
+        check(set(k for k, v in launches[name].items() if v) == {lanes_kernel},
+              f"{name} launches only {lanes_kernel}")
+        with lanes_pair(False):
+            want = run_path(name + "_3pass", fn, launches, off_kernels)
+        check(same(got, want), f"{name}: the lanes route != the three-pass "
+              f"route")
+        for on in (True, False):
+            with lanes_pair(on):
+                t = median(time_samples(fn, iters=5, warmup=1))
+            times[f"{name}_{'lanes' if on else '3pass'}_s"] = t
+        say(f"[{name}] lanes route == three-pass route on every lane; median "
+            f"{times[name + '_lanes_s'] * 1e3:.3f} ms (lanes) against "
+            f"{times[name + '_3pass_s'] * 1e3:.3f} ms (three passes)")
+        return got
+
+    # the GF32 batch encode: 64 stripes at BASELINE.json:7's shape (2^10
+    # data + 2^10 parity 4 KB blocks, 1024 lanes each): 65,536 lanes
+    s, k, lanes = 64, 1 << 10, 1024
+    batch = rand_field(GF32.p, (s, k, lanes), gen)
+    got = routes("lanes", lambda: rs.encode_parity_batch(batch, GF32),
+                 "K11_pair_lanes")
+    for si, l0 in ((0, 0), (s - 1, lanes - 8)):
+        ref = staged_encode_ref(batch[si][:, l0:l0 + 8].contiguous(), GF32,
+                                2 * k)
+        check(torch.equal(got[si][:, l0:l0 + 8], ref),
+              f"lanes batch stripe {si} lanes {l0}-{l0 + 7} != plain staged")
+    say(f"[lanes] stripe 0 lanes 0-7 and stripe {s - 1} lanes "
+        f"{lanes - 8}-{lanes - 1} == plain staged transforms")
+    del got
+    with lanes_pair(True):
+        profile_once(lambda: rs.encode_parity_batch(batch, GF32), "lanes")
+    # K11 alone at the batch's shape, beside the three passes' kernels
+    g = GF32.root_of_order(2 * k)
+    flat = batch.view(torch.int32).movedim(0, 1).reshape(k, s * lanes).view(
+        torch.uint32)
+    times["K11_pair_lanes"] = event_ms(lambda: m.ntt_pair_lanes(flat, GF32, g))
+    times["lanes_kernels_3pass"] = event_ms(
+        lambda: m.ntt_pair(flat, GF32, pre_seed2=g))
+    shapes["K11_pair_lanes"] = tuple(flat.shape)
+    times["plain_K11_pair_lanes"] = chunked_ms(
+        lambda x: m.pair_lanes_plain(x, GF32, g), flat, 1024)
+    say(f"[lanes] K11_pair_lanes {times['K11_pair_lanes']:.4f} ms on "
+        f"{shapes['K11_pair_lanes']} (K1 -> K2 -> K3: "
+        f"{times['lanes_kernels_3pass']:.4f} ms), plain "
+        f"{times['plain_K11_pair_lanes']:.1f} ms")
+    del batch, flat
+
+    # GF32 at the top of the gate
+    k13 = 1 << 13
+    data = rand_field(GF32.p, (k13, 1024), gen)
+    got = routes("lanes_k8192", lambda: rs.encode_parity(data, GF32),
+                 "K11_pair_lanes")
+    check_edge_lanes("lanes_k8192", got,
+                     lambda x: staged_encode_ref(x, GF32, 2 * k13), data)
+    del data, got
+
+    # the GF32 wire decode at n = 2^13, 4 KB blocks (K11, inverse seed)
+    kw = 1 << 12
+    words = torch.randint(-(1 << 31), 1 << 31, (kw, 1024), dtype=torch.int32,
+                          device="cuda", generator=gen).view(torch.uint32)
+    par = rs.encode_blocks_parts(words, GF32)
+    dw = routes("lanes_wire_decode", lambda: decode.decode_wire_parts(
+        par, 2 * kw, kw, GF32), "K11_pair_lanes")
+    check(torch.equal(dw, words), "lanes wire decode != the raw blocks")
+    say("[lanes_wire_decode] n = 2^13 x 4 KB blocks from parity == raw")
+    del words, par, dw
+
+    # the GF16 wire encode at the wire16 cell's shape (bench.py:244)
+    k16, block = 1 << 13, 1 << 16
+    raw = torch.randint(0, 256, (k16, block), dtype=torch.uint8,
+                        device="cuda", generator=gen)
+    words = raw.view(torch.uint32)
+    stored, bm = routes("lanes_wire16",
+                        lambda: rs.encode_blocks_gf16_parts(words),
+                        "K12_pair_lanes_wire16", WIRE16)
+    esc = int((gf.widen(bm) != 0).sum().item())
+    check(esc > 0, "no escape bits at the lanes wire16 shape")
+    say(f"[lanes_wire16] {esc} bitmap words with escapes")
+    del stored, bm
+    with lanes_pair(True):
+        profile_once(lambda: rs.encode_blocks_gf16_parts(words),
+                     "lanes_wire16")
+    g16 = GF16.root_of_order(2 * k16)
+    times["K12_pair_lanes_wire16"] = event_ms(
+        lambda: m.ntt_pair_lanes_wire16(words, GF16, g16))
+    shapes["K12_pair_lanes_wire16"] = tuple(words.shape)
+    times["plain_K12_pair_lanes_wire16"] = chunked_ms(
+        lambda x: m.pair_lanes_wire16_plain(x, GF16, g16), words, 128)
+    say(f"[lanes_wire16] K12_pair_lanes_wire16 "
+        f"{times['K12_pair_lanes_wire16']:.4f} ms on "
+        f"{shapes['K12_pair_lanes_wire16']}, plain "
+        f"{times['plain_K12_pair_lanes_wire16']:.1f} ms")
+
+    # GF16 encode_blocks at BASELINE.json:9: 2^14 blocks of 4 KB (k = 2^13),
+    # against the generic route; the generic route with the flag on runs
+    # its field-domain pair on K11 (GF16 at k = 2^13)
+    raw4 = raw[:, :4096].contiguous()
+    del raw, words
+    with lanes_pair(False):
+        want = generic_wire16(raw4)
+    blob = routes("lanes_wire16_blocks", lambda: rs.encode_blocks(raw4, GF16),
+                  "K12_pair_lanes_wire16", WIRE16)
+    check(torch.equal(blob, want), "GF16 encode_blocks (lanes) != the "
+          "generic route's bytes")
+    with lanes_pair(True):
+        gen_on = run_path("lanes_generic16", lambda: generic_wire16(raw4),
+                          launches, ("K11_pair_lanes",))
+    check(torch.equal(gen_on, want), "the generic route on K11 != on K1-K3")
+    say("[lanes_wire16_blocks] encode_blocks 2^13 x 4 KB == the generic "
+        "route's bytes, which K11 (GF16, k = 2^13) also gives")
+    del raw4, want, blob, gen_on
+
+    # where the narrow tiles start to lose: each route's kernels on 128 MiB
+    # at k = 2^10 .. 2^13 (TL = 8, 4, 2, 2), GF32 and the GF16 wire pair
+    for kk in (1 << 10, 1 << 11, 1 << 12, 1 << 13):
+        cols = (1 << 25) // kk
+        g, g16 = GF32.root_of_order(2 * kk), GF16.root_of_order(2 * kk)
+        x = rand_field(GF32.p, (kk, cols), gen)
+        w = torch.randint(-(1 << 31), 1 << 31, (kk, cols), dtype=torch.int32,
+                          device="cuda", generator=gen).view(torch.uint32)
+        check(torch.equal(m.ntt_pair_lanes(x, GF32, g),
+                          m.ntt_pair(x, GF32, pre_seed2=g)),
+              f"sweep k={kk}: K11 != K1 -> K2 -> K3")
+        with lanes_pair(False):
+            check(same(m.ntt_pair_lanes_wire16(w, GF16, g16),
+                       m.ntt_coset_pair_wire16(w, GF16, g16)),
+                  f"sweep k={kk}: K12 != K8 -> K9 -> K10")
+            t = [event_ms(lambda: m.ntt_pair_lanes(x, GF32, g)),
+                 event_ms(lambda: m.ntt_pair(x, GF32, pre_seed2=g)),
+                 event_ms(lambda: m.ntt_pair_lanes_wire16(w, GF16, g16)),
+                 event_ms(lambda: m.ntt_coset_pair_wire16(w, GF16, g16))]
+        times[f"lanes_sweep_{kk}"] = t
+        say(f"[lanes_sweep] k = {kk} x {cols} (128 MiB): K11 {t[0]:.4f} ms "
+            f"against K1 -> K2 -> K3 {t[1]:.4f} ms; K12 {t[2]:.4f} ms "
+            f"against K8 -> K9 -> K10 {t[3]:.4f} ms; bit-exact")
+    del x, w
+    torch.cuda.empty_cache()
+
+
+def corrupt_rows(cw: torch.Tensor, rows: np.ndarray, p: int, gen,
+                 rng: np.random.Generator) -> torch.Tensor:
+    """A copy of ``cw`` with the first half of ``rows`` replaced by random
+    field values and, in each of the rest, one word of one lane + 1 mod p
+    (the sparse corruption the lane combination must catch)."""
+    from fastecc_tpu_torch import gf
+    bad = cw.clone()
+    half = len(rows) // 2
+    full = torch.from_numpy(rows[:half]).cuda()
+    bad.view(torch.int32)[full] = rand_field(
+        p, (half, cw.shape[1]), gen).view(torch.int32)
+    for r in rows[half:]:
+        word = bad.view(torch.int32)[int(r), int(rng.integers(cw.shape[1]))]
+        word.copy_(gf.narrow((gf.widen(word.view(torch.uint32)) + 1) % p)
+                   .view(torch.int32))
+    return bad
+
+
+def phase_errors(gen, launches, times):
+    from fastecc_tpu_torch import decode, rs, testing
+    from fastecc_tpu_torch.fields import GF32
+    from fastecc_tpu_torch.utils.timer import median, time_samples
+
+    torch.cuda.reset_peak_memory_stats()
+    fix_kernels = ("K5_col_vec", "K6_seam_vec", "K7_row_post_sel")
+    rng = np.random.default_rng(0xE770)
+    # the full-width GF32 codeword of phase encode: n = 2^20, 1024 lanes
+    k, lanes = 1 << 19, 1024
+    n = 2 * k
+    cw = rs.encode(rand_field(GF32.p, (k, lanes), gen), GF32, n)
+    rows = rng.choice(n, size=16, replace=False)
+    bad = corrupt_rows(cw, rows, GF32.p, gen, rng)
+    want = np.sort(rows)
+    pos = run_path("errors_locate", lambda: decode.locate_errors(
+        bad, k, GF32, entropy=0xE77), launches, ("K1_col", "K3_row"))
+    check(pos is not None and np.array_equal(pos, want),
+          f"located {pos} != corrupted {want}")
+    fixed, fpos = run_path("errors", lambda: decode.correct_errors(
+        bad, k, GF32, entropy=0xE77), launches, ("K1_col", "K3_row")
+        + fix_kernels)
+    check(np.array_equal(fpos, want) and torch.equal(fixed, cw),
+          "correct_errors at full width != the codeword")
+    del fixed
+    say(f"[errors] 2^20 x {lanes}: 16 corrupted rows (8 replaced, 8 with one "
+        f"word + 1) located exactly; correct_errors == the codeword")
+    times["locate_s"] = median(time_samples(lambda: decode.locate_errors(
+        bad, k, GF32, entropy=0xE77), iters=3, warmup=0))
+    times["correct_s"] = median(time_samples(lambda: decode.correct_errors(
+        bad, k, GF32, entropy=0xE77), iters=3, warmup=0))
+    say(f"[errors] locate_errors median {times['locate_s'] * 1e3:.1f} ms, "
+        f"correct_errors median {times['correct_s'] * 1e3:.1f} ms (of 3)")
+    profile_once(lambda: decode.correct_errors(bad, k, GF32, entropy=0xE77),
+                 "errors")
+    del bad
+
+    # errors and erasures: 2^12 known erasures holding garbage, 16 silent
+    erased = testing.random_erasures(n, 1 << 12, seed=0xE4)
+    rest = np.setdiff1d(np.arange(n), erased)
+    rows = rng.choice(rest, size=16, replace=False)
+    bad = corrupt_rows(garbage_rows(cw, erased, GF32.p, gen), rows, GF32.p,
+                       gen, rng)
+    fixed, fpos = run_path("errors_erasures", lambda: decode.correct_errors(
+        bad, k, GF32, erased=erased, entropy=0xE78), launches,
+        ("K5_col_vec", "K3_row") + fix_kernels)
+    check(np.array_equal(fpos, np.sort(rows)) and torch.equal(fixed, cw),
+          "correct_errors with erasures != the codeword")
+    say("[errors_erasures] e = 2^12 erasures + 16 silent errors at 2^20 x "
+        f"{lanes}: the errors located, the codeword recovered")
+    del cw, bad, fixed
+    torch.cuda.empty_cache()
+
+    # a clean codeword, and corruption beyond (n-k)/2, at n = 2^13
+    ks = 1 << 12
+    ns = 2 * ks
+    cw = rs.encode(rand_field(GF32.p, (ks, lanes), gen), GF32, ns)
+    fixed, fpos = decode.correct_errors(cw, ks, GF32, entropy=1)
+    check(fpos.size == 0 and torch.equal(fixed, cw), "clean codeword")
+    over = rng.choice(ns, size=(ns - ks) // 2 + 8, replace=False)
+    try:
+        decode.correct_errors(corrupt_rows(cw, over, GF32.p, gen, rng), ks,
+                              GF32, entropy=2)
+        check(False, "corruption beyond (n-k)/2 did not raise")
+    except ValueError as e:
+        say(f"[errors] n = 2^13: clean codeword -> no positions; "
+            f"{len(over)} corrupted rows > (n-k)/2 -> ValueError ({e})")
+    del cw, fixed
+
+    # decode_blocks(check=True) at BASELINE.json:10: k + 64 of 2^13 4 KB
+    # blocks survive, 16 of them (8 data, 8 parity) silently changed
+    block = 4096
+    raw = torch.randint(0, 256, (ks, block), dtype=torch.uint8,
+                        device="cuda", generator=gen)
+    parity = rs.encode_blocks(raw, GF32)
+    raw_np, par_np = raw.cpu().numpy(), parity.cpu().numpy()
+    keep = rng.choice(ns, size=ks + 64, replace=False)
+    dpos = set(rs.data_positions(ns, ks).tolist())
+    ppos = {int(q): i for i, q in enumerate(rs.parity_positions(ns, ks))}
+    surv = {int(q): bytearray(raw_np[q // 2] if q in dpos
+                              else par_np[ppos[q]]) for q in keep}
+    kept_d = [q for q in surv if q in dpos]
+    kept_p = [q for q in surv if q not in dpos]
+    for q in list(rng.choice(kept_d, 8, replace=False)) + list(
+            rng.choice(kept_p, 8, replace=False)):
+        blob = surv[int(q)]
+        # a stored word below 0xFF000000 changes by 256 and stays < p
+        j = next(j for j in rng.permutation(block // 4)
+                 if blob[4 * j + 3] != 0xFF)
+        blob[4 * j + 1] ^= 0x01
+    surv = {q: bytes(b) for q, b in surv.items()}
+    got = run_path("errors_blocks", lambda: decode.decode_blocks(
+        surv, ns, ks, GF32, block_bytes=block, check=True), launches,
+        fix_kernels)
+    check(torch.equal(got, raw), "decode_blocks(check=True) != the raw data")
+    unchecked = decode.decode_blocks(surv, ns, ks, GF32, block_bytes=block)
+    check(not torch.equal(unchecked, raw),
+          "decode_blocks(check=False) recovered lying survivors")
+    times["errors_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    say(f"[errors_blocks] {ks + 64} survivors of {ns}, 16 lying (8 data, 8 "
+        f"parity): check=True == the raw data, check=False does not; the "
+        f"phase's peak device memory {times['errors_mem_gib']:.2f} GiB")
+    del raw, parity, got, unchecked
+    torch.cuda.empty_cache()
+
+
 def phase_peaks(gen, launches, times, shapes, worst):
     from fastecc_tpu_torch.fields import FIELDS, GF32
     from fastecc_tpu_torch.kernels import microbench as mb
@@ -1215,6 +1613,8 @@ def main() -> int:
     phase_decode(gen, launches, times, shapes)
     phase_decode_small(gen, launches, times)
     phase_extras(gen, launches, times)
+    phase_lanes(gen, launches, times, shapes)
+    phase_errors(gen, launches, times)
     phase_peaks(gen, launches, times, shapes, worst)
 
     total = {k: sum(p[k] for p in launches.values()) for k in REPLACES}
@@ -1226,7 +1626,8 @@ def main() -> int:
         if k in PEAKS:
             b_ms, b_by = peaks_bound(k, shapes[k])
         else:
-            b_ms, b_by = bound(k, GF16 if k in WIRE16 else GF32, shapes[k],
+            gf16 = k in WIRE16 or k == "K12_pair_lanes_wire16"
+            b_ms, b_by = bound(k, GF16 if gf16 else GF32, shapes[k],
                                times["sel_frac"])
         lib = times.get("library_" + k)
         say(f"[kernel] {k}: source {SOURCE[k]}, replaces {REPLACES[k]}, "
@@ -1249,7 +1650,12 @@ def main() -> int:
         f"blocks: {times['wire_decode_s'] * 1e3:.3f} ms; GF16 wire 2^13 x "
         f"64 KB: {times['wire16_s'] * 1e3:.3f} ms = "
         f"{times['wire16_gbps']:.2f} GB/s wire (generic route "
-        f"{times['wire16_generic_s'] * 1e3:.3f} ms); verify 2^20 x 1024: "
+        f"{times['wire16_generic_s'] * 1e3:.3f} ms); lanes pair on/off: "
+        f"batch {times['lanes_lanes_s'] * 1e3:.3f}/"
+        f"{times['lanes_3pass_s'] * 1e3:.3f} ms, GF16 wire "
+        f"{times['lanes_wire16_lanes_s'] * 1e3:.3f}/"
+        f"{times['lanes_wire16_3pass_s'] * 1e3:.3f} ms; correct_errors 2^20 "
+        f"x 1024: {times['correct_s'] * 1e3:.1f} ms; verify 2^20 x 1024: "
         f"{times['verify_s'] * 1e3:.3f} ms; update 3 blocks: "
         f"{times['update_s'] * 1e3:.3f} ms; copy "
         f"{times['peaks']['hbm_stream_gbps']} GB/s, raw mul "

@@ -1,9 +1,9 @@
 """fastecc_tpu_torch: the PyTorch/CUDA port of fastecc_tpu.
 
-The codec's encode and erasure-decode paths on one NVIDIA H100:
-Reed-Solomon over GF(0xFFF00001) and GF(0x10001) via NTTs whose passes
-are CUDA kernels written for Hopper (``csrc/``), bit for bit equal to
-the JAX package.
+The codec's encode, erasure-decode and error-correction paths on one
+NVIDIA H100: Reed-Solomon over GF(0xFFF00001) and GF(0x10001) via NTTs
+whose passes are CUDA kernels written for Hopper (``csrc/``), bit for bit
+equal to the JAX package.
 The port imports neither JAX nor the JAX package.
 
 Public API (module names mirror ``fastecc_tpu``):
@@ -20,10 +20,15 @@ Public API (module names mirror ``fastecc_tpu``):
   decode.decode_stream             — out-of-core decode over lane chunks
   decode.decode_blocks             — surviving wire blocks in, data out
   decode.decode_wire_parts         — all-data-erased wire decode
+  decode.locate_errors /
+    decode.correct_errors          — unknown-position error correction
+                                     (decode_blocks(check=True))
   testing                          — erasure-pattern generators
   packing                          — the wire format
   interop                          — numpy <-> tensor, device policy
-  kernels.ntt_mfa                  — the pass wrappers and their launches
+  kernels.ntt_mfa                  — the pass wrappers and their launches,
+                                     the opt-in one-pass lanes pair
+                                     (FASTECC_LANES_PAIR: K11, K12)
   kernels.microbench               — the card's peaks (copy, chains, fused
                                      chains: K13-K15), measure_peaks
   utils.profiling                  — the roofline model, torch.profiler

@@ -1,5 +1,5 @@
-"""Reed-Solomon erasure decoding in O(n log n): the port's counterpart of
-``decode.py`` (erasure side).
+"""Reed-Solomon decoding in O(n log n): the port's counterpart of
+``decode.py`` (erasure decode and unknown-position error correction).
 
 Scheme (as the reference). Codeword c_j = f(w^j) with deg f < k; erasures
 E, |E| = e <= n - k:
@@ -21,6 +21,15 @@ The tables (mask, prepared l(w^j), prepared inv(x l')) come from the host
 (``locator_host``, numpy) or from the device (``prepare_decode_tables_
 device``: the product tree's transforms on the kernels).
 
+Error correction (``locate_errors``, ``correct_errors``,
+``decode_blocks(check=True)``) finds up to (n-k)/2 silently corrupted rows
+at unknown positions, or e + 2t <= n-k together with e known erasures:
+power-sum syndromes from one inverse transform and two random lane
+combinations, Berlekamp-Massey on the host, the locator's roots from one
+forward transform, then the erasure decode of the located rows. It adds
+no kernel: the transforms run K1/K5 -> K3 and the decode K5 -> K6 ->
+K7-sel.
+
 Entry points take u32 tensors or numpy arrays with the transform along
 axis 0 and lanes trailing; a numpy input goes to ``device`` (default: the
 card). Where the reference asserts, the port raises ``ValueError``.
@@ -35,11 +44,11 @@ import torch
 
 from . import gf, packing
 from .fields import FieldSpec, FIELDS
-from .interop import as_tensor, resolve_device
+from .interop import as_tensor, resolve_device, to_numpy_u32
 from .kernels import ntt_mfa
 from .ntt import _log2, mul_prepared, ntt_auto, ntt_host, prepare_consts
 from .rs import data_positions, parity_positions  # noqa: F401 (re-export)
-from .rs import _chunk, _upload, stream_lane_chunks
+from .rs import _chunk, _upload, stream_lane_chunks, verify_codeword
 
 
 @functools.lru_cache(maxsize=None)
@@ -406,6 +415,236 @@ def decode(codeword, erased_idx, field: FieldSpec, k: int | None = None,
 
 
 # ---------------------------------------------------------------------------
+# Unknown-position error correction: locate up to (n-k)/2 silently
+# corrupted rows algebraically, then erase-and-recover them.
+#
+# c'_j = f(w^j) + e_j with errors at unknown positions E, |E| = t.
+# iNTT(c')[m] = f_m + n^-1 sum_{j in E} e_j w^(-jm), and f_m = 0 for m >= k,
+# so S_r := iNTT(c')[k+r] = sum_{j in E} E_j X_j^r with X_j = w^-j: power-sum
+# syndromes. Berlekamp-Massey finds the minimal LFSR Lambda(x) =
+# prod_j (1 - X_j x) from 2t <= n-k syndromes; its roots are w^j, so one
+# forward transform of Lambda evaluates it at every w^j and its zeros are
+# the error positions. Needs all n rows present and t <= (n-k)/2.
+# ---------------------------------------------------------------------------
+
+def _berlekamp_massey(s: np.ndarray, p: int) -> np.ndarray:
+    """Minimal LFSR connection polynomial Lambda as uint64 [t+1] values
+    mod p (Lambda[0] = 1) with sum_{i=0..t} Lambda[i] * s[r-i] = 0 for
+    all r >= t. Vectorized numpy u64 (the reference's): the discrepancy
+    is one reduced dot product, the update one vector multiply-subtract
+    (every product < p^2 < 2^64)."""
+    s = np.asarray(s, dtype=np.uint64)
+    nw = int(s.shape[0])
+    p64 = np.uint64(p)
+    c = np.zeros(2 * nw + 2, dtype=np.uint64)  # room for m + len(b)
+    c[0] = 1
+    lc = 1                             # written extent of c
+    b = np.ones(1, dtype=np.uint64)    # previous connection poly
+    L, m, bb = 0, 1, 1                 # LFSR len, gap, last discrepancy
+    for r in range(nw):
+        # deg(C) <= L (BM invariant), so the window is L+1 terms
+        d = int((c[:L + 1] * s[r - L: r + 1][::-1] % p64).sum() % p64)
+        if d == 0:
+            m += 1
+            continue
+        swap = 2 * L <= r
+        t0 = c[:lc].copy() if swap else None
+        coef = np.uint64(d * pow(bb, p - 2, p) % p)
+        upd = b * coef % p64
+        lb = b.shape[0]
+        c[m:m + lb] = (c[m:m + lb] + p64 - upd) % p64
+        lc = max(lc, m + lb)
+        if swap:
+            L, b, bb, m = r + 1 - L, t0, d, 1
+        else:
+            m += 1
+    return c[: L + 1].copy()
+
+
+# Elements of one row block of _lane_combo: its int64 temporaries stay
+# ~128 MiB each whatever the lane count.
+_COMBO_BLOCK = 1 << 24
+
+
+def _lane_combo(field: FieldSpec, x: torch.Tensor, combo_prep: torch.Tensor):
+    """Linear combination of the lane axis of u32 [m, L] -> u32 [m] with
+    prepared coefficients [L]: the elementwise multiply, then one int64 sum
+    over the lanes and one reduction. Each term is below 2^32, so the sum
+    is exact below 2^31 lanes and its residue is the reference's log-depth
+    modular sum. Row blocks bound the temporaries."""
+    m, lanes = x.shape
+    c = gf.widen(combo_prep)[None, :]
+    out = torch.empty(m, dtype=torch.int64, device=x.device)
+    step = max(1, _COMBO_BLOCK // max(1, lanes))
+    for r0 in range(0, m, step):
+        y = mul_prepared(field, gf.widen(x[r0:r0 + step]), c)
+        out[r0:r0 + step] = y.sum(dim=1) % field.p
+    return gf.narrow(out)
+
+
+def _rand_combo(field: FieldSpec, lanes: int, rng: np.random.Generator,
+                device=None) -> torch.Tensor:
+    """Prepared random nonzero lane coefficients for :func:`_lane_combo`,
+    on ``device`` (default: the card). ``rng`` is seeded from OS entropy
+    by default: an adversary who forges the corruption can read a fixed
+    seed and craft corruption whose lane combination vanishes."""
+    c = rng.integers(1, field.p, size=lanes, dtype=np.uint64).astype(
+        np.uint32)
+    return as_tensor(np.asarray(prepare_consts(field, c)), device)
+
+
+def _syndrome_combos(cw2: torch.Tensor, pre, c1, c2, field: FieldSpec,
+                     base: int):
+    """[n, L] codeword -> two independently combined syndrome sequences
+    [n-base] (u32): one inverse transform (with ``pre``, the erasure
+    locator's evaluations, fused into pass A), then the two lane
+    combinations of its rows from ``base`` on."""
+    syn = ntt_auto(cw2, field, inverse=True, pre_vec=pre)[base:]
+    return _lane_combo(field, syn, c1), _lane_combo(field, syn, c2)
+
+
+def locate_errors(codeword, k: int, field: FieldSpec, erased=None,
+                  entropy=None, retries: int = 2, device=None):
+    """Positions of corrupted rows at unknown positions (bit rot that also
+    forged the CRC tags): a sorted numpy int64 array, empty if the
+    codeword is consistent, or None if the corruption is not locatable
+    (too many bad rows, or an adversarial pattern).
+
+    ``erased`` (optional) lists KNOWN-erased rows, the errors-and-erasures
+    form: the codeword is weighted by the erasure locator's evaluations
+    (zero at erased rows), so coefficients k+e.. are syndromes of the
+    weighted unknown errors and up to t <= (n-k-e)/2 more rows are found.
+
+    Syndromes come from random linear combinations over ALL lanes (one
+    corrupt word in one lane is enough to find a row; two independent
+    combos are checked), Berlekamp-Massey runs on the host and the
+    locator's roots come from one forward transform over all n points.
+    The combos are drawn from OS entropy unless ``entropy`` (any numpy
+    SeedSequence entropy) pins them; an unlocatable result is retried up
+    to ``retries`` times with fresh combos. The transforms run on the
+    codeword's device (a numpy codeword goes to ``device``, default: the
+    card)."""
+    cw = as_tensor(codeword, device)
+    n = cw.shape[0]
+    cw2 = cw.reshape(n, -1)
+    base, pre = k, None
+    if erased is not None and len(erased):
+        erased = _positions(erased, "cpu").numpy()
+        base = k + int(erased.shape[0])
+        if base >= n:
+            return None
+        l_eval, _ = locator_host(erased, n, field)
+        pre = as_tensor(np.asarray(prepare_consts(field, l_eval)), cw.device)
+    rng = np.random.default_rng(entropy)
+    for _attempt in range(retries + 1):
+        c1 = _rand_combo(field, cw2.shape[1], rng, cw.device)
+        c2 = _rand_combo(field, cw2.shape[1], rng, cw.device)
+        j1, j2 = _syndrome_combos(cw2, pre, c1, c2, field, base)
+        pos = _bm_locate(to_numpy_u32(j1).astype(np.uint64),
+                         to_numpy_u32(j2).astype(np.uint64), n, base, field,
+                         cw.device)
+        if pos is not None:
+            return pos
+    return None
+
+
+def _bm_locate(s1, s2, n: int, base: int, field: FieldSpec, device=None):
+    """Shared BM-locator core over two independently combined syndrome
+    sequences (numpy u64). Returns positions / empty / None as
+    :func:`locate_errors` does. The syndrome window grows along
+    ``_BM_LADDER`` (a window of w locates up to w/2 errors); a locator is
+    accepted only when BOTH full sequences satisfy its recurrence and it
+    has exactly t roots among the w^j (one forward transform on
+    ``device``)."""
+    if not s1.any() and not s2.any():
+        return np.empty(0, dtype=np.int64)
+    p = np.uint64(field.p)
+    s, other = (s1, s2) if s1.any() else (s2, s1)
+    for window in _BM_LADDER:
+        w = min(window, n - base)
+        last = w == n - base or window == _BM_MAX
+        lam_u = _berlekamp_massey(s[:w], field.p)
+        t = int(lam_u.shape[0]) - 1
+        if (t == 0 or 2 * t > w or not _lfsr_holds(lam_u, s, p)
+                or not _lfsr_holds(lam_u, other, p)):
+            if last:
+                return None
+            continue
+        pad = np.zeros(n, dtype=np.uint32)
+        pad[: t + 1] = lam_u.astype(np.uint32)
+        evals = to_numpy_u32(_eval_poly(pad[:, None], field, device))[:, 0]
+        pos = np.nonzero(evals == 0)[0]
+        if pos.size == t:
+            return np.sort(pos)
+        if last:
+            return None
+    return None
+
+
+# Syndrome-window cap: locates up to _BM_MAX/2 = 16,384 corrupt rows (the
+# reference's designed capacity; mass corruption is the CRC tags' job).
+# The ladder keeps plausible corruption counts fast.
+_BM_MAX = 32768
+_BM_LADDER = (64, 1024, 16384, _BM_MAX)
+
+
+def _eval_poly(pad: np.ndarray, field: FieldSpec, device=None):
+    """Evaluations at every w^j of the polynomial whose coefficients are
+    the [n, 1] ``pad``: one forward transform on ``device``."""
+    return ntt_auto(pad, field, device=device)
+
+
+def _lfsr_holds(lam_u: np.ndarray, s: np.ndarray, p: np.uint64) -> bool:
+    """Vectorized check that sum_i lam[i] * s[r-i] == 0 (mod p) for every
+    r >= t across the FULL syndrome sequence."""
+    t = lam_u.shape[0] - 1
+    if s.shape[0] <= t:
+        return True
+    acc = np.zeros(s.shape[0] - t, dtype=np.uint64)
+    for i in range(t + 1):
+        acc = (acc + lam_u[i] * s[t - i: s.shape[0] - i] % p) % p
+    return not acc.any()
+
+
+def correct_errors(codeword, k: int, field: FieldSpec, erased=None,
+                   entropy=None, device=None):
+    """Correct silently corrupted rows at UNKNOWN positions: up to (n-k)/2
+    of them or, with ``erased`` listing known-lost rows, the full
+    errors-and-erasures capacity e + 2t <= n-k (the erased rows are
+    recovered too). ``entropy`` pins the combos (:func:`locate_errors`).
+
+    Returns (corrected [n, ...] u32 tensor on the codeword's device,
+    positions): positions is the sorted numpy int64 array of the
+    UNKNOWN-position rows that were fixed (empty if the input was
+    consistent apart from the declared erasures). Raises ValueError when
+    the corruption cannot be located, when nothing was located but the
+    codeword is inconsistent, or when the corrected codeword fails the
+    consistency check."""
+    cw = as_tensor(codeword, device)
+    pos = locate_errors(cw, k, field, erased=erased, entropy=entropy)
+    if pos is None:
+        raise ValueError(
+            "corruption not locatable (beyond the e + 2t <= n-k "
+            "errors-and-erasures capacity, or degenerate pattern)")
+    e_arr = (_positions(erased, "cpu").numpy()
+             if erased is not None and len(erased) else
+             np.empty(0, dtype=np.int64))
+    all_bad = np.union1d(e_arr, pos)
+    if all_bad.size == 0:
+        # nothing located: the codeword must BE consistent (a combo fluke
+        # that annihilates every corrupt row must fail loudly)
+        if not bool(verify_codeword(cw, field, k)):
+            raise ValueError(
+                "codeword inconsistent but no corrupt rows located "
+                "(syndrome-combination fluke or degenerate pattern)")
+        return cw, pos
+    fixed = decode_host_prepared(cw, all_bad, field, k=k)
+    if not bool(verify_codeword(fixed, field, k)):
+        raise ValueError("post-correction consistency check failed")
+    return fixed, pos
+
+
+# ---------------------------------------------------------------------------
 # Block-level (wire format) decode.
 # ---------------------------------------------------------------------------
 
@@ -455,20 +694,24 @@ def decode_blocks(survivors: dict, n: int, k: int, field: FieldSpec,
     (:func:`decode_host_prepared`); the kernels mask the ragged lane
     edge, so the wire's lane count needs no padding.
 
-    ``check=True`` (the consistency check and error correction of the
-    reference) waits for ``correct_errors``, which is not ported yet: it
-    raises ``NotImplementedError``."""
-    if check:
-        raise NotImplementedError(
-            "decode_blocks(check=True) needs correct_errors, which is not "
-            "yet ported")
+    ``check=True`` verifies the decoded codeword's consistency (one more
+    transform). A failure means some SURVIVOR was silently corrupted:
+    where the remaining redundancy allows (e + 2t <= n-k) the corrupt
+    survivors are located and corrected (:func:`correct_errors`),
+    otherwise ValueError. Without it such corruption reaches the output
+    silently (the CRC tags are the first line of defence)."""
     if len(survivors) < k:
         raise ValueError(f"unrecoverable: {len(survivors)} survivors < k={k}")
     cw, present = survivors_to_codeword(survivors, n, k, field, block_bytes)
     erased = np.nonzero(~present)[0]
     full = as_tensor(cw, device)
     if erased.size:
-        full = decode_host_prepared(full, erased, field, k=k)
+        fixed = decode_host_prepared(full, erased, field, k=k)
+        if check and not bool(verify_codeword(fixed, field, k)):
+            fixed, _ = correct_errors(full, k, field, erased=erased)
+        full = fixed
+    elif check and not bool(verify_codeword(full, field, k)):
+        full, _ = correct_errors(full, k, field)
     rows = full.view(torch.int32)[torch.from_numpy(
         data_positions(n, k)).to(full.device)]
     return packing.unpack_data(rows.view(torch.uint32), field)

@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("ntt_mfa.cu", "microbench.cu")
+SOURCES = ("ntt_mfa.cu", "lanes.cu", "microbench.cu")
 HEADERS = ("gf.cuh", "stages.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
@@ -51,6 +51,11 @@ SIGNATURES = {
                          _P, _P, _P],
     # (field, lo, hi, stored, bitmap, A, B, L, tw, w3, stream)
     "fecc_row_wire16": [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    # lanes.cu: (field, x, out, k, L, tw_i, w3_i, tw_f, w3_f, mid, stream)
+    "fecc_pair_lanes": [_I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    # (field, x, stored, bitmap, k, L, tw_i, w3_i, tw_f, w3_f, mid, stream)
+    "fecc_pair_lanes_wire16": [_I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                               _P],
     # microbench.cu: (x, out, n, stream)
     "fecc_copy": [_P, _P, ctypes.c_longlong, _P],
     # (variant, x, z, out, rows, depth, stream)

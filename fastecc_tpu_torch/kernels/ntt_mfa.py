@@ -30,16 +30,27 @@ stored = lo16 | hi16 << 16 (0x10000 stored as 0) and the escape bitmap.
 Lo and hi are independent lane sets; between passes they are one
 [2, ...] tensor, half 0 lo and half 1 hi.
 
-Each pass has a wrapper and a plain PyTorch version here. The wrapper
+The one-pass "lanes" pair (K11, :func:`ntt_pair_lanes`) runs the
+encode pair with whole k-point columns resident: unscaled k-point
+inverse stages, x g^m k^-1 (:func:`_pair_mid_table`), k-point forward
+stages; K12 (:func:`ntt_pair_lanes_wire16`) is K11 on lo and hi with
+K10's epilogue. As in the reference they are opt-in
+(``FASTECC_LANES_PAIR``, read into :data:`LANES_PAIR_ENABLED`): with the
+flag set, :func:`ntt_coset_pair` and :func:`ntt_coset_pair_wire16` take
+them for k a power of two in [32, 2^13] (:func:`_pair_lanes_supported`,
+the port's own gate) on every device; both routes give the same bits.
+
+Each kernel has a wrapper and a plain PyTorch version here. The wrapper
 takes the plain version only for a CPU tensor; on a CUDA tensor it
-launches its Hopper kernel (``csrc/ntt_mfa.cu``) or raises, and counts
-the launch in :data:`LAUNCHES`. Split, lane tile and twiddle tables are
-the port's own; the output bits are the reference's.
+launches its Hopper kernel (``csrc/ntt_mfa.cu``, ``csrc/lanes.cu``) or
+raises, and counts the launch in :data:`LAUNCHES`. Split, lane tile and
+twiddle tables are the port's own; the output bits are the reference's.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -62,7 +73,8 @@ MAX_PASS_LEN = 1 << 10
 LAUNCHES = {"K1_col": 0, "K2_seam": 0, "K3_row": 0, "K4_col_pre": 0,
             "K5_col_vec": 0, "K6_seam_vec": 0, "K7_row_post": 0,
             "K7_row_post_sel": 0, "K8_col_wire16": 0, "K9_seam_wire16": 0,
-            "K10_row_wire16": 0}
+            "K10_row_wire16": 0, "K11_pair_lanes": 0,
+            "K12_pair_lanes_wire16": 0}
 
 
 def reset_launches() -> None:
@@ -132,6 +144,17 @@ def _colpass_seeds(field_name: str, n: int, c: int, inverse: bool,
 
 
 @functools.lru_cache(maxsize=None)
+def _pair_mid_table(field_name: str, k: int, g: int):
+    """Prepared [k, 1] mid-pair table t[m] = prep(g^m * k^-1): the coset
+    multiply with the iNTT's scale folded in (the lanes kernels run the
+    inverse stages unscaled)."""
+    field = FIELDS[field_name]
+    t = powers_host(field, g % field.p, k).astype(np.uint64)
+    t = t * np.uint64(field.inv_host(k)) % np.uint64(field.p)
+    return np.asarray(prepare_consts(field, t.astype(np.uint32)))[:, None]
+
+
+@functools.lru_cache(maxsize=None)
 def _pre_mul_tables(field_name: str, g_pre: int, c: int, r: int, tr: int):
     """Tables of the rank-1 input multiply x[m] *= g^m, m = r + R*c:
     g^m = (g^R)^c * g^r. Returns (pcol [C], prow [R/tr, 1, tr]),
@@ -198,6 +221,11 @@ def _seeds_on(field_name: str, n: int, c: int, inverse: bool, scale: bool,
 def _pre_on(field_name: str, g: int, c: int, r: int, tr: int, device: str):
     pcol, prow = _pre_mul_tables(field_name, g, c, r, tr)
     return _u32_on(pcol, device), _u32_on(prow, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _mid_on(field_name: str, k: int, g: int, device: str):
+    return _u32_on(_pair_mid_table(field_name, k, g), device)
 
 
 # ---------------------------------------------------------------------------
@@ -562,9 +590,101 @@ def ntt_pair(x: torch.Tensor, field: FieldSpec, pre_seed2: int | None = None,
 
 def ntt_coset_pair(x: torch.Tensor, field: FieldSpec,
                    pre_seed: int) -> torch.Tensor:
-    """The RS-encode pair NTT_g-coset(iNTT(x)): :func:`ntt_pair` with the
-    coset powers g^m in the middle (K1 -> K2 -> K3)."""
+    """The RS-encode pair NTT_g-coset(iNTT(x)) over u32 [k, L]: the
+    one-pass K11 (:func:`ntt_pair_lanes`) where the lanes pair is switched
+    on and takes k (:func:`_pair_lanes_supported`), else :func:`ntt_pair`
+    with the coset powers g^m in the middle (K1 -> K2 -> K3)."""
+    if _pair_lanes_supported(*x.shape):
+        return ntt_pair_lanes(x, field, pre_seed)
     return ntt_pair(x, field, pre_seed2=pre_seed)
+
+
+# ---------------------------------------------------------------------------
+# The one-pass "lanes" pair (K11, K12).
+# ---------------------------------------------------------------------------
+
+# Opt-in, as in the reference: set FASTECC_LANES_PAIR to route the encode
+# pair through the lanes kernels.
+LANES_PAIR_ENABLED = bool(os.environ.get("FASTECC_LANES_PAIR"))
+# The gate's orders: the reference's lower bound, and the order its wire
+# bench built K12 for. At 2^13 a block's [k, 2] column takes 128 KB (K11)
+# or 192 KB (K12) of shared memory.
+MIN_LANES_K = 32
+MAX_LANES_K = 1 << 13
+
+
+def _pair_lanes_supported(k: int, lanes: int) -> bool:
+    """The port's gate for the lanes pair over [k, lanes]: switched on,
+    and k a power of two in [32, 2^13]. (The reference's tile conditions
+    are TPU tile facts; the wire form's Wu % 8 == 0 is the wire gate's.)"""
+    return (LANES_PAIR_ENABLED and MIN_LANES_K <= k <= MAX_LANES_K
+            and k & (k - 1) == 0 and lanes > 0)
+
+
+def pair_lanes_plain(x: torch.Tensor, field: FieldSpec,
+                     pre_seed: int) -> torch.Tensor:
+    """Plain K11: NTT(mid * iNTT_unscaled(x)) along axis 0 of [k, L],
+    mid = g^m k^-1 (bit-exact vs the three-pass coset pair)."""
+    (y,), u = gf._carried(x)
+    k = y.shape[0]
+    y = ntt(y, field, inverse=True, scale=False, radix=4)
+    mid = gf.table(_pair_mid_table(field.name, k, pre_seed % field.p),
+                   y.device)
+    return gf._ret(ntt(mul_prepared(field, y, mid), field, radix=4), u)
+
+
+def pair_lanes_wire16_plain(x_pairs: torch.Tensor, field: FieldSpec,
+                            pre_seed: int):
+    """Plain K12: [k, Wu] u32 pairs -> (stored [k, Wu], bitmap [k, Wu/8]):
+    plain K11 on lo = x & 0xFFFF and hi = x >> 16, then K10's epilogue
+    (:func:`_wire16_parts`)."""
+    (x,), u = gf._carried(x_pairs)
+    stored, bitmap = _wire16_parts(pair_lanes_plain(x & 0xFFFF, field,
+                                                    pre_seed),
+                                   pair_lanes_plain(x >> 16, field, pre_seed))
+    return gf._ret(stored, u), gf._ret(bitmap, u)
+
+
+def _lanes_input(x: torch.Tensor, name: str) -> None:
+    """A lanes-kernel input on the card: contiguous 2-D u32 [k, L], k a
+    power of two in [4, 2^13]."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dtype != torch.uint32 or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"{name}: needs a contiguous 2-D torch.uint32 "
+                         f"tensor, got {x.dtype} {tuple(x.shape)}")
+    k = x.shape[0]
+    if not (MIN_ORDER <= k <= MAX_LANES_K and k & (k - 1) == 0):
+        raise ValueError(f"{name}: needs k a power of two in [{MIN_ORDER}, "
+                         f"{MAX_LANES_K}], got {k}")
+
+
+def _lanes_tables(field: FieldSpec, k: int, pre_seed: int, dev: str):
+    """Pointers of the lanes kernels' tables: inverse and forward stage
+    tables, then the mid table."""
+    tw_i, w3_i = _stage_tables_on(field.name, k, True, dev)
+    tw_f, w3_f = _stage_tables_on(field.name, k, False, dev)
+    mid = _mid_on(field.name, k, pre_seed % field.p, dev)
+    return [t.data_ptr() for t in (tw_i, w3_i, tw_f, w3_f, mid)]
+
+
+def ntt_pair_lanes(x: torch.Tensor, field: FieldSpec,
+                   pre_seed: int) -> torch.Tensor:
+    """K11 (the counterpart of ``ntt_pair_lanes_pallas``): the encode pair
+    NTT_g-coset(iNTT(x)) over u32 [k, L] in one pass, each block holding
+    whole k-point columns; k a power of two in [4, 2^13]."""
+    if x.device.type == "cpu":
+        return pair_lanes_plain(x, field, pre_seed)
+    _lanes_input(x, "ntt_pair_lanes")
+    k, lanes = x.shape
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        _build.call("fecc_pair_lanes", _field_code(field), x.data_ptr(),
+                    out.data_ptr(), k, lanes,
+                    *_lanes_tables(field, k, pre_seed, str(x.device)),
+                    _stream(x))
+        LAUNCHES["K11_pair_lanes"] += 1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -607,20 +727,27 @@ def seam_pass_wire16_plain(y: torch.Tensor, field: FieldSpec,
                                 for h in y]), u)
 
 
+def _wire16_parts(lo, hi):
+    """(stored [k, Wu], bitmap [k, Wu/8]) carriers from the [k, Wu] lo and
+    hi transform outputs: stored = lo16 | hi16 << 16 (0x10000 stored as
+    0); bitmap word g of a row holds bit 2t (lo) and 2t+1 (hi) for lane
+    8g + t where the value is 0x10000."""
+    k, wu = lo.shape
+    stored = (lo & 0xFFFF) | ((hi & 0xFFFF) << 16)
+    esc = ((lo >> 16) | ((hi >> 16) << 1)).reshape(k, wu // 8, 8)
+    shifts = 2 * torch.arange(8, dtype=torch.int64, device=lo.device)
+    return stored, (esc << shifts).sum(dim=-1)
+
+
 def row_pass_wire16_plain(lo2: torch.Tensor, hi2: torch.Tensor,
                           field: FieldSpec):
     """Plain K10: lo, hi [R2, C2, Wu] -> (stored [k, Wu], bitmap
-    [k, Wu/8]), k = R2*C2 in natural order. stored = lo16 | hi16 << 16
-    (0x10000 stored as 0); bitmap word g of a row holds bit 2t (lo) and
-    2t+1 (hi) for lane 8g + t where the value is 0x10000."""
+    [k, Wu/8]), k = R2*C2 in natural order (see :func:`_wire16_parts`)."""
     (lo, hi), u = gf._carried(lo2, hi2)
     r2, c2, wu = lo.shape
-    lo = row_pass_plain(lo, field).reshape(r2 * c2, wu)
-    hi = row_pass_plain(hi, field).reshape(r2 * c2, wu)
-    stored = (lo & 0xFFFF) | ((hi & 0xFFFF) << 16)
-    esc = ((lo >> 16) | ((hi >> 16) << 1)).reshape(r2 * c2, wu // 8, 8)
-    shifts = 2 * torch.arange(8, dtype=torch.int64, device=lo.device)
-    bitmap = (esc << shifts).sum(dim=-1)
+    stored, bitmap = _wire16_parts(
+        row_pass_plain(lo, field).reshape(r2 * c2, wu),
+        row_pass_plain(hi, field).reshape(r2 * c2, wu))
     return gf._ret(stored, u), gf._ret(bitmap, u)
 
 
@@ -704,7 +831,8 @@ def ntt_coset_pair_wire16(x_pairs: torch.Tensor, field: FieldSpec,
     """The GF16 wire-domain RS-encode pair (the counterpart of
     ``ntt_coset_pair_wire16_pallas``): [k, Wu] u32 pairs of LE u16 wire
     words in, (stored [k, Wu], bitmap [k, Wu/8]) u32 out, in three passes
-    K8 -> K9 -> K10 on the port's pair split. Bit-exact equal to
+    K8 -> K9 -> K10 on the port's pair split, or in one (K12) where the
+    lanes pair is switched on and takes k. Bit-exact equal to
     serialize_parity(encode_parity(pack_data(...))) split at the
     stored/bitmap boundary. GF16 only (each pass checks)."""
     k, wu = x_pairs.shape
@@ -712,8 +840,37 @@ def ntt_coset_pair_wire16(x_pairs: torch.Tensor, field: FieldSpec,
         raise ValueError(f"ntt_coset_pair_wire16: needs k a power of two in "
                          f"[{MIN_ORDER}, {MAX_WIRE16_K}] and Wu % 8 == 0, "
                          f"got k={k} Wu={wu}")
+    if _pair_lanes_supported(k, wu):
+        return ntt_pair_lanes_wire16(x_pairs, field, pre_seed)
     c1 = _pair_split(k)
     halves = col_pass_wire16(x_pairs.contiguous().reshape(c1, k // c1, wu),
                              field)
     halves = seam_pass_wire16(halves, field, pre_seed)
     return wire16_pass_b2(halves[0], halves[1], field)
+
+
+def ntt_pair_lanes_wire16(x_pairs: torch.Tensor, field: FieldSpec,
+                          pre_seed: int):
+    """K12 (the counterpart of ``ntt_pair_lanes_wire16_pallas``): the GF16
+    wire pair in one pass, [k, Wu] u32 pairs of LE u16 wire words ->
+    (stored [k, Wu], bitmap [k, Wu/8]) u32, the same parts as
+    :func:`wire16_pass_b2`; k a power of two in [4, 2^13], Wu % 8 == 0."""
+    _check_gf16(field, "ntt_pair_lanes_wire16")
+    if x_pairs.dim() != 2 or x_pairs.shape[1] % 8:
+        raise ValueError(f"ntt_pair_lanes_wire16: needs [k, Wu] pairs with "
+                         f"Wu % 8 == 0, got {tuple(x_pairs.shape)}")
+    if x_pairs.device.type == "cpu":
+        return pair_lanes_wire16_plain(x_pairs, field, pre_seed)
+    _lanes_input(x_pairs, "ntt_pair_lanes_wire16")
+    k, wu = x_pairs.shape
+    stored = torch.empty_like(x_pairs)
+    bitmap = torch.empty((k, wu // 8), dtype=torch.uint32,
+                         device=x_pairs.device)
+    with torch.cuda.device(x_pairs.device):
+        _build.call("fecc_pair_lanes_wire16", _field_code(field),
+                    x_pairs.data_ptr(), stored.data_ptr(), bitmap.data_ptr(),
+                    k, wu, *_lanes_tables(field, k, pre_seed,
+                                          str(x_pairs.device)),
+                    _stream(x_pairs))
+        LAUNCHES["K12_pair_lanes_wire16"] += 1
+    return stored, bitmap

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels on the card: each of K1-K10 and K13-K15
-against its plain version, and the entry points on the card against the
+"""The port's CUDA kernels on the card: each of K1-K15 against its plain
+version, and the entry points on the card against the
 same calls on the CPU. Every test here needs a CUDA device and skips without one.
 
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -217,6 +217,76 @@ def test_extras_on_card_match_cpu(field, cuda_device):
         decode.decode_stream(cwh, erased, field, chunk_lanes=16),
         decode.decode_stream(cwh, erased, field, chunk_lanes=16,
                              device="cpu"))
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_lanes_kernel_matches_plain_on_card(field, cuda_device):
+    """K11 vs its plain version on the card: lane tiles of 32 (k <= 256),
+    8 (k = 2^10) and 2 (k = 2^13), ragged lane counts."""
+    for k, lanes in ((4, 3), (32, 37), (1 << 10, 1088), (1 << 13, 13)):
+        g = field.root_of_order(2 * k)
+        x = from_numpy_u32(rand_field(field, (k, lanes)), cuda_device)
+        m.reset_launches()
+        assert torch.equal(m.ntt_pair_lanes(x, field, g),
+                           m.pair_lanes_plain(x, field, g)), k
+        assert m.LAUNCHES["K11_pair_lanes"] == 1
+
+
+def dense_escape_pairs(k, wu, g, device):
+    """[k, wu] u32 pairs whose wire pair output is ~90% 0x10000 in each
+    half: the pair with the inverse seed (the pair's inverse) applied to
+    such outputs. Preimage values of 0x10000, which a u16 word cannot
+    hold, become 0 (that lane's output loses its density)."""
+    f = fields.GF16
+    halves = []
+    for _ in range(2):
+        want = np.where(RNG.random((k, wu)) < 0.9, np.uint32(0x10000),
+                        rand_field(f, (k, wu)))
+        pre = gf.widen(m.pair_lanes_plain(from_numpy_u32(want, device), f,
+                                          f.inv_host(g)))
+        halves.append(torch.where(pre == 0x10000, 0, pre))
+    return gf.narrow(halves[0] | (halves[1] << 16))
+
+
+@pytest.mark.parametrize("k,wu", [(32, 8), (1 << 10, 40), (1 << 13, 1024)])
+def test_lanes_wire16_kernel_matches_plain_on_card(k, wu, cuda_device):
+    """K12 vs its plain version on the card at lane tiles of 32, 8 and 2
+    (four blocks OR their bits into one bitmap word), on random pairs and
+    on pairs whose outputs are mostly 0x10000 (saturated bitmap words)."""
+    f = fields.GF16
+    g = f.root_of_order(2 * k)
+    pairs = RNG.integers(0, 1 << 32, size=(k, wu), dtype=np.uint64)
+    dense = dense_escape_pairs(k, wu, g, cuda_device)
+    for x in (from_numpy_u32(pairs.astype(np.uint32), cuda_device), dense):
+        got = m.ntt_pair_lanes_wire16(x, f, g)
+        want = m.pair_lanes_wire16_plain(x, f, g)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool((gf.widen(got[1]) == 0xFFFF).any())
+
+
+def test_lanes_dispatch_on_card(cuda_device, monkeypatch):
+    """With the flag on, the rate-1/2 encode, the batch, the GF32 wire
+    decode and the GF16 wire encode launch K11 / K12 alone and give the
+    three-pass route's bits."""
+    f32, f16 = fields.GF32, fields.GF16
+    data = rand_field(f32, (1 << 10, 96))
+    raw = RNG.integers(0, 256, (1 << 8, 4096), dtype=np.uint8)
+    par = rs.encode_blocks(raw, f32)
+
+    def run():
+        return (rs.encode_parity(data, f32), rs.encode_parity_batch(
+            data.reshape(1 << 10, 2, 48).transpose(1, 0, 2).copy(), f32),
+            decode.decode_wire_parts(par.view(torch.uint32), 1 << 9, 1 << 8,
+                                     f32), rs.encode_blocks(raw, f16))
+
+    off = run()
+    monkeypatch.setattr(m, "LANES_PAIR_ENABLED", True)
+    m.reset_launches()
+    on = run()
+    assert {k: v for k, v in m.LAUNCHES.items() if v} == {
+        "K11_pair_lanes": 3, "K12_pair_lanes_wire16": 1}
+    for a, b in zip(on, off):
+        assert torch.equal(a, b)
 
 
 def test_copy_kernel_matches_plain_on_card(cuda_device):

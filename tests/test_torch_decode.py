@@ -228,7 +228,7 @@ def test_wire_decode_matches_reference(field):
 
 def test_recoverability_guards_raise_value_error():
     """The reference's asserts are ValueErrors in the port;
-    decode_blocks(check=True) names what it waits for."""
+    decode_blocks(check=True) runs the consistency check."""
     field, k, n = fields.GF32, 8, 16
     cw = np.zeros((n, 2), np.uint32)
     too_many = np.arange(n - k + 1)
@@ -251,8 +251,9 @@ def test_recoverability_guards_raise_value_error():
     with pytest.raises(ValueError, match="bad parity block"):
         dec.survivors_to_codeword({1: raw[0].tobytes()}, n, k, field)
     full = {int(ppos[i]): parity[i].tobytes() for i in range(k)}
-    with pytest.raises(NotImplementedError, match="correct_errors"):
-        dec.decode_blocks(full, n, k, field, check=True, device="cpu")
+    np.testing.assert_array_equal(
+        dec.decode_blocks(full, n, k, field, check=True, device="cpu").numpy(),
+        raw)
     with pytest.raises(ValueError, match="rate-1/2"):
         dec.decode_data_from_parity(cw, field, 4 * n, device="cpu")
 

@@ -251,7 +251,10 @@ def test_launch_counts_only_count_launches():
     m.ntt_pair(x, fields.GF32, pre_vec1=v, pre_vec2=v, post_vec=v)
     m.ntt_coset_pair_wire16(x[:, :0].new_zeros((64, 8)), fields.GF16,
                             fields.GF16.root_of_order(128))
-    assert len(m.LAUNCHES) == 11 and set(m.LAUNCHES.values()) == {0}
+    m.ntt_pair_lanes(x, fields.GF32, fields.GF32.root_of_order(128))
+    m.ntt_pair_lanes_wire16(x[:, :0].new_zeros((64, 8)), fields.GF16,
+                            fields.GF16.root_of_order(128))
+    assert len(m.LAUNCHES) == 13 and set(m.LAUNCHES.values()) == {0}
 
 
 def test_ctypes_signatures_match_c_entries():
