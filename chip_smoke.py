@@ -13,9 +13,11 @@ main path on the card and fails loudly on any fault. Phases:
                lane count, both fields, with random prepared tables (GF16
                ones holding 0x10000) and masks about half set, and K10 on
                outputs that are ~90% 0x10000 (saturated bitmap words);
-               K11 at k = 32, 2^10, 2^13 over 1088 and 13 lanes in both
-               fields, K12 at those k over Wu = 8, 40, 1024 and on dense
-               escapes (the escape counts printed); bit-exact
+               K3 at every A = 2 .. 1024 in both directions over 13 and
+               40 lanes (1088 at A >= 512); K11 at k = 32, 2^10, 2^13
+               over 1088 and 13 lanes in both fields, K12 at those k over
+               Wu = 8, 40, 1024 and on dense escapes (the escape counts
+               printed); bit-exact
                (``torch.equal``, tolerance 0: exact integer arithmetic);
   3. golden  — the JAX package's pinned SHA-256 digests (codewords of
                tests/test_rs.py, GF32 wire blob of tests/test_wire_golden.py)
@@ -24,8 +26,11 @@ main path on the card and fails loudly on any fault. Phases:
                1024 u32 lanes (k = 2^19, 4 KB blocks), the first and the
                last 8 lanes (first and last lane tile of every pass)
                checked against the plain staged transforms; median of 5
-               timed calls; then a rate-1/4 encode (k = 2^18, n = 2^20),
-               the path that runs K4, checked the same way;
+               timed calls; where build/parent holds an earlier checkout
+               of the package, its K3 on the same tensor and at the
+               shapes the decode tables give K3 (held equal and timed
+               beside this one); then a rate-1/4 encode (k = 2^18,
+               n = 2^20), the path that runs K4, checked the same way;
   5. ntt     — the 2^20-point forward NTT over 512 lanes, first and last
                8 lanes checked against the plain staged transform;
   6. wire    — GF32 encode_blocks on 2^14 random 4 KB blocks, checked
@@ -81,7 +86,8 @@ main path on the card and fails loudly on any fault. Phases:
                over k + 64 survivors of which 16 lie; locate_errors and
                correct_errors timed, the phase's peak device memory;
  13. peaks   — the microbenchmark kernels against their plain versions,
-               bit-exact: K13 (the copy) at ragged sizes and unaligned, K14
+               bit-exact: K13 (the copy) at ragged sizes (around a
+               block's span) and unaligned, K14
                (the chains) for every variant at depth 3 and at its default
                depth on four 512-row tiles, K15 (the fused chains) on the
                three fused configs at one and two row tiles, depth 2; then
@@ -91,7 +97,8 @@ main path on the card and fails loudly on any fault. Phases:
                its plain version (the 256 MiB and 1 GiB copies, every
                variant on 64 MiB at its default depth, every fused config
                on 64 row tiles), timed there, with torch's copy_ as K13's
-               library time; and profiling.encode_roofline(2^20, 1024)
+               library time (and the parent's K13 beside this one, where
+               build/parent holds it); and profiling.encode_roofline(2^20, 1024)
                under the published and the measured peaks beside phase
                encode's time.
 
@@ -111,6 +118,7 @@ package beside it.
 from __future__ import annotations
 
 import contextlib
+import functools
 import hashlib
 import json
 import subprocess
@@ -158,7 +166,7 @@ LANES = ("K11_pair_lanes", "K12_pair_lanes_wire16")
 PEAKS = ("K13_copy", "K14_chain", "K15_fused_chain")
 SOURCE = {k: "fastecc_tpu_torch/csrc/" + (
     "microbench.cu" if k in PEAKS else "lanes.cu" if k in LANES
-    else "ntt_mfa.cu") for k in REPLACES}
+    else "row.cu" if k == "K3_row" else "ntt_mfa.cu") for k in REPLACES}
 
 
 def check(cond: bool, what: str) -> None:
@@ -514,6 +522,21 @@ def phase_kernels(gen) -> dict:
             decode_single(field, k, 13)
     say("[kernels] orders 4, 8, 128, 13 lanes, GF32 and GF16: "
         "K1-K7 == plain")
+    # K3 has one instantiation per length: every A, both directions, on
+    # 13 lanes (the 4-byte copies), 40 and, at A >= 512, 1088 (the last
+    # lane tile)
+    for field in (GF32, GF16):
+        for la in range(1, 11):
+            a = 1 << la
+            for lanes_ in (13, 40) + ((1088,) if a >= 512 else ()):
+                y = rand_field(field.p, (a, 3 if lanes_ < 1088 else 2,
+                                         lanes_), gen)
+                for inv in (False, True):
+                    cmp("K3_row", m.row_pass(y, field, inv),
+                        m.row_pass_plain(y, field, inv),
+                        (field.name, a, lanes_, inv))
+    say("[kernels] K3 at A = 2 .. 1024, forward and inverse, 13 and 40 "
+        "lanes (1088 at A >= 512), GF32 and GF16: == plain")
     # the wire16 phase's k = 2^13 (both block sizes), GF16's largest pair,
     # and small orders with Wu a multiple of 8 but not of the lane tile
     for k, wu in ((1 << 13, 16), (1 << 15, 16), (4, 8), (1 << 7, 40)):
@@ -741,6 +764,7 @@ def phase_encode(gen, launches, times, shapes):
     for kk in ("K1_col", "K2_seam", "K3_row"):
         say(f"[encode_r2] {kk} {times[kk]:.3f} ms on {shapes[kk]}, "
             f"plain {times['plain_' + kk]:.1f} ms")
+    parent_row_ms(col2)
     del data, x3, col1, col2
     torch.cuda.empty_cache()
 
@@ -766,6 +790,120 @@ def phase_encode(gen, launches, times, shapes):
         f"{shapes['K4_col_pre']}, plain {times['plain_K4_col_pre']:.1f} ms")
     del data, x4
     torch.cuda.empty_cache()
+
+
+@functools.lru_cache(maxsize=None)
+def parent_library():
+    """The kernel library of the earlier checkout of the package in
+    build/parent (as ``sass_check.py --compare build/parent`` wants it),
+    built there by its own ``_build``; None where there is none."""
+    import ctypes
+    from pathlib import Path
+    root = Path(__file__).resolve().parent / "build" / "parent"
+    if not (root / "fastecc_tpu_torch" / "kernels" / "_build.py").exists():
+        return None
+    code = ("from fastecc_tpu_torch.kernels import _build; "
+            "print(_build.build().path)")
+    lib = ctypes.CDLL(subprocess.run(
+        [sys.executable, "-c", code], cwd=root, check=True,
+        capture_output=True, text=True).stdout.strip().splitlines()[-1])
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.fecc_row.argtypes = [I, P, P, I, I, I, P, P, P]
+    lib.fecc_copy.argtypes = [P, P, ctypes.c_longlong, P]
+    lib.fecc_row.restype = lib.fecc_copy.restype = I
+    return lib
+
+
+def queued_ms(fn, reps: int = 20) -> float:
+    """Mean device time of ``fn()`` in ms over ``reps`` runs, queued behind
+    a spin kernel of a few ms so that the card runs them back to back: for
+    kernels shorter than their host launch cost, which ``event_ms`` would
+    time instead."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(5_000_000)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def parent_row_ms(col2: torch.Tensor) -> None:
+    """Where build/parent holds an earlier checkout of the package, its K3
+    (``fecc_row`` with the packed Stockham tables) against this one in this
+    process, in turns parent, this, this, parent, each output held equal:
+    on the encode's tensor (``event_ms``, as the row is timed), and at the
+    shapes the decode tables give K3 (the product tree's 2^19-element
+    transforms of 2^2 .. 2^19 points, the [2^20, 2] evaluation) and
+    decode_small's [2^13, 1024] (``queued_ms``: these take microseconds).
+    Printed for the record."""
+    from fastecc_tpu_torch.fields import GF32
+    from fastecc_tpu_torch.kernels import ntt_mfa as m
+    lib = parent_library()
+    if lib is None:
+        return
+
+    def turns(y, timer):
+        a, b, lanes = y.shape
+        tw, w3 = m._stage_tables_on(GF32.name, a, False, str(y.device))
+        out = torch.empty_like(y)
+
+        def parent():
+            code = lib.fecc_row(0, y.data_ptr(), out.data_ptr(), a, b, lanes,
+                                tw.data_ptr(), w3.data_ptr(),
+                                torch.cuda.current_stream().cuda_stream)
+            check(code == 0, f"parent fecc_row returned {code}")
+
+        parent()
+        check(torch.equal(out, m.row_pass(y, GF32)),
+              f"parent K3 != this K3 on {tuple(y.shape)}")
+        return [timer(f) for f in (parent, lambda: m.row_pass(y, GF32),
+                                   lambda: m.row_pass(y, GF32), parent)]
+
+    t = turns(col2, event_ms)
+    say(f"[encode_r2] K3 against the parent's fecc_row on the same "
+        f"{tuple(col2.shape)} tensor, parent / this / this / parent: "
+        f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
+    gen = torch.Generator(device=col2.device).manual_seed(6)
+    shapes = [(1 << (t // 2), 1 << ((t + 1) // 2), 1 << (19 - t))
+              for t in range(2, 20)] + [(1024, 1024, 2), (64, 128, 1024)]
+    for shape in shapes:
+        y = rand_field(GF32.p, shape, gen)
+        t = turns(y, queued_ms)
+        say(f"[encode_r2] K3 against the parent's fecc_row on {shape}, "
+            f"queued, parent / this / this / parent: {t[0] * 1e3:.2f} / "
+            f"{t[1] * 1e3:.2f} / {t[2] * 1e3:.2f} / {t[3] * 1e3:.2f} us")
+
+
+def parent_copy_ms(src: torch.Tensor, dst: torch.Tensor) -> None:
+    """Where build/parent holds an earlier checkout, its K13 kernel against
+    this one, both called straight through the library into ``dst``, in
+    turns parent, this, this, parent (``event_ms``); printed for the
+    record."""
+    from fastecc_tpu_torch.kernels import _build
+    lib = parent_library()
+    if lib is None:
+        return
+
+    def parent():
+        code = lib.fecc_copy(src.data_ptr(), dst.data_ptr(), src.numel(),
+                             torch.cuda.current_stream().cuda_stream)
+        check(code == 0, f"parent fecc_copy returned {code}")
+
+    def this():
+        _build.call("fecc_copy", src.data_ptr(), dst.data_ptr(), src.numel(),
+                    torch.cuda.current_stream().cuda_stream)
+
+    parent()
+    check(torch.equal(dst, src), "parent K13 != clone")
+    t = [event_ms(f) for f in (parent, this, this, parent)]
+    say(f"[peaks] {src.numel() * 4 >> 20} MiB copy, K13 kernels into one "
+        f"output, parent / this / this / parent: {t[0]:.4f} / {t[1]:.4f} / "
+        f"{t[2]:.4f} / {t[3]:.4f} ms")
 
 
 def phase_ntt(gen, launches, times):
@@ -1478,8 +1616,13 @@ def phase_peaks(gen, launches, times, shapes, worst):
     words = torch.randint(-(1 << 31), 1 << 31, ((1 << 20) + 3,),
                           dtype=torch.int32, device="cuda",
                           generator=gen).view(torch.uint32)
-    for n in (1, 5, (1 << 20) + 3):
+    # (around multiples of a block's span: 1024 words, 256 on the unaligned
+    # path)
+    for n in (1, 5, 1023, 1025, 1026, 1027, 3 * 1024 + 1, (1 << 20) + 3):
         cmp("K13_copy", mb.copy(words[:n]), words[:n].clone(), n)
+    for n in (255, 257, 3 * 256 + 1):
+        cmp("K13_copy", mb.copy(words[1:n + 1]), words[1:n + 1].clone(),
+            ("unaligned", n))
     cmp("K13_copy", mb.copy(words[1:]), words[1:].clone(), "unaligned")
     # K14, every variant, at depth 3 and at its default depth
     x, z = mb.chain_inputs(4 * mb._TS, "cuda")
@@ -1514,7 +1657,8 @@ def phase_peaks(gen, launches, times, shapes, worst):
 
     # Each kernel again at the main path's shapes, against its plain
     # version, then timed there for its row. K13 on the 256 MiB and 1 GiB
-    # copies (many grid-stride passes per thread), beside torch's copy_
+    # copies (a grid over the whole array), beside torch's copy_ and, where
+    # build/parent holds an earlier checkout, its K13
     for mib in (256, 1024):
         src = torch.arange(mib << 18, dtype=torch.int32,
                            device="cuda").view(torch.uint32)
@@ -1525,6 +1669,7 @@ def phase_peaks(gen, launches, times, shapes, worst):
         say(f"[peaks] {mib} MiB copy: K13 {k13:.4f} ms "
             f"({2 * src.numel() * 4 / k13 / 1e6:.1f} GB/s), copy_ "
             f"{lib:.4f} ms ({2 * src.numel() * 4 / lib / 1e6:.1f} GB/s)")
+        parent_copy_ms(src, dst)
     times["K13_copy"], times["library_K13_copy"] = k13, lib
     times["plain_K13_copy"] = event_ms(lambda: src.clone())
     shapes["K13_copy"] = (src.numel(),)

@@ -13,10 +13,16 @@
 // Each gives the reference's bits; how it gets there is the port's own.
 //
 // K13 is bound by device memory: it reads and writes every word once.
-// It is a grid-stride copy with 16-byte vector accesses when both
-// pointers are 16-byte aligned (a scalar tail after the last whole
-// vector), one resident wave of blocks, and the loop unrolled so a thread
-// has several loads in flight.
+// The grid covers the whole array and each thread moves one element: a
+// 16-byte vector of 4 words when both pointers are 16-byte aligned (block
+// 0 then copies the last n % 4 words), a single word otherwise. So every
+// load is issued before its thread's store, and the bytes in flight are
+// set by the grid (4 KB a block of 256 threads), not by how far the
+// compiler unrolls a grid-stride loop. The loads and stores carry the
+// streaming hint (ld/st .cs: evict first), so 2 GiB of traffic that
+// nothing reads again does not churn L2. Two or four vectors a thread,
+// other block sizes, other hints and a TMA bulk copy through shared
+// memory were each measured and lost to this (PERF.md, section 6).
 //
 // K14 is bound by the integer pipes: `depth` dependent steps per element
 // against one read and one write. A single dependent chain per thread
@@ -45,6 +51,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -62,33 +69,19 @@ constexpr int kThreads = 256;
 // K13: copy.
 // ---------------------------------------------------------------------------
 
+// W words an element: 4 (uint4) or 1. Thread i of the grid moves element
+// i; block 0 also copies the last n % W words.
+template <int W>
 __global__ void __launch_bounds__(kThreads) copy_kernel(
-    const uint32_t* __restrict__ x, uint32_t* __restrict__ out, size_t n,
-    bool vec) {
-  const size_t stride = (size_t)gridDim.x * blockDim.x;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  size_t done = 0;
-  if (vec) {
-    const size_t n4 = n >> 2;
-    const uint4* __restrict__ x4 = reinterpret_cast<const uint4*>(x);
-    uint4* __restrict__ o4 = reinterpret_cast<uint4*>(out);
-#pragma unroll 4
-    for (size_t j = i; j < n4; j += stride) o4[j] = x4[j];
-    done = n4 << 2;
-  }
-  for (size_t j = done + i; j < n; j += stride) out[j] = x[j];
-}
-
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      sms = 132;
-  }
-  return sms;
+    const uint32_t* __restrict__ x, uint32_t* __restrict__ out, size_t n) {
+  using T = typename std::conditional<W == 4, uint4, uint32_t>::type;
+  const size_t ne = n / W;
+  const size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  if (i < ne)
+    __stcs(reinterpret_cast<T*>(out) + i,
+           __ldcs(reinterpret_cast<const T*>(x) + i));
+  if (W > 1 && blockIdx.x == 0 && threadIdx.x < n % W)
+    out[ne * W + threadIdx.x] = x[ne * W + threadIdx.x];
 }
 
 // ---------------------------------------------------------------------------
@@ -348,12 +341,17 @@ int fecc_copy(const void* x, void* out, long long n, void* stream) {
   if (n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const bool vec = ((uintptr_t)x % 16 == 0) && ((uintptr_t)out % 16 == 0);
-  const size_t units = vec ? (size_t)n / 4 + (size_t)n % 4 : (size_t)n;
-  size_t blocks = (units + kThreads - 1) / kThreads;
-  const size_t wave = (size_t)sm_count() * (2048 / kThreads);
-  if (blocks > wave) blocks = wave;
-  copy_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)x, (uint32_t*)out, (size_t)n, vec);
+  const size_t ne = vec ? (size_t)n / 4 : (size_t)n;
+  // at least one block: block 0 copies the tail when n < 4
+  const unsigned blocks =
+      (unsigned)((ne + kThreads - 1) / kThreads + (ne == 0 ? 1 : 0));
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec)
+    copy_kernel<4><<<blocks, kThreads, 0, s>>>((const uint32_t*)x,
+                                              (uint32_t*)out, (size_t)n);
+  else
+    copy_kernel<1><<<blocks, kThreads, 0, s>>>((const uint32_t*)x,
+                                              (uint32_t*)out, (size_t)n);
   return (int)cudaGetLastError();
 }
 

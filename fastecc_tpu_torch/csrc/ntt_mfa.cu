@@ -11,8 +11,8 @@
 //   K2 fecc_seam     <- _seam_kernel     (the encode pair's middle pass:
 //                       inverse stages, coset multiply, forward stages,
 //                       four-step twiddle, transposed write)
-//   K3 fecc_row      <- _row_kernel      (pass B: R-point stages,
-//                       natural-order write)
+//   (K3, pass B, is its own kernel on the register-stage engine:
+//   row.cu, regstages.cuh)
 // and the decode fusions, each with a general prepared [N] table v:
 //   K5 fecc_col_vec      <- _col_kernel_prevec  (K1 with x[m] *= v[m]:
 //                           the locator evaluations l(w^j))
@@ -103,14 +103,16 @@ constexpr int kTileWords = 8192;  // A * TL words per buffer (32 KB)
 constexpr int kMaxLaneTile = 32;
 constexpr int kMaxLen = 1024;     // longest pass the splits give (2^20)
 
+// (3 was K3's mode; K3 is row.cu's kernel now. The numbers stay, so
+// sass_check.py keys the other instantiations as before.)
 enum Mode : int {
-  kCol = 0, kColPre = 1, kSeam = 2, kRow = 3,
+  kCol = 0, kColPre = 1, kSeam = 2,
   kColVec = 4, kSeamVec = 5, kRowPost = 6, kRowPostSel = 7,
   kColWire16 = 8, kSeamWire16 = 9, kRowWire16 = 10
 };
 
 __host__ __device__ constexpr bool is_row(int mode) {
-  return mode == kRow || mode == kRowPost || mode == kRowPostSel;
+  return mode == kRowPost || mode == kRowPostSel;
 }
 
 // K8 and K9 run each column twice, once per half (the grid's fastest
@@ -285,9 +287,9 @@ __global__ void __launch_bounds__(kThreads) pass_kernel(PassArgs p,
 
   if (is_row(MODE)) {
     uint32_t* mrow = scratch + p.A;
-    if (MODE != kRow) vec_row(scratch, t.vec, p.A, p.B, b);
+    vec_row(scratch, t.vec, p.A, p.B, b);
     if (MODE == kRowPostSel) vec_row(mrow, t.mask, p.A, p.B, b);
-    if (MODE != kRow) __syncthreads();
+    __syncthreads();
     // natural order: out[k, b, l] of [A, B, L]
     for (int e = threadIdx.x; e < tile; e += blockDim.x) {
       int l = e & tl_mask, k = e >> p.log_tl;
@@ -423,15 +425,6 @@ int fecc_seam(int field, const void* x, void* out, int A, int B, int L,
   p.pcol = (const uint32_t*)pcol;
   p.prow = (const uint32_t*)prow;
   return run<kSeam>(field, p, stream);
-}
-
-// K3: [A=R, B=C, L] -> [R, C, L]; R-point stages, natural-order write.
-int fecc_row(int field, const void* x, void* out, int A, int B, int L,
-             const void* tw, const void* w3, void* stream) {
-  PassArgs p = base_args(x, out, A, B, L);
-  p.tw1 = (const uint32_t*)tw;
-  p.w31 = (const uint32_t*)w3;
-  return run<kRow>(field, p, stream);
 }
 
 // K5: K1 with x[a, b] *= vec[a * B + b] before the stages.

@@ -1,0 +1,170 @@
+// Pass B for Hopper (sm_90a): kernel K3 of the port, on the register-stage
+// engine of regstages.cuh, with a plain C interface loaded through ctypes
+// (kernels/_build.py builds it; kernels/ntt_mfa.py row_pass wraps it).
+//
+// Replaces the Pallas TPU kernel fastecc_tpu/kernels/ntt_mfa.py
+// _row_kernel: R-point forward or inverse stages along axis 0 of
+// [A = R, B = C, L] u32, natural-order output, no scale. The output is
+// the same canonical residues; how it gets there is the port's own.
+//
+// What bounds it on the H100: the encode pair's last pass moves 2 GiB in
+// and 2 GiB out at [512, 1024, 1024] (2^29 elements): 4 GiB at 3.35 TB/s
+// is 1.2821 ms. The first version (a mode of ntt_mfa.cu's pass kernel,
+// 5.96 ms) lost that to latency and to shared memory: each thread issued
+// one 4-byte load at a time, every Stockham stage was a shared-memory
+// round with runtime index arithmetic, and every butterfly fetched its
+// twiddles from device memory.
+//
+// What this design does about it:
+//   * the length is a template parameter (the C entry dispatches over
+//     A = 2 .. 1024, both fields, both directions), so every index map,
+//     loop bound and small-transform twiddle is a compile-time constant;
+//   * a thread holds its elements in registers across the stages: one
+//     A1-point transform (A1 = 32 at A = 512 and 1024), the inner twiddles
+//     w_A^(n2 k1) from a table staged once in shared memory, one
+//     transposition through shared memory, then A2-point transforms
+//     (regstages.cuh); one exchange round instead of five Stockham rounds
+//     at A = 512, and no twiddle loads inside the butterflies;
+//   * the block's whole tile is in flight at once: each thread issues all
+//     of its cp.async copies (16-byte copies of 4 lanes where aligned)
+//     before the one wait, and a block holds one tile plus the table
+//     (~70 KB at A = 512 and 1024), not two ping-pong buffers, so two
+//     blocks of 512 threads share an SM and one block's copies overlap
+//     the other's arithmetic;
+//   * the lane tile is TL = 32 at A <= 512 and 16 at 1024 (128- and
+//     64-byte row segments; a 16384-word tile), chosen by measurement
+//     against TL = 16 and 8, which lost at [1024, 1024, 512];
+//   * each thread stores its outputs straight from registers: a warp's
+//     store covers 32 / TL whole rows of TL lanes (whole sectors), so no
+//     second round through shared memory.
+//
+// Integer issue: at A = 512 an element costs 9 adds or subs (one a
+// radix-2 stage), ~1.0 butterfly multiply of the 32-point half, ~1.1 of
+// the 16-point half (index-0 twiddles skipped) and ~0.91 inner-twiddle
+// multiply. The code is straight-line, so cuobjdump's static count is the
+// dynamic one: the GF32 instantiation at A = 512 has 3768 SASS
+// instructions for a thread's 32 elements, ~118 an element, 37 of them
+// IMAD-class. 2^29 elements x 118 at PERF.md's measured issue rate
+// (~3.3e13 integer instructions a second over both pipes) is
+// ~1.9 ms, and the IMADs alone on their one pipe (1.64e13 a second)
+// ~1.2 ms: below half the bytes bound (2.56 ms), but above the bound
+// itself (1.28 ms), so this kernel is issue-bound, not memory-bound.
+
+#include <cstddef>
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+#include "gf.cuh"
+#include "regstages.cuh"
+
+namespace {
+
+using fecc::RegSplit;
+
+constexpr int kMaxLog = 10;   // longest pass the splits give (1024)
+
+struct RowArgs {
+  const uint32_t* x;
+  uint32_t* out;
+  const uint32_t* tw;   // [A2, A1] inner twiddles w_A^(n2 k1), prepared
+  int B, L;             // columns (axis 1), lanes (axis 2)
+  int lane_tiles;       // ceil(L / TL)
+  int vec;              // x 16-byte aligned and L % 4 == 0
+};
+
+// Block = (column b, lane tile); thread = (t = n2, lane l).
+template <int F, int LA, int INV>
+__global__ void __launch_bounds__(RegSplit<LA>::kThreads)
+    row_kernel(RowArgs p) {
+  using S = RegSplit<LA>;
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* tile = smem;
+  uint32_t* tw = smem + S::kExchWords;
+  const int lt = blockIdx.x % p.lane_tiles;
+  const int b = blockIdx.x / p.lane_tiles;
+  const int l0 = lt * S::TL;
+  fecc::load_tile_async<S>(tile, p.x, p.B, p.L, b, l0, p.vec != 0);
+  fecc::load_twiddles_async<S>(tw, p.tw);
+  fecc::cp_async_wait_all();
+  __syncthreads();
+
+  const int l = threadIdx.x % S::TL, t = threadIdx.x / S::TL;
+  uint32_t r[S::A1];
+  fecc::reg_transform<F, INV != 0, S>(r, tile, tw, t, l);
+  if (l0 + l >= p.L) return;
+  // natural order: out[k1 + A1 k2, b, l] of [A, B, L]
+  const size_t row = (size_t)p.B * p.L;
+  uint32_t* out = p.out + (size_t)b * p.L + l0 + l;
+  fecc::static_for<S::A1 / S::A2>([&](auto jc) {
+    constexpr int j = decltype(jc)::value;
+    uint32_t* o = out + (size_t)(t + S::A2 * j) * row;
+    fecc::static_for<S::A2>([&](auto k2c) {
+      constexpr int k2 = decltype(k2c)::value;
+      constexpr int src = j * S::A2 + fecc::bitrev(k2, S::LA2);
+      o[(size_t)(k2 * S::A1) * row] = r[src];
+    });
+  });
+}
+
+template <int F, int LA, int INV>
+cudaError_t launch(RowArgs p, cudaStream_t stream) {
+  using S = RegSplit<LA>;
+  const size_t smem = (size_t)S::kSmemWords * sizeof(uint32_t);
+  auto kernel = row_kernel<F, LA, INV>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  p.lane_tiles = (p.L + S::TL - 1) / S::TL;
+  const unsigned blocks = (unsigned)p.B * (unsigned)p.lane_tiles;
+  kernel<<<blocks, S::kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int LA>
+cudaError_t dispatch(int la, int field, bool inv, const RowArgs& p,
+                     cudaStream_t s) {
+  if constexpr (LA > kMaxLog) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (la != LA) return dispatch<LA + 1>(la, field, inv, p, s);
+    if (field == fecc::kGF32)
+      return inv ? launch<fecc::kGF32, LA, 1>(p, s)
+                 : launch<fecc::kGF32, LA, 0>(p, s);
+    return inv ? launch<fecc::kGF16, LA, 1>(p, s)
+               : launch<fecc::kGF16, LA, 0>(p, s);
+  }
+}
+
+int log2_exact(int v) {
+  int t = 0;
+  while ((1 << t) < v) ++t;
+  return (1 << t) == v ? t : -1;
+}
+
+}  // namespace
+
+extern "C" {
+
+// K3: [A=R, B=C, L] -> [R, C, L]; R-point forward (inverse != 0: inverse,
+// unscaled) transforms along axis 0, natural-order write. tw: the [A2, A1]
+// inner twiddles of kernels/ntt_mfa.py _row_inner_twiddles.
+int fecc_row(int field, const void* x, void* out, int A, int B, int L,
+             int inverse, const void* tw, void* stream) {
+  const int la = log2_exact(A);
+  if (la < 1 || la > kMaxLog || B < 1 || L < 1)
+    return (int)cudaErrorInvalidValue;
+  RowArgs p{};
+  p.x = (const uint32_t*)x;
+  p.out = (uint32_t*)out;
+  p.tw = (const uint32_t*)tw;
+  p.B = B;
+  p.L = L;
+  p.vec = ((uintptr_t)x % 16 == 0) && (L % 4 == 0);
+  return (int)dispatch<1>(la, field, inverse != 0, p,
+                          (cudaStream_t)stream);
+}
+
+}  // extern "C"

@@ -26,8 +26,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("ntt_mfa.cu", "lanes.cu", "microbench.cu")
-HEADERS = ("gf.cuh", "stages.cuh")
+SOURCES = ("ntt_mfa.cu", "row.cu", "lanes.cu", "microbench.cu")
+HEADERS = ("gf.cuh", "stages.cuh", "regstages.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v")
@@ -40,7 +40,8 @@ SIGNATURES = {
                      _P],
     "fecc_seam": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P,
                   _P, _P],
-    "fecc_row": [_I, _P, _P, _I, _I, _I, _P, _P, _P],
+    # row.cu: (field, x, out, A, B, L, inverse, inner twiddles, stream)
+    "fecc_row": [_I, _P, _P, _I, _I, _I, _I, _P, _P],
     "fecc_col_vec": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
     "fecc_seam_vec": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
                       _P, _P],

@@ -42,9 +42,10 @@ the port's own gate) on every device; both routes give the same bits.
 
 Each kernel has a wrapper and a plain PyTorch version here. The wrapper
 takes the plain version only for a CPU tensor; on a CUDA tensor it
-launches its Hopper kernel (``csrc/ntt_mfa.cu``, ``csrc/lanes.cu``) or
-raises, and counts the launch in :data:`LAUNCHES`. Split, lane tile and
-twiddle tables are the port's own; the output bits are the reference's.
+launches its Hopper kernel (``csrc/ntt_mfa.cu``, ``csrc/row.cu``,
+``csrc/lanes.cu``) or raises, and counts the launch in :data:`LAUNCHES`.
+Split, lane tile and twiddle tables are the port's own; the output bits
+are the reference's.
 """
 
 from __future__ import annotations
@@ -116,6 +117,29 @@ def _packed_w3_twiddles(field_name: str, c: int, inverse: bool):
         a >>= 1
     parts.append(np.zeros(1, np.uint32))
     return np.concatenate(parts)
+
+
+def _row_split(a: int) -> tuple[int, int]:
+    """K3's register split of an a-point column, (A1, A2): A1 =
+    2^ceil(log2 a / 2) points in registers first, A2 = a / A1 after the
+    exchange (32 x 16 at 512, 32 x 32 at 1024)."""
+    t = _log2(a)
+    return 1 << ((t + 1) // 2), 1 << (t // 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _row_inner_twiddles(field_name: str, a: int, inverse: bool):
+    """K3's inner twiddles: prepared [A2, A1] table T[n2, k1] =
+    w_a^(n2 * k1) (w^-1 for the inverse), the four-step twiddle between
+    the A1-point and the A2-point halves of one column
+    (``csrc/regstages.cuh``). GF16 entries can be 0x10000."""
+    field = FIELDS[field_name]
+    a1, a2 = _row_split(a)
+    w = field.root_of_order(a)
+    if inverse:
+        w = field.inv_host(w)
+    return np.asarray(prepare_consts(
+        field, powers_outer_host(field, powers_host(field, w, a2), a1)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -208,6 +232,11 @@ def _u32_on(arr: np.ndarray, device: str) -> torch.Tensor:
 def _stage_tables_on(field_name: str, a: int, inverse: bool, device: str):
     return (_u32_on(_packed_stage_twiddles(field_name, a, inverse), device),
             _u32_on(_packed_w3_twiddles(field_name, a, inverse), device))
+
+
+@functools.lru_cache(maxsize=None)
+def _row_tw_on(field_name: str, a: int, inverse: bool, device: str):
+    return _u32_on(_row_inner_twiddles(field_name, a, inverse), device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -465,16 +494,18 @@ def seam_pass_vec(y1: torch.Tensor, field: FieldSpec,
 
 def row_pass(y: torch.Tensor, field: FieldSpec,
              inverse: bool = False) -> torch.Tensor:
-    """K3 (pass B): [R, C, L] u32 -> [R, C, L], natural order."""
+    """K3 (pass B): [R, C, L] u32 -> [R, C, L], natural order
+    (``csrc/row.cu``: the register-stage kernel, its length a template
+    parameter)."""
     if not _dispatch(y, "row_pass"):
         return row_pass_plain(y, field, inverse)
     r, c, lanes = y.shape
-    tw, w3 = _stage_tables_on(field.name, r, inverse, str(y.device))
+    tw = _row_tw_on(field.name, r, inverse, str(y.device))
     out = torch.empty_like(y)
     with torch.cuda.device(y.device):
         _build.call("fecc_row", _field_code(field), y.data_ptr(),
-                    out.data_ptr(), r, c, lanes, tw.data_ptr(),
-                    w3.data_ptr(), _stream(y))
+                    out.data_ptr(), r, c, lanes, int(inverse),
+                    tw.data_ptr(), _stream(y))
         LAUNCHES["K3_row"] += 1
     return out
 

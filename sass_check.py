@@ -33,8 +33,12 @@ from pathlib import Path
 from fastecc_tpu_torch.kernels import _build
 from fastecc_tpu_torch.kernels.microbench import _VARIANTS
 
+# every kernel of the library, so that no key carries the anonymous
+# namespace's build-specific prefix ("chain_kernel" after the two names
+# that contain it)
 _BASES = ("fused_chain_kernel", "chain_tile_kernel", "chain_kernel",
-          "pass_kernel", "copy_kernel")
+          "pass_kernel", "copy_kernel", "row_kernel",
+          "pair_lanes_wire16_kernel", "pair_lanes_kernel")
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 _BRA = re.compile(r"\bBRA\b[^`(0-9]*`?\(?(\.L_x_\d+|0x[0-9a-f]+)")

@@ -58,6 +58,26 @@ def test_kernels_match_plain_on_card(field, cuda_device):
         assert torch.equal(m.row_pass(x, field), m.row_pass_plain(x, field))
 
 
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_row_kernel_every_length_on_card(field, inverse, cuda_device):
+    """K3 (row.cu, one instantiation per length) vs its plain version at
+    every A = 2 .. 1024, over 1, 3, 13 and 40 lanes (the 4-byte copy path
+    where L % 4 != 0, ragged lane tiles), and on a contiguous view 4 bytes
+    past a 16-byte boundary, which must take the 4-byte copies too."""
+    for la in range(1, 11):
+        a = 1 << la
+        for lanes in (1, 3, 13, 40):
+            y = from_numpy_u32(rand_field(field, (a, 3, lanes)), cuda_device)
+            assert torch.equal(m.row_pass(y, field, inverse),
+                               m.row_pass_plain(y, field, inverse)), (a, lanes)
+        big = from_numpy_u32(rand_field(field, a * 2 * 8 + 1), cuda_device)
+        y = big[1:].reshape(a, 2, 8)
+        assert y.data_ptr() % 16 == 4
+        assert torch.equal(m.row_pass(y, field, inverse),
+                           m.row_pass_plain(y, field, inverse)), (a, "offset")
+
+
 @pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
 def test_decode_kernels_match_plain_on_card(field, cuda_device):
     """K5, K6, K7 and K7-sel vs their plain versions on the card, small
@@ -291,8 +311,8 @@ def test_lanes_dispatch_on_card(cuda_device, monkeypatch):
 
 def test_copy_kernel_matches_plain_on_card(cuda_device):
     """K13 == clone at ragged sizes and on a pointer that is not 16-byte
-    aligned (the scalar path), and over 64 MiB, where the grid (one wave
-    of blocks) strides over the array many times."""
+    aligned (the scalar path), and over 64 MiB (thousands of blocks on
+    either path)."""
     words = torch.from_numpy(RNG.integers(0, 1 << 32, 4099, dtype=np.uint64)
                              .astype(np.uint32).view(np.int32))
     x = words.to(cuda_device).view(torch.uint32)
@@ -305,6 +325,23 @@ def test_copy_kernel_matches_plain_on_card(cuda_device):
     assert torch.equal(mb.copy(big), big)
     assert torch.equal(mb.copy(big[1:]), big[1:])
     assert mb.LAUNCHES["K13_copy"] == 8
+
+
+def test_copy_kernel_sizes_on_card(cuda_device):
+    """K13 == clone at 1 word, at 4n + 1 .. 4n + 3 words (the vector path,
+    one vector a thread, and block 0's tail), around multiples of 1024
+    words (a block's span: one vector of 4 words for each of 256 threads)
+    and, from a pointer 4 bytes past a 16-byte boundary, around multiples
+    of 256 words (likewise for the scalar path)."""
+    big = torch.from_numpy(RNG.integers(0, 1 << 32, 3 * 4096 + 8,
+                                        dtype=np.uint64).astype(np.uint32)
+                           .view(np.int32)).to(cuda_device).view(torch.uint32)
+    sizes = [1, 2, 4, 1023, 1024, 1025, 1026, 1027, 2047, 2049, 4095, 4097,
+             3 * 4096 - 1, 3 * 4096 + 1]
+    for n in sizes:
+        assert torch.equal(mb.copy(big[:n]), big[:n].clone()), n
+    for n in (255, 256, 257, 1023, 1025, 2049):
+        assert torch.equal(mb.copy(big[1:n + 1]), big[1:n + 1].clone()), n
 
 
 @pytest.mark.parametrize("variant", list(mb._VARIANTS))
