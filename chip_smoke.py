@@ -14,7 +14,8 @@ main path on the card and fails loudly on any fault. Phases:
                ones holding 0x10000) and masks about half set, and K10 on
                outputs that are ~90% 0x10000 (saturated bitmap words);
                K3 at every A = 2 .. 1024 in both directions over 13 and
-               40 lanes (1088 at A >= 512); K11 at k = 32, 2^10, 2^13
+               40 lanes (1088 at A >= 512), K1 (forward, inverse scaled
+               and not) and K2 likewise on [A, 4, L]; K11 at k = 32, 2^10, 2^13
                over 1088 and 13 lanes in both fields, K12 at those k over
                Wu = 8, 40, 1024 and on dense escapes (the escape counts
                printed); bit-exact
@@ -27,12 +28,14 @@ main path on the card and fails loudly on any fault. Phases:
                last 8 lanes (first and last lane tile of every pass)
                checked against the plain staged transforms; median of 5
                timed calls; where build/parent holds an earlier checkout
-               of the package, its K3 on the same tensor and at the
-               shapes the decode tables give K3 (held equal and timed
-               beside this one); then a rate-1/4 encode (k = 2^18,
+               of the package, its K3, K1 and K2 on the same tensors and
+               its K3 and K1 at the shapes the decode tables give them
+               (held equal and timed beside this tree's, in turns); then
+               a rate-1/4 encode (k = 2^18,
                n = 2^20), the path that runs K4, checked the same way;
   5. ntt     — the 2^20-point forward NTT over 512 lanes, first and last
-               8 lanes checked against the plain staged transform;
+               8 lanes checked against the plain staged transform; the
+               parent's K1 on its tensor, as in phase 4;
   6. wire    — GF32 encode_blocks on 2^14 random 4 KB blocks, checked
                against encode_parity of the packed data, and its first
                and last 8 lanes (the ragged edge at 1088) against the
@@ -166,7 +169,9 @@ LANES = ("K11_pair_lanes", "K12_pair_lanes_wire16")
 PEAKS = ("K13_copy", "K14_chain", "K15_fused_chain")
 SOURCE = {k: "fastecc_tpu_torch/csrc/" + (
     "microbench.cu" if k in PEAKS else "lanes.cu" if k in LANES
-    else "row.cu" if k == "K3_row" else "ntt_mfa.cu") for k in REPLACES}
+    else "row.cu" if k == "K3_row"
+    else "col.cu" if k in ("K1_col", "K2_seam") else "ntt_mfa.cu")
+    for k in REPLACES}
 
 
 def check(cond: bool, what: str) -> None:
@@ -537,6 +542,23 @@ def phase_kernels(gen) -> dict:
                         (field.name, a, lanes_, inv))
     say("[kernels] K3 at A = 2 .. 1024, forward and inverse, 13 and 40 "
         "lanes (1088 at A >= 512), GF32 and GF16: == plain")
+    # K1 and K2 likewise (one instantiation per length, K1 per direction):
+    # [A, 4, L], two seed columns and two t0 rows
+    for field in (GF32, GF16):
+        for la in range(1, 11):
+            a = 1 << la
+            g = field.root_of_order(8 * a)
+            for lanes_ in (13, 40) + ((1088,) if a >= 512 else ()):
+                x = rand_field(field.p, (a, 4, lanes_), gen)
+                for inv, scale in ((False, True), (True, True), (True, False)):
+                    cmp("K1_col", m.col_pass(x, field, inv, scale),
+                        m.col_pass_plain(x, field, inv, scale),
+                        (field.name, a, lanes_, inv, scale))
+                cmp("K2_seam", m.seam_pass(x, field, g),
+                    m.seam_pass_plain(x, field, g), (field.name, a, lanes_))
+    say("[kernels] K1 (forward, inverse scaled and not) and K2 at A = 2 .. "
+        "1024 on [A, 4, L], 13 and 40 lanes (1088 at A >= 512), GF32 and "
+        "GF16: == plain")
     # the wire16 phase's k = 2^13 (both block sizes), GF16's largest pair,
     # and small orders with Wu a multiple of 8 but not of the lane tile
     for k, wu in ((1 << 13, 16), (1 << 15, 16), (4, 8), (1 << 7, 40)):
@@ -765,6 +787,9 @@ def phase_encode(gen, launches, times, shapes):
         say(f"[encode_r2] {kk} {times[kk]:.3f} ms on {shapes[kk]}, "
             f"plain {times['plain_' + kk]:.1f} ms")
     parent_row_ms(col2)
+    parent_col_ms(x3, True, "encode_r2")
+    parent_seam_ms(col1, g)
+    parent_col_tables_ms()
     del data, x3, col1, col2
     torch.cuda.empty_cache()
 
@@ -796,7 +821,9 @@ def phase_encode(gen, launches, times, shapes):
 def parent_library():
     """The kernel library of the earlier checkout of the package in
     build/parent (as ``sass_check.py --compare build/parent`` wants it),
-    built there by its own ``_build``; None where there is none."""
+    built there by its own ``_build``; None where there is none. The
+    argtypes are the parent commit's C signatures (K1 and K2 with the
+    packed Stockham tables, K3 with the inner twiddles)."""
     import ctypes
     from pathlib import Path
     root = Path(__file__).resolve().parent / "build" / "parent"
@@ -808,9 +835,12 @@ def parent_library():
         [sys.executable, "-c", code], cwd=root, check=True,
         capture_output=True, text=True).stdout.strip().splitlines()[-1])
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.fecc_row.argtypes = [I, P, P, I, I, I, P, P, P]
+    lib.fecc_row.argtypes = [I, P, P, I, I, I, I, P, P]
+    lib.fecc_col.argtypes = [I, P, P, I, I, I, P, P, P, P, I, P]
+    lib.fecc_seam.argtypes = [I, P, P, I, I, I, P, P, P, P, P, P, I, P, P, P]
     lib.fecc_copy.argtypes = [P, P, ctypes.c_longlong, P]
-    lib.fecc_row.restype = lib.fecc_copy.restype = I
+    for fn in (lib.fecc_row, lib.fecc_col, lib.fecc_seam, lib.fecc_copy):
+        fn.restype = I
     return lib
 
 
@@ -832,51 +862,163 @@ def queued_ms(fn, reps: int = 20) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def parent_row_ms(col2: torch.Tensor) -> None:
-    """Where build/parent holds an earlier checkout of the package, its K3
-    (``fecc_row`` with the packed Stockham tables) against this one in this
-    process, in turns parent, this, this, parent, each output held equal:
-    on the encode's tensor (``event_ms``, as the row is timed), and at the
-    shapes the decode tables give K3 (the product tree's 2^19-element
-    transforms of 2^2 .. 2^19 points, the [2^20, 2] evaluation) and
-    decode_small's [2^13, 1024] (``queued_ms``: these take microseconds).
-    Printed for the record."""
+def turns(parent, this, timer, what: str) -> list[float]:
+    """The parent's kernel against this tree's: ``parent()`` and
+    ``this()`` return their outputs, held equal, then each is timed by
+    ``timer`` in turns parent, this, this, parent."""
+    check(torch.equal(parent(), this()), f"parent {what} != this {what}")
+    return [timer(f) for f in (parent, this, this, parent)]
+
+
+def parent_call(name: str, x: torch.Tensor, out: torch.Tensor, *args):
+    """A call of the parent library's C entry ``name`` on GF32 ``x`` into
+    ``out`` with ``args`` after (A, B, L), on the current stream."""
+    lib = parent_library()
+    a, b, lanes = x.shape
+
+    def call():
+        code = getattr(lib, name)(0, x.data_ptr(), out.data_ptr(), a, b,
+                                  lanes, *args,
+                                  torch.cuda.current_stream().cuda_stream)
+        check(code == 0, f"parent {name} returned {code}")
+        return out
+    return call
+
+
+def parent_row(y: torch.Tensor):
+    """The parent's K3 (``fecc_row``, forward, with the inner twiddles)."""
     from fastecc_tpu_torch.fields import GF32
     from fastecc_tpu_torch.kernels import ntt_mfa as m
-    lib = parent_library()
-    if lib is None:
+    tw = m._row_tw_on(GF32.name, y.shape[0], False, str(y.device))
+    return parent_call("fecc_row", y, torch.empty_like(y), 0, tw.data_ptr())
+
+
+def parent_col(x3: torch.Tensor, inverse: bool, scale: bool = True):
+    """The parent's K1 (a mode of its pass kernel, ``fecc_col`` with the
+    packed Stockham tables) on [C, R, L]."""
+    from fastecc_tpu_torch.fields import GF32
+    from fastecc_tpu_torch.kernels import ntt_mfa as m
+    c, r, lanes = x3.shape
+    dev = str(x3.device)
+    tr = m._seed_tr(r)
+    tw, w3 = m._stage_tables_on(GF32.name, c, inverse, dev)
+    seed, t0 = m._seeds_on(GF32.name, c * r, c, inverse, scale, tr, dev)
+    out = torch.empty((r, c, lanes), dtype=torch.uint32, device=x3.device)
+    return parent_call("fecc_col", x3, out, tw.data_ptr(), w3.data_ptr(),
+                       seed.data_ptr(), t0.data_ptr(), tr)
+
+
+def parent_seam(y1: torch.Tensor, g: int):
+    """The parent's K2 (``fecc_seam`` with the packed Stockham tables) on
+    [R1, C1, L]."""
+    from fastecc_tpu_torch.fields import GF32
+    from fastecc_tpu_torch.kernels import ntt_mfa as m
+    r1, c1, lanes = y1.shape
+    dev = str(y1.device)
+    tr = m._seed_tr(c1)
+    tw1, w31 = m._stage_tables_on(GF32.name, r1, True, dev)
+    tw2, w32 = m._stage_tables_on(GF32.name, r1, False, dev)
+    seed, t0 = m._seeds_on(GF32.name, r1 * c1, r1, False, False, tr, dev)
+    pcol, prow = m._pre_on(GF32.name, g % GF32.p, r1, c1, tr, dev)
+    out = torch.empty((c1, r1, lanes), dtype=torch.uint32, device=y1.device)
+    return parent_call("fecc_seam", y1, out, tw1.data_ptr(), w31.data_ptr(),
+                       tw2.data_ptr(), w32.data_ptr(), seed.data_ptr(),
+                       t0.data_ptr(), tr, pcol.data_ptr(), prow.data_ptr())
+
+
+def table_shapes(split) -> list[tuple]:
+    """The [A, B, L] views the decode tables give a pass at e = 2^19: the
+    product tree's 2^19-element transforms of 2^2 .. 2^19 points (``split``
+    of the order: (A, B)), the [2^20, 2] evaluation, decode_small's 2^13
+    points over 1024 lanes."""
+    return ([split(1 << t) + (1 << (19 - t),) for t in range(2, 20)]
+            + [split(1 << 20) + (2,), split(1 << 13) + (1024,)])
+
+
+def parent_row_ms(col2: torch.Tensor) -> None:
+    """Where build/parent holds an earlier checkout of the package, its K3
+    against this one in this process, in turns parent, this, this, parent,
+    each output held equal: on the encode's tensor (``event_ms``, as the
+    row is timed), and at the shapes the decode tables give K3
+    (``queued_ms``: these take microseconds). Printed for the record."""
+    from fastecc_tpu_torch.fields import GF32
+    from fastecc_tpu_torch.kernels import ntt_mfa as m
+    if parent_library() is None:
         return
-
-    def turns(y, timer):
-        a, b, lanes = y.shape
-        tw, w3 = m._stage_tables_on(GF32.name, a, False, str(y.device))
-        out = torch.empty_like(y)
-
-        def parent():
-            code = lib.fecc_row(0, y.data_ptr(), out.data_ptr(), a, b, lanes,
-                                tw.data_ptr(), w3.data_ptr(),
-                                torch.cuda.current_stream().cuda_stream)
-            check(code == 0, f"parent fecc_row returned {code}")
-
-        parent()
-        check(torch.equal(out, m.row_pass(y, GF32)),
-              f"parent K3 != this K3 on {tuple(y.shape)}")
-        return [timer(f) for f in (parent, lambda: m.row_pass(y, GF32),
-                                   lambda: m.row_pass(y, GF32), parent)]
-
-    t = turns(col2, event_ms)
+    t = turns(parent_row(col2), lambda: m.row_pass(col2, GF32), event_ms,
+              "K3")
     say(f"[encode_r2] K3 against the parent's fecc_row on the same "
         f"{tuple(col2.shape)} tensor, parent / this / this / parent: "
         f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
     gen = torch.Generator(device=col2.device).manual_seed(6)
-    shapes = [(1 << (t // 2), 1 << ((t + 1) // 2), 1 << (19 - t))
-              for t in range(2, 20)] + [(1024, 1024, 2), (64, 128, 1024)]
-    for shape in shapes:
+    for shape in table_shapes(lambda n: (n // m._split(n), m._split(n))):
         y = rand_field(GF32.p, shape, gen)
-        t = turns(y, queued_ms)
+        t = turns(parent_row(y), lambda: m.row_pass(y, GF32), queued_ms,
+                  "K3")
         say(f"[encode_r2] K3 against the parent's fecc_row on {shape}, "
             f"queued, parent / this / this / parent: {t[0] * 1e3:.2f} / "
             f"{t[1] * 1e3:.2f} / {t[2] * 1e3:.2f} / {t[3] * 1e3:.2f} us")
+
+
+def parent_col_ms(x3: torch.Tensor, inverse: bool, phase: str) -> None:
+    """Where build/parent holds an earlier checkout, its K1 against this
+    one on ``x3`` (the path's own tensor), in turns parent, this, this,
+    parent (``event_ms``), outputs held equal; printed for the record."""
+    from fastecc_tpu_torch.fields import GF32
+    from fastecc_tpu_torch.kernels import ntt_mfa as m
+    if parent_library() is None:
+        return
+    t = turns(parent_col(x3, inverse),
+              lambda: m.col_pass(x3, GF32, inverse=inverse), event_ms, "K1")
+    say(f"[{phase}] K1 against the parent's fecc_col on the same "
+        f"{tuple(x3.shape)} tensor, parent / this / this / parent: "
+        f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
+
+
+def parent_seam_ms(col1: torch.Tensor, g: int) -> None:
+    """As :func:`parent_col_ms`, for K2 on the encode's tensor."""
+    from fastecc_tpu_torch.fields import GF32
+    from fastecc_tpu_torch.kernels import ntt_mfa as m
+    if parent_library() is None:
+        return
+    t = turns(parent_seam(col1, g), lambda: m.seam_pass(col1, GF32, g),
+              event_ms, "K2")
+    say(f"[encode_r2] K2 against the parent's fecc_seam on the same "
+        f"{tuple(col1.shape)} tensor, parent / this / this / parent: "
+        f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
+
+
+def parent_col_tables_ms() -> None:
+    """Where build/parent holds an earlier checkout, its K1 against this
+    one at the shapes the decode tables give K1 (``queued_ms``), each
+    shape forward and scaled inverse, outputs held equal, summed as the
+    tables launch them (per tree level two forward and one inverse; the
+    evaluation forward; at 2^13 one of each)."""
+    from fastecc_tpu_torch.fields import GF32
+    from fastecc_tpu_torch.kernels import ntt_mfa as m
+    if parent_library() is None:
+        return
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shapes = table_shapes(lambda n: (m._split(n), n // m._split(n)))
+    counts = [(2, 1)] * 18 + [(1, 0), (1, 1)]
+    total = [0.0] * 4
+    for shape, (n_fwd, n_inv) in zip(shapes, counts):
+        x = rand_field(GF32.p, shape, gen)
+        for inv, count in ((False, n_fwd), (True, n_inv)):
+            if not count:
+                continue
+            t = turns(parent_col(x, inv),
+                      lambda: m.col_pass(x, GF32, inverse=inv), queued_ms,
+                      "K1")
+            total = [a + count * b for a, b in zip(total, t)]
+            say(f"[encode_r2] K1 against the parent's fecc_col on {shape}"
+                f"{' inverse' if inv else ''}, queued, parent / this / this "
+                f"/ parent: {t[0] * 1e3:.2f} / {t[1] * 1e3:.2f} / "
+                f"{t[2] * 1e3:.2f} / {t[3] * 1e3:.2f} us")
+    say(f"[encode_r2] K1 at the decode tables' shapes, summed over "
+        f"{sum(a + b for a, b in counts)} launches, parent / this / this / "
+        f"parent: {total[0]:.4f} / {total[1]:.4f} / {total[2]:.4f} / "
+        f"{total[3]:.4f} ms")
 
 
 def parent_copy_ms(src: torch.Tensor, dst: torch.Tensor) -> None:
@@ -909,6 +1051,7 @@ def parent_copy_ms(src: torch.Tensor, dst: torch.Tensor) -> None:
 def phase_ntt(gen, launches, times):
     from fastecc_tpu_torch import ntt
     from fastecc_tpu_torch.fields import GF32
+    from fastecc_tpu_torch.kernels import ntt_mfa as m
     from fastecc_tpu_torch.utils.timer import median, time_samples
 
     n, lanes = 1 << 20, 512
@@ -923,6 +1066,8 @@ def phase_ntt(gen, launches, times):
     say(f"[ntt] 2^20 x 512 median {times['ntt_s'] * 1e3:.3f} ms of "
         f"{[round(s * 1e3, 3) for s in samples]}")
     profile_once(lambda: ntt.ntt_auto(x, GF32), "ntt")
+    c = m._split(n)
+    parent_col_ms(x.reshape(c, n // c, lanes), False, "ntt")
     del x
     torch.cuda.empty_cache()
 

@@ -1,0 +1,253 @@
+// Pass A and the encode seam for Hopper (sm_90a): kernels K1 and K2 of the
+// port, on the register-stage engine of regstages.cuh (as K3 in row.cu),
+// with a plain C interface loaded through ctypes (kernels/_build.py builds
+// it; kernels/ntt_mfa.py col_pass and seam_pass wrap it).
+//
+// Replaces these Pallas TPU kernels of fastecc_tpu/kernels/ntt_mfa.py:
+//   K1 fecc_col  <- _col_kernel  (pass A: C-point stages along axis 0 of
+//                   [A = C, B = R, L] u32, x the four-step twiddle
+//                   T[k, b], transposed write [R, C, L])
+//   K2 fecc_seam <- _seam_kernel (the encode pair's middle pass: inverse
+//                   R1-point stages, x pcol[k] * prow[b] = g^m, forward
+//                   stages (C2 = R1), x T2[k, b], transposed write)
+// The output is the same canonical residues; how it gets there is the
+// port's own.
+//
+// What bounds it on the H100: each moves 2 GiB in and 2 GiB out at the
+// encode's shapes ([512, 1024, 1024], [1024, 512, 1024]; 2^29 elements),
+// 1.2821 ms at 3.35 TB/s. The first versions (modes of ntt_mfa.cu's pass
+// kernel: 6.05 and 10.10 ms) lost that to latency and to shared memory,
+// as K3's did: one synchronous 4-byte load at a time, every Stockham stage
+// a shared-memory round (five at A = 512, ten in the seam at 1024) with
+// run-time index arithmetic and twiddles fetched from device memory, and
+// a lane tile of 8192 / A lanes (32- or 64-byte row segments).
+//
+// What this design does about it, K3's schedule plus what pass A adds:
+//   * the length is a template parameter (the C entry dispatches over
+//     A = 2 .. 1024, both fields, K1 in both directions), so every index
+//     map, loop bound and small-transform twiddle is a compile-time
+//     constant;
+//   * the block's [A, TL] tile is in flight at once (cp.async, 16-byte
+//     copies where aligned, one wait), with the inner-twiddle tables; while
+//     the copies land, the block computes its per-row factors into shared
+//     memory: T[k, b] = seed[k, b mod tr] * t0[b / tr, k] and, for the
+//     seam, pcol[k] * prow[b];
+//   * each transform is one A1-point DIF in registers, the inner
+//     twiddles, one exchange through padded shared rows, then A2-point
+//     DIFs (reg_transform);
+//   * the seam hands its first transform's output to the second without a
+//     third exchange: thread t ends the first holding X[t + A2 n1] for
+//     n1 = j + (A1 / A2) k2 in r[j A2 + bitrev(k2)], which is column
+//     n2 = t of the second transform's step 1, so the middle multiply and
+//     the second transform run straight on the registers (a compile-time
+//     renaming); two exchanges in all, not three;
+//   * each thread stores straight from registers, x T[k, b] from the
+//     shared row: out[b, k, l] of [B, A, L], rows k = t + A2 j + A1 k2
+//     L words apart; a warp's store covers 32 / TL whole row segments of
+//     TL lanes (TL = 32 at A <= 512, 16 at 1024: 128- and 64-byte
+//     segments), so no second round through shared memory;
+//   * two blocks of 512 threads share an SM at A = 512 and 1024 (K2 at
+//     1024: a 16,896-word exchange, two inner tables and two factor rows,
+//     ~84 KB a block).
+// Ragged lanes as in K3: zero-filled past L, never stored past L.
+
+#include <cstddef>
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+#include "gf.cuh"
+#include "regstages.cuh"
+
+namespace {
+
+using fecc::RegSplit;
+using fecc::mul_full;
+
+constexpr int kMaxLog = 10;   // longest pass the splits give (1024)
+
+struct ColArgs {
+  const uint32_t* x;
+  uint32_t* out;
+  const uint32_t* tw1;   // [A2, A1] inner twiddles of the (first) transform
+  const uint32_t* tw2;   // the seam's second (forward) transform
+  const uint32_t* seed;  // [A, tr] four-step seeds
+  const uint32_t* t0;    // [B / tr, A] four-step column bases
+  const uint32_t* pcol;  // seam: [A] rank-1 row factor
+  const uint32_t* prow;  // seam: [B] rank-1 column factor
+  int B, L;              // columns (axis 1), lanes (axis 2)
+  int log_tr;
+  int lane_tiles;        // ceil(L / TL)
+  int vec;               // x 16-byte aligned and L % 4 == 0
+};
+
+// Shared words of a block: the exchange (which holds the tile first), the
+// inner tables, T's row and the seam's middle row.
+template <int LA, int SEAM>
+constexpr int smem_words() {
+  using S = RegSplit<LA>;
+  return S::kExchWords + (SEAM ? 2 : 1) * S::A2 * S::kTwStride +
+         (SEAM ? 2 : 1) * S::A;
+}
+
+// Block = (column b, lane tile); thread = (t = n2, lane l). K1: SEAM = 0,
+// INV the direction. K2: SEAM = 1, INV = 1: the first transform inverse,
+// the second forward.
+template <int F, int LA, int INV, int SEAM>
+__global__ void __launch_bounds__(RegSplit<LA>::kThreads)
+    col_kernel(ColArgs p) {
+  using S = RegSplit<LA>;
+  constexpr int kTw = S::A2 * S::kTwStride;
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* tile = smem;
+  uint32_t* tw1 = smem + S::kExchWords;
+  uint32_t* tw2 = tw1 + kTw;                     // seam only
+  uint32_t* fac = tw1 + (SEAM ? 2 : 1) * kTw;    // [A] T[k, b]
+  uint32_t* mid = fac + S::A;                    // seam: [A] pcol * prow[b]
+  const int lt = blockIdx.x % p.lane_tiles;
+  const int b = blockIdx.x / p.lane_tiles;
+  const int l0 = lt * S::TL;
+  fecc::load_tile_async<S>(tile, p.x, p.B, p.L, b, l0, p.vec != 0);
+  fecc::load_twiddles_async<S>(tw1, p.tw1);
+  if constexpr (SEAM != 0) fecc::load_twiddles_async<S>(tw2, p.tw2);
+  // while the copies land: T[k, b] = seed[k, b mod tr] * t0[b / tr, k]
+  // (prepared x prepared stays prepared; GF16 tables can hold 0x10000)
+  const int j = b & ((1 << p.log_tr) - 1);
+  const uint32_t* t0 = p.t0 + (size_t)(b >> p.log_tr) * S::A;
+  const uint32_t pr = SEAM != 0 ? p.prow[b] : 0u;
+  for (int k = threadIdx.x; k < S::A; k += S::kThreads) {
+    fac[k] = mul_full<F>(p.seed[(k << p.log_tr) + j], t0[k]);
+    if constexpr (SEAM != 0) mid[k] = mul_full<F>(p.pcol[k], pr);
+  }
+  fecc::cp_async_wait_all();
+  __syncthreads();
+
+  const int l = threadIdx.x % S::TL, t = threadIdx.x / S::TL;
+  uint32_t r[S::A1];
+  fecc::reg_transform<F, INV != 0, S>(r, tile, tw1, t, l);
+  if constexpr (SEAM != 0) {
+    // the hand-off: y[n1] = X[t + A2 n1] * mid[t + A2 n1], with
+    // n1 = j + (A1 / A2) k2 held in r[j A2 + bitrev(k2)], is step 1's
+    // column n2 = t
+    uint32_t y[S::A1];
+    fecc::static_for<S::A1>([&](auto nc) {
+      constexpr int n1 = decltype(nc)::value;
+      constexpr int rho = S::A1 / S::A2;
+      constexpr int src = n1 % rho * S::A2 + fecc::bitrev(n1 / rho, S::LA2);
+      y[n1] = mul_full<F>(r[src], mid[t + S::A2 * n1]);
+    });
+    fecc::reg_transform_regs<F, false, S>(y, tile, tw2, t, l);
+    fecc::static_for<S::A1>([&](auto nc) {
+      r[decltype(nc)::value] = y[decltype(nc)::value];
+    });
+  }
+  if (l0 + l >= p.L) return;
+  // transposed: out[b, k1 + A1 k2, l] of [B, A, L], x T[k, b]
+  uint32_t* out = p.out + (size_t)b * S::A * p.L + l0 + l;
+  fecc::static_for<S::A1 / S::A2>([&](auto jc) {
+    constexpr int jj = decltype(jc)::value;
+    const int k1 = t + S::A2 * jj;
+    uint32_t* o = out + (size_t)k1 * p.L;
+    fecc::static_for<S::A2>([&](auto k2c) {
+      constexpr int k2 = decltype(k2c)::value;
+      constexpr int src = jj * S::A2 + fecc::bitrev(k2, S::LA2);
+      o[(size_t)(k2 * S::A1) * p.L] =
+          mul_full<F>(r[src], fac[k1 + k2 * S::A1]);
+    });
+  });
+}
+
+template <int F, int LA, int INV, int SEAM>
+cudaError_t launch(ColArgs p, cudaStream_t stream) {
+  using S = RegSplit<LA>;
+  const size_t smem = (size_t)smem_words<LA, SEAM>() * sizeof(uint32_t);
+  auto kernel = col_kernel<F, LA, INV, SEAM>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  p.lane_tiles = (p.L + S::TL - 1) / S::TL;
+  const unsigned blocks = (unsigned)p.B * (unsigned)p.lane_tiles;
+  kernel<<<blocks, S::kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int LA>
+cudaError_t dispatch(int la, int field, bool inv, bool seam, const ColArgs& p,
+                     cudaStream_t s) {
+  if constexpr (LA > kMaxLog) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (la != LA) return dispatch<LA + 1>(la, field, inv, seam, p, s);
+    if (seam)
+      return field == fecc::kGF32 ? launch<fecc::kGF32, LA, 1, 1>(p, s)
+                                  : launch<fecc::kGF16, LA, 1, 1>(p, s);
+    if (field == fecc::kGF32)
+      return inv ? launch<fecc::kGF32, LA, 1, 0>(p, s)
+                 : launch<fecc::kGF32, LA, 0, 0>(p, s);
+    return inv ? launch<fecc::kGF16, LA, 1, 0>(p, s)
+               : launch<fecc::kGF16, LA, 0, 0>(p, s);
+  }
+}
+
+int log2_exact(int v) {
+  int t = 0;
+  while ((1 << t) < v) ++t;
+  return (1 << t) == v ? t : -1;
+}
+
+int run(int field, bool inv, bool seam, ColArgs p, int A, int tr,
+        void* stream) {
+  const int la = log2_exact(A);
+  p.log_tr = log2_exact(tr);
+  if (la < 1 || la > kMaxLog || p.B < 1 || p.L < 1 || p.log_tr < 0)
+    return (int)cudaErrorInvalidValue;
+  p.vec = ((uintptr_t)p.x % 16 == 0) && (p.L % 4 == 0);
+  return (int)dispatch<1>(la, field, inv, seam, p, (cudaStream_t)stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// K1: [A=C, B=R, L] -> [R, C, L]; C-point forward (inverse != 0: inverse)
+// stages, x T[k_c, r], transpose. tw: the [A2, A1] inner twiddles of
+// kernels/ntt_mfa.py _row_inner_twiddles; seed [C, tr], t0 [R / tr, C]
+// (N^-1 folded into t0 for a scaled inverse).
+int fecc_col(int field, const void* x, void* out, int A, int B, int L,
+             int inverse, const void* tw, const void* seed, const void* t0,
+             int tr, void* stream) {
+  ColArgs p{};
+  p.x = (const uint32_t*)x;
+  p.out = (uint32_t*)out;
+  p.tw1 = (const uint32_t*)tw;
+  p.seed = (const uint32_t*)seed;
+  p.t0 = (const uint32_t*)t0;
+  p.B = B;
+  p.L = L;
+  return run(field, inverse != 0, false, p, A, tr, stream);
+}
+
+// K2: [A=R1, B=C1, L] -> [C1, R1, L]; inverse R1-point stages (inner
+// table tw_inv), x pcol[k] * prow[b] (rank-1 g^m), forward stages
+// (tw_fwd), x T2, transpose.
+int fecc_seam(int field, const void* x, void* out, int A, int B, int L,
+              const void* tw_inv, const void* tw_fwd, const void* seed,
+              const void* t0, int tr, const void* pcol, const void* prow,
+              void* stream) {
+  ColArgs p{};
+  p.x = (const uint32_t*)x;
+  p.out = (uint32_t*)out;
+  p.tw1 = (const uint32_t*)tw_inv;
+  p.tw2 = (const uint32_t*)tw_fwd;
+  p.seed = (const uint32_t*)seed;
+  p.t0 = (const uint32_t*)t0;
+  p.pcol = (const uint32_t*)pcol;
+  p.prow = (const uint32_t*)prow;
+  p.B = B;
+  p.L = L;
+  return run(field, true, true, p, A, tr, stream);
+}
+
+}  // extern "C"

@@ -1,18 +1,13 @@
-// Fused four-step NTT passes for Hopper (sm_90a): kernels K1-K7 of the
+// Fused four-step NTT passes for Hopper (sm_90a): kernels K4-K10 of the
 // port, with a plain C interface loaded through ctypes
 // (fastecc_tpu_torch/kernels/_build.py builds it; kernels/ntt_mfa.py
 // wraps it).
 //
 // Replaces these Pallas TPU kernels of fastecc_tpu/kernels/ntt_mfa.py:
-//   K1 fecc_col      <- _col_kernel      (pass A: C-point stages,
-//                       four-step twiddle, transposed write)
-//   K4 fecc_col_pre  <- _col_kernel_pre  (K1 with the rank-1 x[m] *= g^m
-//                       prologue)
-//   K2 fecc_seam     <- _seam_kernel     (the encode pair's middle pass:
-//                       inverse stages, coset multiply, forward stages,
-//                       four-step twiddle, transposed write)
-//   (K3, pass B, is its own kernel on the register-stage engine:
-//   row.cu, regstages.cuh)
+//   K4 fecc_col_pre  <- _col_kernel_pre  (pass A, K1, with the rank-1
+//                       x[m] *= g^m prologue)
+//   (K1 pass A, K2 the encode seam and K3 pass B are kernels of their own
+//   on the register-stage engine regstages.cuh: col.cu, row.cu)
 // and the decode fusions, each with a general prepared [N] table v:
 //   K5 fecc_col_vec      <- _col_kernel_prevec  (K1 with x[m] *= v[m]:
 //                           the locator evaluations l(w^j))
@@ -58,9 +53,9 @@
 // e = n/2 a sixth less traffic than reading it everywhere), and
 // multiplies only at rows whose mask is set.
 //
-// What bounds it on the H100: at the encode's main path (k = 2^19 rows x
-// 1024 lanes, 2 GiB per pass each way) a pass's floor is its 4 GiB of
-// device-memory traffic, ~1.28 ms at 3.35 TB/s. Even the seam, with two
+// What bounds it on the H100: at 2^29 elements (the decode's 2^20 rows x
+// 512 lanes, 2 GiB per pass each way) a pass's floor is its 4 GiB of
+// device-memory traffic, ~1.28 ms at 3.35 TB/s. Even a seam, with two
 // transforms and 12 mulmods per element, stays under that in integer
 // multiplies: for p = 0xFFF00001 a mulmod needs only the two words of
 // a * b (the REDC's m and m * p are shift/add chains), ~0.77 ms. This
@@ -103,10 +98,11 @@ constexpr int kTileWords = 8192;  // A * TL words per buffer (32 KB)
 constexpr int kMaxLaneTile = 32;
 constexpr int kMaxLen = 1024;     // longest pass the splits give (2^20)
 
-// (3 was K3's mode; K3 is row.cu's kernel now. The numbers stay, so
-// sass_check.py keys the other instantiations as before.)
+// (0, 2 and 3 were the modes of K1, K2 and K3, kernels of their own now in
+// col.cu and row.cu. The numbers stay, so sass_check.py keys the other
+// instantiations as before.)
 enum Mode : int {
-  kCol = 0, kColPre = 1, kSeam = 2,
+  kColPre = 1,
   kColVec = 4, kSeamVec = 5, kRowPost = 6, kRowPostSel = 7,
   kColWire16 = 8, kSeamWire16 = 9, kRowWire16 = 10
 };
@@ -274,7 +270,7 @@ __global__ void __launch_bounds__(kThreads) pass_kernel(PassArgs p,
   __syncthreads();
   uint32_t* y = run_stages<F>(buf0, buf1, p.A, p.log_a, p.log_tl, p.tw1, p.w31);
 
-  if (MODE == kSeam || MODE == kSeamVec || MODE == kSeamWire16) {
+  if (MODE == kSeamVec || MODE == kSeamWire16) {
     if (MODE != kSeamVec) rank1_row<F>(scratch, p, b);
     else vec_row(scratch, t.vec, p.A, p.B, b);
     __syncthreads();
@@ -379,19 +375,6 @@ PassArgs base_args(const void* x, void* out, int A, int B, int L) {
 
 extern "C" {
 
-// K1: [A=C, B=R, L] -> [R, C, L]; C-point stages, x T[k_c, r], transpose.
-int fecc_col(int field, const void* x, void* out, int A, int B, int L,
-             const void* tw, const void* w3, const void* seed, const void* t0,
-             int tr, void* stream) {
-  PassArgs p = base_args(x, out, A, B, L);
-  p.tw1 = (const uint32_t*)tw;
-  p.w31 = (const uint32_t*)w3;
-  p.seed = (const uint32_t*)seed;
-  p.t0 = (const uint32_t*)t0;
-  p.log_tr = log2_exact(tr);
-  return run<kCol>(field, p, stream);
-}
-
 // K4: K1 with x[a, b] *= pcol[a] * prow[b] before the stages.
 int fecc_col_pre(int field, const void* x, void* out, int A, int B, int L,
                  const void* tw, const void* w3, const void* seed,
@@ -406,25 +389,6 @@ int fecc_col_pre(int field, const void* x, void* out, int A, int B, int L,
   p.pcol = (const uint32_t*)pcol;
   p.prow = (const uint32_t*)prow;
   return run<kColPre>(field, p, stream);
-}
-
-// K2: [A=R1, B=C1, L] -> [C1, R1, L]; inverse R1-point stages, x g^m
-// (rank-1), forward stages, x T2, transpose.
-int fecc_seam(int field, const void* x, void* out, int A, int B, int L,
-              const void* tw1, const void* w31, const void* tw2,
-              const void* w32, const void* seed, const void* t0, int tr,
-              const void* pcol, const void* prow, void* stream) {
-  PassArgs p = base_args(x, out, A, B, L);
-  p.tw1 = (const uint32_t*)tw1;
-  p.w31 = (const uint32_t*)w31;
-  p.tw2 = (const uint32_t*)tw2;
-  p.w32 = (const uint32_t*)w32;
-  p.seed = (const uint32_t*)seed;
-  p.t0 = (const uint32_t*)t0;
-  p.log_tr = log2_exact(tr);
-  p.pcol = (const uint32_t*)pcol;
-  p.prow = (const uint32_t*)prow;
-  return run<kSeam>(field, p, stream);
 }
 
 // K5: K1 with x[a, b] *= vec[a * B + b] before the stages.

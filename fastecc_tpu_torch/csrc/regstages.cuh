@@ -1,5 +1,5 @@
-// Register-resident NTT stages for Hopper: the engine of K3 (row.cu), written
-// so that pass A (K1) can stand on it too. Three parts:
+// Register-resident NTT stages for Hopper: the engine of K3 (row.cu) and of
+// K1 and K2 (col.cu). Three parts:
 //
 //   * a tile loader that puts a block's [A, TL] column tile of an [A, B, L]
 //     u32 view into shared memory with cp.async, every copy of the tile
@@ -209,20 +209,19 @@ __device__ __forceinline__ void load_twiddles_async(uint32_t* dst,
   });
 }
 
-// The A-point transform of lane column (t, l) of the tile: step 1 on
-// column n2 = t, the inner twiddles, the exchange, step 2 on columns
+// The A-point transform from step 1's registers on: r[n1] holds element
+// n1 * A2 + t of lane column (t, l). The A1-point DIF on column n2 = t,
+// the inner twiddles, the exchange through `tile`, step 2 on columns
 // k1 = t + A2 j (j < A1 / A2). On return r[j * A2 + bitrev(k2)] holds
-// X[k1 + A1 k2]. Callers have waited for the copies and synchronised;
-// the tile is overwritten by the exchange.
+// X[k1 + A1 k2]; as k = t + A2 (j + (A1 / A2) k2), those are the A1
+// elements of column n2 = t of a second transform of the same length
+// (the seam's hand-off, col.cu). The exchange overwrites `tile`; its
+// first barrier waits until every thread has done with it.
 template <int F, bool INV, class S>
-__device__ __forceinline__ void reg_transform(uint32_t (&r)[S::A1],
-                                              uint32_t* tile,
-                                              const uint32_t* tw, int t,
-                                              int l) {
-  static_for<S::A1>([&](auto n1) {
-    r[decltype(n1)::value] =
-        tile[(decltype(n1)::value * S::A2 + t) * S::TL + l];
-  });
+__device__ __forceinline__ void reg_transform_regs(uint32_t (&r)[S::A1],
+                                                   uint32_t* tile,
+                                                   const uint32_t* tw, int t,
+                                                   int l) {
   dif_regs<F, INV, S::A1, 0>(r);
   __syncthreads();  // every column is in registers: the tile is free
   uint32_t* row = tile + t * S::kRowWords + l;
@@ -245,6 +244,21 @@ __device__ __forceinline__ void reg_transform(uint32_t (&r)[S::A1],
     });
     dif_regs<F, INV, S::A2, j * S::A2>(r);
   });
+}
+
+// The A-point transform of lane column (t, l) of the tile: step 1 reads
+// column n2 = t into registers, then reg_transform_regs. Callers have
+// waited for the copies and synchronised.
+template <int F, bool INV, class S>
+__device__ __forceinline__ void reg_transform(uint32_t (&r)[S::A1],
+                                              uint32_t* tile,
+                                              const uint32_t* tw, int t,
+                                              int l) {
+  static_for<S::A1>([&](auto n1) {
+    r[decltype(n1)::value] =
+        tile[(decltype(n1)::value * S::A2 + t) * S::TL + l];
+  });
+  reg_transform_regs<F, INV, S>(r, tile, tw, t, l);
 }
 
 }  // namespace fecc

@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("ntt_mfa.cu", "row.cu", "lanes.cu", "microbench.cu")
+SOURCES = ("ntt_mfa.cu", "col.cu", "row.cu", "lanes.cu", "microbench.cu")
 HEADERS = ("gf.cuh", "stages.cuh", "regstages.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
@@ -35,11 +35,14 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry -> argtypes (field, x, out, A, B, L, tables..., stream)
 SIGNATURES = {
-    "fecc_col": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
+    # col.cu: (field, x, out, A, B, L, inverse, inner twiddles, seed, t0,
+    # tr, stream)
+    "fecc_col": [_I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    # (field, x, out, A, B, L, tw_inv, tw_fwd, seed, t0, tr, pcol, prow,
+    # stream)
+    "fecc_seam": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P],
     "fecc_col_pre": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P,
                      _P],
-    "fecc_seam": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P,
-                  _P, _P],
     # row.cu: (field, x, out, A, B, L, inverse, inner twiddles, stream)
     "fecc_row": [_I, _P, _P, _I, _I, _I, _I, _P, _P],
     "fecc_col_vec": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],

@@ -42,8 +42,9 @@ the port's own gate) on every device; both routes give the same bits.
 
 Each kernel has a wrapper and a plain PyTorch version here. The wrapper
 takes the plain version only for a CPU tensor; on a CUDA tensor it
-launches its Hopper kernel (``csrc/ntt_mfa.cu``, ``csrc/row.cu``,
-``csrc/lanes.cu``) or raises, and counts the launch in :data:`LAUNCHES`.
+launches its Hopper kernel (``csrc/col.cu``: K1, K2; ``csrc/row.cu``: K3;
+``csrc/ntt_mfa.cu``: K4-K10; ``csrc/lanes.cu``: K11, K12) or raises, and
+counts the launch in :data:`LAUNCHES`.
 Split, lane tile and twiddle tables are the port's own; the output bits
 are the reference's.
 """
@@ -120,7 +121,7 @@ def _packed_w3_twiddles(field_name: str, c: int, inverse: bool):
 
 
 def _row_split(a: int) -> tuple[int, int]:
-    """K3's register split of an a-point column, (A1, A2): A1 =
+    """The register split of an a-point column (K1-K3), (A1, A2): A1 =
     2^ceil(log2 a / 2) points in registers first, A2 = a / A1 after the
     exchange (32 x 16 at 512, 32 x 32 at 1024)."""
     t = _log2(a)
@@ -129,7 +130,7 @@ def _row_split(a: int) -> tuple[int, int]:
 
 @functools.lru_cache(maxsize=None)
 def _row_inner_twiddles(field_name: str, a: int, inverse: bool):
-    """K3's inner twiddles: prepared [A2, A1] table T[n2, k1] =
+    """The inner twiddles of K1-K3: prepared [A2, A1] table T[n2, k1] =
     w_a^(n2 * k1) (w^-1 for the inverse), the four-step twiddle between
     the A1-point and the A2-point halves of one column
     (``csrc/regstages.cuh``). GF16 entries can be 0x10000."""
@@ -399,31 +400,36 @@ def _launch_col(x3, field, inverse, scale, pre_seed=None, pre_vec=None):
     c, r, lanes = x3.shape
     dev = str(x3.device)
     tr = _seed_tr(r)
-    tw, w3 = _stage_tables_on(field.name, c, inverse, dev)
     seed, t0 = _seeds_on(field.name, c * r, c, inverse, scale, tr, dev)
     out = torch.empty((r, c, lanes), dtype=torch.uint32, device=x3.device)
-    args = [_field_code(field), x3.data_ptr(), out.data_ptr(), c, r, lanes,
-            tw.data_ptr(), w3.data_ptr(), seed.data_ptr(), t0.data_ptr(), tr]
+    head = [_field_code(field), x3.data_ptr(), out.data_ptr(), c, r, lanes]
+    seeds = [seed.data_ptr(), t0.data_ptr(), tr]
     with torch.cuda.device(x3.device):
+        if pre_vec is None and pre_seed is None:
+            tw = _row_tw_on(field.name, c, inverse, dev)
+            _build.call("fecc_col", *head, int(inverse), tw.data_ptr(),
+                        *seeds, _stream(x3))
+            LAUNCHES["K1_col"] += 1
+            return out
+        tw, w3 = _stage_tables_on(field.name, c, inverse, dev)
+        args = [*head, tw.data_ptr(), w3.data_ptr(), *seeds]
         if pre_vec is not None:
             vec = _cuda_operand(pre_vec, x3, c * r, "col_pass_vec: pre_vec")
             _build.call("fecc_col_vec", *args, vec, _stream(x3))
             LAUNCHES["K5_col_vec"] += 1
-        elif pre_seed is not None:
+        else:
             pcol, prow = _pre_on(field.name, pre_seed % field.p, c, r, tr,
                                  dev)
             _build.call("fecc_col_pre", *args, pcol.data_ptr(),
                         prow.data_ptr(), _stream(x3))
             LAUNCHES["K4_col_pre"] += 1
-        else:
-            _build.call("fecc_col", *args, _stream(x3))
-            LAUNCHES["K1_col"] += 1
     return out
 
 
 def col_pass(x3: torch.Tensor, field: FieldSpec, inverse: bool = False,
              scale: bool = True) -> torch.Tensor:
-    """K1 (pass A): [C, R, L] u32 -> [R, C, L]."""
+    """K1 (pass A): [C, R, L] u32 -> [R, C, L] (``csrc/col.cu``: the
+    register-stage kernel, its length a template parameter)."""
     if not _dispatch(x3, "col_pass"):
         return col_pass_plain(x3, field, inverse, scale)
     return _launch_col(x3, field, inverse, scale)
@@ -452,24 +458,28 @@ def _launch_seam(y1, field, pre_seed2=None, pre_vec2=None):
     c2, r2 = r1, c1
     dev = str(y1.device)
     tr = _seed_tr(r2)
-    tw1, w31 = _stage_tables_on(field.name, r1, True, dev)
-    tw2, w32 = _stage_tables_on(field.name, c2, False, dev)
     seed, t0 = _seeds_on(field.name, c2 * r2, c2, False, False, tr, dev)
     out = torch.empty((r2, c2, lanes), dtype=torch.uint32, device=y1.device)
-    args = [_field_code(field), y1.data_ptr(), out.data_ptr(), r1, c1, lanes,
-            tw1.data_ptr(), w31.data_ptr(), tw2.data_ptr(), w32.data_ptr(),
-            seed.data_ptr(), t0.data_ptr(), tr]
+    head = [_field_code(field), y1.data_ptr(), out.data_ptr(), r1, c1, lanes]
+    seeds = [seed.data_ptr(), t0.data_ptr(), tr]
     with torch.cuda.device(y1.device):
         if pre_vec2 is None:
+            tw_inv = _row_tw_on(field.name, r1, True, dev)
+            tw_fwd = _row_tw_on(field.name, c2, False, dev)
             pcol, prow = _pre_on(field.name, pre_seed2 % field.p, c2, r2, tr,
                                  dev)
-            _build.call("fecc_seam", *args, pcol.data_ptr(), prow.data_ptr(),
-                        _stream(y1))
+            _build.call("fecc_seam", *head, tw_inv.data_ptr(),
+                        tw_fwd.data_ptr(), *seeds, pcol.data_ptr(),
+                        prow.data_ptr(), _stream(y1))
             LAUNCHES["K2_seam"] += 1
         else:
+            tw1, w31 = _stage_tables_on(field.name, r1, True, dev)
+            tw2, w32 = _stage_tables_on(field.name, c2, False, dev)
             vec = _cuda_operand(pre_vec2, y1, c2 * r2,
                                 "seam_pass_vec: pre_vec2")
-            _build.call("fecc_seam_vec", *args, vec, _stream(y1))
+            _build.call("fecc_seam_vec", *head, tw1.data_ptr(),
+                        w31.data_ptr(), tw2.data_ptr(), w32.data_ptr(),
+                        *seeds, vec, _stream(y1))
             LAUNCHES["K6_seam_vec"] += 1
     return out
 
@@ -477,7 +487,7 @@ def _launch_seam(y1, field, pre_seed2=None, pre_vec2=None):
 def seam_pass(y1: torch.Tensor, field: FieldSpec,
               pre_seed2: int) -> torch.Tensor:
     """K2 (the encode pair's middle pass, g^m in the middle): [R1, C1, L]
-    u32 -> [C1, R1, L]."""
+    u32 -> [C1, R1, L] (``csrc/col.cu``, both transforms in registers)."""
     if not _dispatch(y1, "seam_pass"):
         return seam_pass_plain(y1, field, pre_seed2)
     return _launch_seam(y1, field, pre_seed2=pre_seed2)

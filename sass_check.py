@@ -2,6 +2,7 @@
 
     python3 sass_check.py --compare PARENT_ROOT
     python3 sass_check.py --ops
+    python3 sass_check.py --count PREFIX
 
 A developer's check of the kernel library, run from the repo's root; no
 entry point of the package uses it.
@@ -16,6 +17,12 @@ loop's body by opcode, and for the elementwise variants the count per
 step (the body holds kChainUnroll * kIlp = 32 steps and the loop's own
 control): the check that the compiler kept `depth` dependent steps, and
 the source of the op counts in ``fastecc_tpu_torch/utils/profiling.py``.
+
+``--count`` prints, for each kernel whose key starts with PREFIX (e.g.
+``col_kernel<0,9,``), its SASS instruction count and its most common
+opcodes. The register-stage kernels (csrc/col.cu, csrc/row.cu) are
+straight-line, so the count is what each thread issues for its
+elements: the measure of how far they are issue-bound.
 
 Needs ``cuobjdump`` (beside ``nvcc``) and nothing else: no card.
 """
@@ -37,7 +44,7 @@ from fastecc_tpu_torch.kernels.microbench import _VARIANTS
 # namespace's build-specific prefix ("chain_kernel" after the two names
 # that contain it)
 _BASES = ("fused_chain_kernel", "chain_tile_kernel", "chain_kernel",
-          "pass_kernel", "copy_kernel", "row_kernel",
+          "pass_kernel", "copy_kernel", "row_kernel", "col_kernel",
           "pair_lanes_wire16_kernel", "pair_lanes_kernel")
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
@@ -161,16 +168,29 @@ def chain_ops() -> dict:
     return rows
 
 
+def counts(prefix: str) -> dict:
+    """Per kernel whose key starts with ``prefix``: its instruction count
+    and its ten most common opcodes."""
+    funcs = functions(_build.build().path)
+    return {k: {"instructions": len(v), "ops": dict(collections.Counter(
+        opcode(t) for _, t in v).most_common(10))}
+        for k, v in sorted(funcs.items()) if k.startswith(prefix)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="sass_check.py")
     ap.add_argument("--compare", metavar="PARENT_ROOT", default=None)
     ap.add_argument("--ops", action="store_true")
+    ap.add_argument("--count", metavar="PREFIX", default=None)
     args = ap.parse_args(argv)
     if args.compare:
         print(json.dumps({"sass_compare": compare(Path(args.compare))}))
     if args.ops:
         for name, row in chain_ops().items():
             print(json.dumps({"variant": name, **(row or {})}))
+    if args.count is not None:
+        for key, row in counts(args.count).items():
+            print(json.dumps({"kernel": key, **row}))
     return 0
 
 

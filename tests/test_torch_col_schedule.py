@@ -1,0 +1,273 @@
+"""K1's and K2's schedules against the reference, on the CPU.
+
+Pass A (K1) and the encode seam (K2) are one kernel template in
+``fastecc_tpu_torch/csrc/col.cu`` on ``csrc/regstages.cuh``; it cannot
+run here, so this file models its exact schedule in numpy: the [A, TL]
+tile in a flat shared-memory buffer per block, the per-row factors the
+block computes from the four-step seeds (and, for the seam, the rank-1
+row pcol[k] * prow[b]), the A1-point in-register DIF with its
+compile-time constants, the inner twiddles from ``_row_inner_twiddles``
+staged into padded rows, the exchange, the A2-point DIFs, the seam's
+register-resident hand-off into its second transform and the transposed
+store from registers, with the same index maps and butterfly order.
+
+The model is held bit for bit against the JAX package's staged transform
+plus its four-step twiddle tables at every A = 2 .. 1024 in both fields
+(K1 forward, scaled inverse and unscaled inverse; K2), on ragged lanes,
+and chained with K3's model (``tests/test_torch_row_schedule.py``)
+against the Pallas passes in interpret mode. The kernel itself is held
+against the plain versions on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``).
+"""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+
+from fastecc_tpu import fields as jfields
+from fastecc_tpu.kernels import ntt_mfa as jmfa
+from fastecc_tpu.ntt import mul_prepared as jmul
+from fastecc_tpu.ntt import ntt_jit as jntt
+from fastecc_tpu_torch import fields
+from fastecc_tpu_torch.kernels import ntt_mfa as m
+
+from test_torch_row_schedule import Arith, bitrev, dif_regs
+from test_torch_row_schedule import kernel_model as row_model
+
+FIELDS = [fields.GF32, fields.GF16]
+LANES = 13          # ragged: not a multiple of 4 nor of any lane tile
+COLS = 4            # B: two seed columns (tr = 2) and two t0 rows
+SMEM_BYTES = 232448  # what one block may use on the H100
+
+
+def geometry(a):
+    """col.cu's compile-time shape of an a-point block (RegSplit)."""
+    la = a.bit_length() - 1
+    a1, a2 = m._row_split(a)
+    tl = min(16384 // a, 32)
+    return dict(la1=la - la // 2, la2=la // 2, a1=a1, a2=a2, tl=tl,
+                row_words=(a1 + 1) * tl, exch=a2 * (a1 + 1) * tl,
+                tw_words=a2 * (a1 + 1))
+
+
+def smem_words(a, seam):
+    """col.cu smem_words: exchange, inner tables, T's row, the mid row."""
+    g = geometry(a)
+    k = 2 if seam else 1
+    return g["exch"] + k * g["tw_words"] + k * a
+
+
+def col_model(x, field, inverse=False, scale=True, seam_g=None):
+    """col.cu's col_kernel on x [A, B, L] -> [B, A, L]: every block
+    (column b, lane tile) and every thread (t, l) at once, with the
+    kernel's shared-memory index maps. ``seam_g``: K2 with the coset
+    powers of seam_g (first transform inverse, second forward)."""
+    a, nb, lanes = x.shape
+    g = geometry(a)
+    a1, a2, tl = g["a1"], g["a2"], g["tl"]
+    row_words, exch, kt = g["row_words"], g["exch"], g["tw_words"]
+    seam = seam_g is not None
+    tr = m._seed_tr(nb)
+    f = Arith(field)
+    inv1 = True if seam else inverse
+    seed, t0 = m._colpass_seeds(field.name, a * nb, a,
+                                False if seam else inverse,
+                                False if seam else scale, tr)
+    seed, t0 = seed.reshape(-1).astype(np.uint64), t0.reshape(-1)
+    tw_off = [exch, exch + kt]
+    fac_off = exch + (2 if seam else 1) * kt
+    mid_off = fac_off + a
+    blk = np.arange(nb)[:, None, None]          # block's column b
+    t = np.arange(a2)[None, :, None]            # thread = (t, l)
+    l = np.arange(tl)[None, None, :]
+    out = np.zeros((nb, a, lanes), np.uint64)
+
+    def sm(idx):
+        return smem[blk, idx]
+
+    def transform_regs(r, tw, inv):
+        """regstages.cuh reg_transform_regs; returns the new registers."""
+        dif_regs(r, a1, 0, f, field, inv)
+        for k1 in range(a1):
+            v = r[bitrev(k1, g["la1"])]
+            if k1:
+                v = f.mul(v, sm(tw + t * (a1 + 1) + k1))
+            smem[blk, t * row_words + k1 * tl + l] = v
+        r = [None] * a1
+        for j in range(a1 // a2):
+            for n2 in range(a2):
+                r[j * a2 + n2] = sm((t + a2 * j) * tl + l + n2 * row_words)
+            dif_regs(r, a2, j * a2, f, field, inv)
+        return r
+
+    for l0 in range(0, lanes, tl):
+        smem = np.zeros((nb, smem_words(a, seam)), np.uint64)
+        # the copies: tile[a * TL + l], lanes past L zero-filled; the
+        # inner tables into rows of A1 + 1 words
+        cols = np.arange(l0, l0 + tl)
+        tile = np.zeros((a, nb, tl), np.uint64)
+        tile[:, :, cols < lanes] = x[:, :, cols[cols < lanes]]
+        smem[:, :a * tl] = tile.transpose(1, 0, 2).reshape(nb, -1)
+        e = np.arange(a)
+        smem[:, tw_off[0] + e // a1 * (a1 + 1) + e % a1] = \
+            m._row_inner_twiddles(field.name, a, inv1).reshape(-1)
+        # the per-row factors: T[k, b] = seed[k, b mod tr] * t0[b / tr, k]
+        k = np.arange(a)[None, :]
+        b = np.arange(nb)[:, None]
+        smem[:, fac_off:fac_off + a] = f.mul(seed[k * tr + (b & (tr - 1))],
+                                             t0[(b // tr) * a + k])
+        if seam:
+            smem[:, tw_off[1] + e // a1 * (a1 + 1) + e % a1] = \
+                m._row_inner_twiddles(field.name, a, False).reshape(-1)
+            pcol, prow = m._pre_mul_tables(field.name, seam_g % field.p, a,
+                                           nb, tr)
+            smem[:, mid_off:mid_off + a] = f.mul(
+                pcol.astype(np.uint64)[None, :], prow.reshape(-1)[:, None])
+        # step 1 of the first transform: column n2 = t at stride A2
+        r = [sm((n1 * a2 + t) * tl + l) for n1 in range(a1)]
+        r = transform_regs(r, tw_off[0], inv1)
+        if seam:
+            # the hand-off: n1 = j + (A1 / A2) k2 is in r[j A2 + bitrev(k2)]
+            rho = a1 // a2
+            r = [f.mul(r[n1 % rho * a2 + bitrev(n1 // rho, g["la2"])],
+                       sm(mid_off + t + a2 * n1)) for n1 in range(a1)]
+            r = transform_regs(r, tw_off[1], False)
+        # the store: out[b, k1 + A1 k2, l0 + l] = r[j A2 + bitrev(k2)] x T
+        live = (l0 + l < lanes)[0, 0]
+        for j in range(a1 // a2):
+            for k2 in range(a2):
+                kk = t + a2 * j + a1 * k2
+                v = f.mul(r[j * a2 + bitrev(k2, g["la2"])], sm(fac_off + kk))
+                out[blk, kk, (l0 + l)[:, :, live]] = v[:, :, live]
+    return out.astype(np.uint32)
+
+
+def j_twiddle(y, jf, n, c, inverse, scale):
+    """y [C, R, L] x T[k, r] from the JAX package's seed tables (at the
+    port's seed width)."""
+    r = n // c
+    tr = m._seed_tr(r)
+    seed, t0 = jmfa._colpass_seeds(jf.name, n, c, inverse, scale, tr)
+    cols = np.arange(r)
+    tt = jmul(jf, jnp.asarray(seed[:, cols % tr]),
+              jnp.asarray(np.asarray(t0).T[:, cols // tr]))
+    return jmul(jf, y, tt[:, :, None])
+
+
+def j_stages(y, jf, inverse):
+    a, nb, lanes = y.shape
+    return jntt(y.reshape(a, nb * lanes), field=jf, inverse=inverse,
+                scale=False).reshape(a, nb, lanes)
+
+
+def ref_col(x, field, inverse, scale):
+    """Pass A from the JAX package: staged transform, twiddle, transpose."""
+    jf = jfields.FIELDS[field.name]
+    a, nb, _ = x.shape
+    y = j_twiddle(j_stages(jnp.asarray(x), jf, inverse), jf, a * nb, a,
+                  inverse, scale)
+    return np.asarray(jnp.transpose(y, (1, 0, 2)))
+
+
+def ref_seam(x, field, g):
+    """The seam from the JAX package: inverse stages, x g^m, forward
+    stages, twiddle, transpose (C2 = R1 = A, R2 = C1 = B)."""
+    jf = jfields.FIELDS[field.name]
+    a, nb, _ = x.shape
+    tr = m._seed_tr(nb)
+    pcol, prow = jmfa._pre_mul_tables(jf.name, g % field.p, a, nb, tr)
+    pre = jmul(jf, jnp.asarray(pcol)[:, None],
+               jnp.asarray(prow).reshape(1, -1))
+    y = jmul(jf, j_stages(jnp.asarray(x), jf, True), pre[:, :, None])
+    y = j_twiddle(j_stages(y, jf, False), jf, a * nb, a, False, False)
+    return np.asarray(jnp.transpose(y, (1, 0, 2)))
+
+
+def rand_input(field, shape, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, field.p, size=shape, dtype=np.uint64).astype(
+        np.uint32)
+    if not field.use_mont:
+        x[rng.random(shape) < 0.1] = 0x10000
+    return x
+
+
+@pytest.mark.parametrize("la", range(1, 11))
+def test_handoff_is_the_second_transforms_column(la):
+    """After the first transform thread t holds k = t + A2 j + A1 k2 in
+    r[j A2 + bitrev(k2)]: exactly the A1 elements t + A2 n1 of column
+    n2 = t, each once, with n1 = j + (A1 / A2) k2. And the seam's block
+    (the largest) fits twice in an SM's shared memory."""
+    a = 1 << la
+    g = geometry(a)
+    a1, a2 = g["a1"], g["a2"]
+    rho = a1 // a2
+    for t in range(a2):
+        held = {}
+        for j in range(rho):
+            for k2 in range(a2):
+                reg = j * a2 + bitrev(k2, g["la2"])
+                held[reg] = t + a2 * j + a1 * k2
+        assert sorted(held) == list(range(a1))
+        for n1 in range(a1):
+            assert held[n1 % rho * a2 + bitrev(n1 // rho, g["la2"])] == \
+                t + a2 * n1
+    assert 2 * 4 * smem_words(a, True) <= SMEM_BYTES
+    assert a2 * g["tl"] <= 512          # threads a block
+
+
+@pytest.mark.parametrize("mode", ["fwd", "inv_scaled", "inv"])
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+@pytest.mark.parametrize("la", range(1, 11))
+def test_col_schedule_matches_reference(la, field, mode):
+    """K1's schedule == the JAX package's staged transform x its
+    four-step twiddle, transposed, bit for bit, at A = 2^la over
+    [A, 4, 13]."""
+    a = 1 << la
+    inverse, scale = mode != "fwd", mode == "inv_scaled"
+    x = rand_input(field, (a, COLS, LANES),
+                   0xC01 + 8 * la + 2 * field.use_mont + inverse + 4 * scale)
+    np.testing.assert_array_equal(col_model(x, field, inverse, scale),
+                                  ref_col(x, field, inverse, scale))
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+@pytest.mark.parametrize("la", range(1, 11))
+def test_seam_schedule_matches_reference(la, field):
+    """K2's schedule (the register hand-off between its transforms
+    included) == the JAX package's inverse stages, coset multiply,
+    forward stages and twiddle, transposed, bit for bit, at A = 2^la over
+    [A, 4, 13]."""
+    a = 1 << la
+    x = rand_input(field, (a, COLS, LANES), 0x5EA + 4 * la + field.use_mont)
+    g = field.root_of_order(2 * a * COLS)
+    np.testing.assert_array_equal(col_model(x, field, seam_g=g),
+                                  ref_seam(x, field, g))
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+@pytest.mark.parametrize("n", [1 << 7, 1 << 10])
+def test_chained_models_match_pallas_interpret(field, n):
+    """The models chained as the port chains the kernels == the Pallas
+    passes in interpret mode: K1 -> K3 (forward; the scaled inverse at
+    2^7) against ntt_pallas, K1 -> K2 -> K3 against ntt_coset_pair_pallas,
+    over 128 lanes."""
+    lanes = 128
+    x = rand_input(field, (n, lanes), 0xC4A + n + field.use_mont)
+    jx, rf = jnp.asarray(x), jfields.FIELDS[field.name]
+    c = m._split(n)
+    for inverse in (False, True) if n == 1 << 7 else (False,):
+        col = col_model(x.reshape(c, n // c, lanes), field, inverse, True)
+        got = row_model(col.reshape(n // c, c * lanes), field, inverse)
+        want = np.asarray(jmfa.ntt_pallas(jx, rf, inverse=inverse,
+                                          interpret=True))
+        np.testing.assert_array_equal(got.reshape(n, lanes), want)
+    g = field.root_of_order(2 * n)
+    c1 = m._pair_split(n)
+    col1 = col_model(x.reshape(c1, n // c1, lanes), field, True, True)
+    col2 = col_model(col1, field, seam_g=g)
+    got = row_model(col2.reshape(c1, (n // c1) * lanes), field, False)
+    want = np.asarray(jmfa.ntt_coset_pair_pallas(jx, rf, g, interpret=True,
+                                                 tile=(8, 128)))
+    np.testing.assert_array_equal(got.reshape(n, lanes), want)

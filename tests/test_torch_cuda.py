@@ -78,6 +78,47 @@ def test_row_kernel_every_length_on_card(field, inverse, cuda_device):
                            m.row_pass_plain(y, field, inverse)), (a, "offset")
 
 
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_col_kernel_every_length_on_card(field, inverse, cuda_device):
+    """K1 (col.cu, one instantiation per length and direction; the inverse
+    scaled and not) vs its plain version at every A = 2 .. 1024 on
+    [A, 4, L] (two seed columns, two t0 rows), over 1, 3, 13 and 40
+    lanes, and on a contiguous view 4 bytes past a 16-byte boundary."""
+    for la in range(1, 11):
+        a = 1 << la
+        views = [from_numpy_u32(rand_field(field, (a, 4, lanes)), cuda_device)
+                 for lanes in (1, 3, 13, 40)]
+        big = from_numpy_u32(rand_field(field, a * 4 * 8 + 1), cuda_device)
+        views.append(big[1:].reshape(a, 4, 8))
+        assert views[-1].data_ptr() % 16 == 4
+        for x in views:
+            for scale in (True, False) if inverse else (True,):
+                assert torch.equal(
+                    m.col_pass(x, field, inverse, scale),
+                    m.col_pass_plain(x, field, inverse, scale)), (
+                        a, x.shape[-1], x.data_ptr() % 16, scale)
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_seam_kernel_every_length_on_card(field, cuda_device):
+    """K2 (col.cu, the register hand-off between its two transforms) vs
+    its plain version at every A = R1 = 2 .. 1024 on [A, 4, L], over 1,
+    3, 13 and 40 lanes, and on a view 4 bytes past a 16-byte boundary."""
+    for la in range(1, 11):
+        a = 1 << la
+        g = field.root_of_order(2 * a * 4)
+        views = [from_numpy_u32(rand_field(field, (a, 4, lanes)), cuda_device)
+                 for lanes in (1, 3, 13, 40)]
+        big = from_numpy_u32(rand_field(field, a * 4 * 8 + 1), cuda_device)
+        views.append(big[1:].reshape(a, 4, 8))
+        assert views[-1].data_ptr() % 16 == 4
+        for y in views:
+            assert torch.equal(m.seam_pass(y, field, g),
+                               m.seam_pass_plain(y, field, g)), (
+                                   a, y.shape[-1], y.data_ptr() % 16)
+
+
 @pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
 def test_decode_kernels_match_plain_on_card(field, cuda_device):
     """K5, K6, K7 and K7-sel vs their plain versions on the card, small
