@@ -13,9 +13,11 @@ main path on the card and fails loudly on any fault. Phases:
                lane count, both fields, with random prepared tables (GF16
                ones holding 0x10000) and masks about half set, and K10 on
                outputs that are ~90% 0x10000 (saturated bitmap words);
-               K3 at every A = 2 .. 1024 in both directions over 13 and
-               40 lanes (1088 at A >= 512), K1 (forward, inverse scaled
-               and not) and K2 likewise on [A, 4, L]; K11 at k = 32, 2^10, 2^13
+               K3 and K7-sel at every A = 2 .. 1024 in both directions
+               over 13 and 40 lanes (1088 at A >= 512), K7-sel with masks
+               about half set and its original both a tensor of its own
+               and the pass's input, K1 (forward, inverse scaled and not),
+               K2 and K6 likewise on [A, 4, L]; K11 at k = 32, 2^10, 2^13
                over 1088 and 13 lanes in both fields, K12 at those k over
                Wu = 8, 40, 1024 and on dense escapes (the escape counts
                printed); bit-exact
@@ -55,7 +57,10 @@ main path on the card and fails loudly on any fault. Phases:
                locator, timed), then decode_prepared (K5 -> K6 -> K7-sel)
                checked against the codeword on all 512 lanes, and the
                merge=False form (K7) at the erased rows; median of 5
-               timed calls;
+               timed calls; K3 timed on K7-sel's tensor beside it; where
+               build/parent holds an earlier checkout, its K6 and K7-sel
+               on the same tensors and at decode_blocks' 2^13 pair shapes
+               (held equal and timed beside this tree's, in turns);
   9. decode_small — BASELINE.json:10 as users meet it: the all-device
                decode at n = 2^13, e = 2^12, 1024 lanes; decode_blocks
                over exactly k of 2^13 4 KB blocks (data and parity mixed,
@@ -169,8 +174,9 @@ LANES = ("K11_pair_lanes", "K12_pair_lanes_wire16")
 PEAKS = ("K13_copy", "K14_chain", "K15_fused_chain")
 SOURCE = {k: "fastecc_tpu_torch/csrc/" + (
     "microbench.cu" if k in PEAKS else "lanes.cu" if k in LANES
-    else "row.cu" if k == "K3_row"
-    else "col.cu" if k in ("K1_col", "K2_seam") else "ntt_mfa.cu")
+    else "row.cu" if k in ("K3_row", "K7_row_post_sel")
+    else "col.cu" if k in ("K1_col", "K2_seam", "K6_seam_vec")
+    else "ntt_mfa.cu")
     for k in REPLACES}
 
 
@@ -386,14 +392,14 @@ def phase_kernels(gen) -> dict:
         cmp("K3_row", m.row_pass(y, field), m.row_pass_plain(y, field),
             (field.name, n, "single"))
 
-    def tables(field, n):
+    def tables(field, n, g=gen):
         """A random prepared [n] table (GF16: with 0x10000 at every 7th
         row) and a mask with about half its rows set."""
-        v = rand_field(field.p, (n,), gen)
+        v = rand_field(field.p, (n,), g)
         if not field.use_mont:
             v.view(torch.int32)[::7] = 0x10000
         mask = torch.randint(0, 2, (n,), dtype=torch.int32, device="cuda",
-                             generator=gen).view(torch.uint32)
+                             generator=g).view(torch.uint32)
         return v, mask
 
     def decode_pair(field, n, lanes):
@@ -527,23 +533,34 @@ def phase_kernels(gen) -> dict:
             decode_single(field, k, 13)
     say("[kernels] orders 4, 8, 128, 13 lanes, GF32 and GF16: "
         "K1-K7 == plain")
-    # K3 has one instantiation per length: every A, both directions, on
-    # 13 lanes (the 4-byte copies), 40 and, at A >= 512, 1088 (the last
-    # lane tile)
+    # K3 and K7-sel have one instantiation per length and direction:
+    # every A, both directions, on 13 lanes (the 4-byte copies), 40 and,
+    # at A >= 512, 1088 (the last lane tile); K7-sel with its original a
+    # tensor of its own and the pass's input. K6's and K7-sel's operands
+    # come from a generator of their own: the other checks' data stays.
+    gen8 = torch.Generator(device="cuda").manual_seed(8)
     for field in (GF32, GF16):
         for la in range(1, 11):
             a = 1 << la
             for lanes_ in (13, 40) + ((1088,) if a >= 512 else ()):
                 y = rand_field(field.p, (a, 3 if lanes_ < 1088 else 2,
                                          lanes_), gen)
+                v, mask = tables(field, a * y.shape[1], gen8)
+                orig = rand_field(field.p, tuple(y.shape), gen8)
                 for inv in (False, True):
                     cmp("K3_row", m.row_pass(y, field, inv),
                         m.row_pass_plain(y, field, inv),
                         (field.name, a, lanes_, inv))
-    say("[kernels] K3 at A = 2 .. 1024, forward and inverse, 13 and 40 "
-        "lanes (1088 at A >= 512), GF32 and GF16: == plain")
-    # K1 and K2 likewise (one instantiation per length, K1 per direction):
-    # [A, 4, L], two seed columns and two t0 rows
+                    for o in (orig, y):
+                        cmp("K7_row_post_sel",
+                            m.row_pass_post(y, field, v, mask, o, inv),
+                            m.row_pass_plain(y, field, inv, v, mask, o),
+                            (field.name, a, lanes_, inv, o is y))
+    say("[kernels] K3 and K7-sel (its original apart and the input) at A = "
+        "2 .. 1024, forward and inverse, 13 and 40 lanes (1088 at A >= "
+        "512), GF32 and GF16: == plain")
+    # K1, K2 and K6 likewise (one instantiation per length, K1 per
+    # direction): [A, 4, L], two seed columns and two t0 rows
     for field in (GF32, GF16):
         for la in range(1, 11):
             a = 1 << la
@@ -556,9 +573,13 @@ def phase_kernels(gen) -> dict:
                         (field.name, a, lanes_, inv, scale))
                 cmp("K2_seam", m.seam_pass(x, field, g),
                     m.seam_pass_plain(x, field, g), (field.name, a, lanes_))
-    say("[kernels] K1 (forward, inverse scaled and not) and K2 at A = 2 .. "
-        "1024 on [A, 4, L], 13 and 40 lanes (1088 at A >= 512), GF32 and "
-        "GF16: == plain")
+                v, _ = tables(field, a * 4, gen8)
+                cmp("K6_seam_vec", m.seam_pass_vec(x, field, v),
+                    m.seam_pass_plain(x, field, pre_vec2=v),
+                    (field.name, a, lanes_))
+    say("[kernels] K1 (forward, inverse scaled and not), K2 and K6 at A = "
+        "2 .. 1024 on [A, 4, L], 13 and 40 lanes (1088 at A >= 512), GF32 "
+        "and GF16: == plain")
     # the wire16 phase's k = 2^13 (both block sizes), GF16's largest pair,
     # and small orders with Wu a multiple of 8 but not of the lane tile
     for k, wu in ((1 << 13, 16), (1 << 15, 16), (4, 8), (1 << 7, 40)):
@@ -822,8 +843,8 @@ def parent_library():
     """The kernel library of the earlier checkout of the package in
     build/parent (as ``sass_check.py --compare build/parent`` wants it),
     built there by its own ``_build``; None where there is none. The
-    argtypes are the parent commit's C signatures (K1 and K2 with the
-    packed Stockham tables, K3 with the inner twiddles)."""
+    argtypes are the parent commit's C signatures (K1, K2 and K3 with the
+    inner twiddles, K6 and K7-sel with the packed Stockham tables)."""
     import ctypes
     from pathlib import Path
     root = Path(__file__).resolve().parent / "build" / "parent"
@@ -836,10 +857,14 @@ def parent_library():
         capture_output=True, text=True).stdout.strip().splitlines()[-1])
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.fecc_row.argtypes = [I, P, P, I, I, I, I, P, P]
-    lib.fecc_col.argtypes = [I, P, P, I, I, I, P, P, P, P, I, P]
-    lib.fecc_seam.argtypes = [I, P, P, I, I, I, P, P, P, P, P, P, I, P, P, P]
+    lib.fecc_col.argtypes = [I, P, P, I, I, I, I, P, P, P, I, P]
+    lib.fecc_seam.argtypes = [I, P, P, I, I, I, P, P, P, P, I, P, P, P]
+    lib.fecc_seam_vec.argtypes = [I, P, P, I, I, I, P, P, P, P, P, P, I, P,
+                                  P]
+    lib.fecc_row_post_sel.argtypes = [I, P, P, I, I, I, P, P, P, P, P, P]
     lib.fecc_copy.argtypes = [P, P, ctypes.c_longlong, P]
-    for fn in (lib.fecc_row, lib.fecc_col, lib.fecc_seam, lib.fecc_copy):
+    for fn in (lib.fecc_row, lib.fecc_col, lib.fecc_seam, lib.fecc_seam_vec,
+               lib.fecc_row_post_sel, lib.fecc_copy):
         fn.restype = I
     return lib
 
@@ -894,36 +919,74 @@ def parent_row(y: torch.Tensor):
 
 
 def parent_col(x3: torch.Tensor, inverse: bool, scale: bool = True):
-    """The parent's K1 (a mode of its pass kernel, ``fecc_col`` with the
-    packed Stockham tables) on [C, R, L]."""
+    """The parent's K1 (``fecc_col`` with the inner twiddles) on
+    [C, R, L]."""
     from fastecc_tpu_torch.fields import GF32
     from fastecc_tpu_torch.kernels import ntt_mfa as m
     c, r, lanes = x3.shape
     dev = str(x3.device)
     tr = m._seed_tr(r)
-    tw, w3 = m._stage_tables_on(GF32.name, c, inverse, dev)
+    tw = m._row_tw_on(GF32.name, c, inverse, dev)
     seed, t0 = m._seeds_on(GF32.name, c * r, c, inverse, scale, tr, dev)
     out = torch.empty((r, c, lanes), dtype=torch.uint32, device=x3.device)
-    return parent_call("fecc_col", x3, out, tw.data_ptr(), w3.data_ptr(),
+    return parent_call("fecc_col", x3, out, int(inverse), tw.data_ptr(),
                        seed.data_ptr(), t0.data_ptr(), tr)
 
 
-def parent_seam(y1: torch.Tensor, g: int):
-    """The parent's K2 (``fecc_seam`` with the packed Stockham tables) on
-    [R1, C1, L]."""
+def parent_seam_tables(y1: torch.Tensor):
+    """(out, tr, seed, t0) of a seam over [R1, C1, L]."""
     from fastecc_tpu_torch.fields import GF32
     from fastecc_tpu_torch.kernels import ntt_mfa as m
     r1, c1, lanes = y1.shape
-    dev = str(y1.device)
     tr = m._seed_tr(c1)
+    seed, t0 = m._seeds_on(GF32.name, r1 * c1, r1, False, False, tr,
+                           str(y1.device))
+    out = torch.empty((c1, r1, lanes), dtype=torch.uint32, device=y1.device)
+    return out, tr, seed, t0
+
+
+def parent_seam(y1: torch.Tensor, g: int):
+    """The parent's K2 (``fecc_seam`` with the inner twiddles) on
+    [R1, C1, L]."""
+    from fastecc_tpu_torch.fields import GF32
+    from fastecc_tpu_torch.kernels import ntt_mfa as m
+    r1, c1, _ = y1.shape
+    dev = str(y1.device)
+    out, tr, seed, t0 = parent_seam_tables(y1)
+    tw_inv = m._row_tw_on(GF32.name, r1, True, dev)
+    tw_fwd = m._row_tw_on(GF32.name, r1, False, dev)
+    pcol, prow = m._pre_on(GF32.name, g % GF32.p, r1, c1, tr, dev)
+    return parent_call("fecc_seam", y1, out, tw_inv.data_ptr(),
+                       tw_fwd.data_ptr(), seed.data_ptr(), t0.data_ptr(), tr,
+                       pcol.data_ptr(), prow.data_ptr())
+
+
+def parent_seam_vec(y1: torch.Tensor, vec: torch.Tensor):
+    """The parent's K6 (a mode of its pass kernel, ``fecc_seam_vec``
+    with the packed Stockham tables) on [R1, C1, L]."""
+    from fastecc_tpu_torch.fields import GF32
+    from fastecc_tpu_torch.kernels import ntt_mfa as m
+    r1 = y1.shape[0]
+    dev = str(y1.device)
+    out, tr, seed, t0 = parent_seam_tables(y1)
     tw1, w31 = m._stage_tables_on(GF32.name, r1, True, dev)
     tw2, w32 = m._stage_tables_on(GF32.name, r1, False, dev)
-    seed, t0 = m._seeds_on(GF32.name, r1 * c1, r1, False, False, tr, dev)
-    pcol, prow = m._pre_on(GF32.name, g % GF32.p, r1, c1, tr, dev)
-    out = torch.empty((c1, r1, lanes), dtype=torch.uint32, device=y1.device)
-    return parent_call("fecc_seam", y1, out, tw1.data_ptr(), w31.data_ptr(),
-                       tw2.data_ptr(), w32.data_ptr(), seed.data_ptr(),
-                       t0.data_ptr(), tr, pcol.data_ptr(), prow.data_ptr())
+    return parent_call("fecc_seam_vec", y1, out, tw1.data_ptr(),
+                       w31.data_ptr(), tw2.data_ptr(), w32.data_ptr(),
+                       seed.data_ptr(), t0.data_ptr(), tr, vec.data_ptr())
+
+
+def parent_row_post_sel(y: torch.Tensor, vec: torch.Tensor,
+                        mask: torch.Tensor, orig: torch.Tensor):
+    """The parent's K7-sel (a mode of its pass kernel,
+    ``fecc_row_post_sel`` with the packed Stockham tables, forward) on
+    [R, C, L]."""
+    from fastecc_tpu_torch.fields import GF32
+    from fastecc_tpu_torch.kernels import ntt_mfa as m
+    tw, w3 = m._stage_tables_on(GF32.name, y.shape[0], False, str(y.device))
+    return parent_call("fecc_row_post_sel", y, torch.empty_like(y),
+                       tw.data_ptr(), w3.data_ptr(), vec.data_ptr(),
+                       mask.data_ptr(), orig.data_ptr())
 
 
 def table_shapes(split) -> list[tuple]:
@@ -986,6 +1049,51 @@ def parent_seam_ms(col1: torch.Tensor, g: int) -> None:
     say(f"[encode_r2] K2 against the parent's fecc_seam on the same "
         f"{tuple(col1.shape)} tensor, parent / this / this / parent: "
         f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
+
+
+def parent_decode_ms(col1, col2, dx, ip, mask, orig) -> None:
+    """Where build/parent holds an earlier checkout, its K6 and K7-sel
+    against this tree's, in turns parent, this, this, parent, outputs held
+    equal: on the decode's own tensors (``event_ms``) and at
+    decode_blocks' 2^13 pair shapes over 1024 lanes (``queued_ms``, with
+    random tables and a mask about half set). Printed for the record."""
+    from fastecc_tpu_torch.fields import GF32
+    from fastecc_tpu_torch.kernels import ntt_mfa as m
+    if parent_library() is None:
+        return
+    t = turns(parent_seam_vec(col1, dx), lambda: m.seam_pass_vec(
+        col1, GF32, dx), event_ms, "K6")
+    say(f"[decode] K6 against the parent's fecc_seam_vec on the same "
+        f"{tuple(col1.shape)} tensor, parent / this / this / parent: "
+        f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
+    t = turns(parent_row_post_sel(col2, ip, mask, orig),
+              lambda: m.row_pass_post(col2, GF32, ip, mask, orig), event_ms,
+              "K7-sel")
+    say(f"[decode] K7-sel against the parent's fecc_row_post_sel on the "
+        f"same {tuple(col2.shape)} tensor, parent / this / this / parent: "
+        f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    n, lanes = 1 << 13, 1024
+    c1 = m._pair_split(n)
+    v = rand_field(GF32.p, (n,), gen)
+    mk = torch.randint(0, 2, (n,), dtype=torch.int32, device="cuda",
+                       generator=gen).view(torch.uint32)
+    y1 = rand_field(GF32.p, (n // c1, c1, lanes), gen)
+    t = turns(parent_seam_vec(y1, v), lambda: m.seam_pass_vec(y1, GF32, v),
+              queued_ms, "K6")
+    say(f"[decode] K6 against the parent's fecc_seam_vec on "
+        f"{tuple(y1.shape)}, queued, parent / this / this / parent: "
+        f"{t[0] * 1e3:.2f} / {t[1] * 1e3:.2f} / {t[2] * 1e3:.2f} / "
+        f"{t[3] * 1e3:.2f} us")
+    y2 = rand_field(GF32.p, (c1, n // c1, lanes), gen)
+    o = rand_field(GF32.p, (c1, n // c1, lanes), gen)
+    t = turns(parent_row_post_sel(y2, v, mk, o),
+              lambda: m.row_pass_post(y2, GF32, v, mk, o), queued_ms,
+              "K7-sel")
+    say(f"[decode] K7-sel against the parent's fecc_row_post_sel on "
+        f"{tuple(y2.shape)}, queued, parent / this / this / parent: "
+        f"{t[0] * 1e3:.2f} / {t[1] * 1e3:.2f} / {t[2] * 1e3:.2f} / "
+        f"{t[3] * 1e3:.2f} us")
 
 
 def parent_col_tables_ms() -> None:
@@ -1298,6 +1406,16 @@ def phase_decode(gen, launches, times, shapes):
     for kk in ("K5_col_vec", "K6_seam_vec", "K7_row_post", "K7_row_post_sel"):
         say(f"[decode] {kk} {times[kk]:.3f} ms on {shapes[kk]}, "
             f"plain {times['plain_' + kk]:.1f} ms")
+    # the epilogue's cost: K3 on K7-sel's tensor, in turns with K7-sel
+    t = [event_ms(f) for f in (
+        lambda: m.row_pass(col2, GF32),
+        lambda: m.row_pass_post(col2, GF32, ip, mask, orig),
+        lambda: m.row_pass_post(col2, GF32, ip, mask, orig),
+        lambda: m.row_pass(col2, GF32))]
+    say(f"[decode] K3 / K7-sel / K7-sel / K3 on the same "
+        f"{tuple(col2.shape)} tensor: {t[0]:.4f} / {t[1]:.4f} / "
+        f"{t[2]:.4f} / {t[3]:.4f} ms")
+    parent_decode_ms(col1, col2, dx, ip, mask, orig)
     del cw, bad, x3, orig, col1, col2, tabs, mask, lp, ip
     torch.cuda.empty_cache()
 

@@ -1,7 +1,8 @@
-// Pass A and the encode seam for Hopper (sm_90a): kernels K1 and K2 of the
-// port, on the register-stage engine of regstages.cuh (as K3 in row.cu),
-// with a plain C interface loaded through ctypes (kernels/_build.py builds
-// it; kernels/ntt_mfa.py col_pass and seam_pass wrap it).
+// Pass A and the two seams for Hopper (sm_90a): kernels K1, K2 and K6 of
+// the port, on the register-stage engine of regstages.cuh (as K3 and
+// K7-sel in row.cu), with a plain C interface loaded through ctypes
+// (kernels/_build.py builds it; kernels/ntt_mfa.py col_pass, seam_pass and
+// seam_pass_vec wrap it).
 //
 // Replaces these Pallas TPU kernels of fastecc_tpu/kernels/ntt_mfa.py:
 //   K1 fecc_col  <- _col_kernel  (pass A: C-point stages along axis 0 of
@@ -10,17 +11,22 @@
 //   K2 fecc_seam <- _seam_kernel (the encode pair's middle pass: inverse
 //                   R1-point stages, x pcol[k] * prow[b] = g^m, forward
 //                   stages (C2 = R1), x T2[k, b], transposed write)
+//   K6 fecc_seam_vec <- _seam_kernel_vec (the decode pair's middle pass:
+//                   K2 with the middle factor v[k * B + b] read from a
+//                   prepared [N] table, the x d/dx table m mod p)
 // The output is the same canonical residues; how it gets there is the
 // port's own.
 //
 // What bounds it on the H100: each moves 2 GiB in and 2 GiB out at the
 // encode's shapes ([512, 1024, 1024], [1024, 512, 1024]; 2^29 elements),
-// 1.2821 ms at 3.35 TB/s. The first versions (modes of ntt_mfa.cu's pass
-// kernel: 6.05 and 10.10 ms) lost that to latency and to shared memory,
-// as K3's did: one synchronous 4-byte load at a time, every Stockham stage
-// a shared-memory round (five at A = 512, ten in the seam at 1024) with
-// run-time index arithmetic and twiddles fetched from device memory, and
-// a lane tile of 8192 / A lanes (32- or 64-byte row segments).
+// 1.2821 ms at 3.35 TB/s (K6 at the decode's [1024, 1024, 512] the same
+// plus its 4 MB table). The first versions (modes of ntt_mfa.cu's pass
+// kernel: 6.05, 10.10 and 10.35 ms) lost that to latency and to shared
+// memory, as K3's did: one synchronous 4-byte load at a time, every
+// Stockham stage a shared-memory round (five at A = 512, ten in the seam
+// at 1024) with run-time index arithmetic and twiddles fetched from
+// device memory, and a lane tile of 8192 / A lanes (32- or 64-byte row
+// segments).
 //
 // What this design does about it, K3's schedule plus what pass A adds:
 //   * the length is a template parameter (the C entry dispatches over
@@ -30,8 +36,11 @@
 //   * the block's [A, TL] tile is in flight at once (cp.async, 16-byte
 //     copies where aligned, one wait), with the inner-twiddle tables; while
 //     the copies land, the block computes its per-row factors into shared
-//     memory: T[k, b] = seed[k, b mod tr] * t0[b / tr, k] and, for the
-//     seam, pcol[k] * prow[b];
+//     memory: T[k, b] = seed[k, b mod tr] * t0[b / tr, k] and, for K2,
+//     pcol[k] * prow[b]; K6's middle row v[k * B + b] is copied in with
+//     the tile (A 4-byte copies B words apart: the table is 4 MB, and
+//     the lane tiles and neighbouring columns that share its sectors
+//     find them in L2);
 //   * each transform is one A1-point DIF in registers, the inner
 //     twiddles, one exchange through padded shared rows, then A2-point
 //     DIFs (reg_transform);
@@ -46,9 +55,9 @@
 //     L words apart; a warp's store covers 32 / TL whole row segments of
 //     TL lanes (TL = 32 at A <= 512, 16 at 1024: 128- and 64-byte
 //     segments), so no second round through shared memory;
-//   * two blocks of 512 threads share an SM at A = 512 and 1024 (K2 at
-//     1024: a 16,896-word exchange, two inner tables and two factor rows,
-//     ~84 KB a block).
+//   * two blocks of 512 threads share an SM at A = 512 and 1024 (K2 and K6
+//     at 1024: a 16,896-word exchange, two inner tables and two factor
+//     rows, ~84 KB a block).
 // Ragged lanes as in K3: zero-filled past L, never stored past L.
 
 #include <cstddef>
@@ -73,12 +82,13 @@ struct ColArgs {
   const uint32_t* tw2;   // the seam's second (forward) transform
   const uint32_t* seed;  // [A, tr] four-step seeds
   const uint32_t* t0;    // [B / tr, A] four-step column bases
-  const uint32_t* pcol;  // seam: [A] rank-1 row factor
-  const uint32_t* prow;  // seam: [B] rank-1 column factor
+  const uint32_t* pcol;  // K2: [A] rank-1 row factor
+  const uint32_t* prow;  // K2: [B] rank-1 column factor
   int B, L;              // columns (axis 1), lanes (axis 2)
   int log_tr;
   int lane_tiles;        // ceil(L / TL)
   int vec;               // x 16-byte aligned and L % 4 == 0
+  const uint32_t* table;  // K6: [A * B] middle factors v[k * B + b]
 };
 
 // Shared words of a block: the exchange (which holds the tile first), the
@@ -92,7 +102,7 @@ constexpr int smem_words() {
 
 // Block = (column b, lane tile); thread = (t = n2, lane l). K1: SEAM = 0,
 // INV the direction. K2: SEAM = 1, INV = 1: the first transform inverse,
-// the second forward.
+// the second forward. K6: SEAM = 2, K2 with the middle row from the table.
 template <int F, int LA, int INV, int SEAM>
 __global__ void __launch_bounds__(RegSplit<LA>::kThreads)
     col_kernel(ColArgs p) {
@@ -103,21 +113,22 @@ __global__ void __launch_bounds__(RegSplit<LA>::kThreads)
   uint32_t* tw1 = smem + S::kExchWords;
   uint32_t* tw2 = tw1 + kTw;                     // seam only
   uint32_t* fac = tw1 + (SEAM ? 2 : 1) * kTw;    // [A] T[k, b]
-  uint32_t* mid = fac + S::A;                    // seam: [A] pcol * prow[b]
+  uint32_t* mid = fac + S::A;                    // seam: [A] middle factors
   const int lt = blockIdx.x % p.lane_tiles;
   const int b = blockIdx.x / p.lane_tiles;
   const int l0 = lt * S::TL;
   fecc::load_tile_async<S>(tile, p.x, p.B, p.L, b, l0, p.vec != 0);
   fecc::load_twiddles_async<S>(tw1, p.tw1);
   if constexpr (SEAM != 0) fecc::load_twiddles_async<S>(tw2, p.tw2);
+  if constexpr (SEAM == 2) fecc::load_row_async<S>(mid, p.table + b, p.B);
   // while the copies land: T[k, b] = seed[k, b mod tr] * t0[b / tr, k]
   // (prepared x prepared stays prepared; GF16 tables can hold 0x10000)
   const int j = b & ((1 << p.log_tr) - 1);
   const uint32_t* t0 = p.t0 + (size_t)(b >> p.log_tr) * S::A;
-  const uint32_t pr = SEAM != 0 ? p.prow[b] : 0u;
+  const uint32_t pr = SEAM == 1 ? p.prow[b] : 0u;
   for (int k = threadIdx.x; k < S::A; k += S::kThreads) {
     fac[k] = mul_full<F>(p.seed[(k << p.log_tr) + j], t0[k]);
-    if constexpr (SEAM != 0) mid[k] = mul_full<F>(p.pcol[k], pr);
+    if constexpr (SEAM == 1) mid[k] = mul_full<F>(p.pcol[k], pr);
   }
   fecc::cp_async_wait_all();
   __syncthreads();
@@ -174,15 +185,18 @@ cudaError_t launch(ColArgs p, cudaStream_t stream) {
 }
 
 template <int LA>
-cudaError_t dispatch(int la, int field, bool inv, bool seam, const ColArgs& p,
+cudaError_t dispatch(int la, int field, bool inv, int seam, const ColArgs& p,
                      cudaStream_t s) {
   if constexpr (LA > kMaxLog) {
     return cudaErrorInvalidValue;
   } else {
     if (la != LA) return dispatch<LA + 1>(la, field, inv, seam, p, s);
-    if (seam)
+    if (seam == 1)
       return field == fecc::kGF32 ? launch<fecc::kGF32, LA, 1, 1>(p, s)
                                   : launch<fecc::kGF16, LA, 1, 1>(p, s);
+    if (seam == 2)
+      return field == fecc::kGF32 ? launch<fecc::kGF32, LA, 1, 2>(p, s)
+                                  : launch<fecc::kGF16, LA, 1, 2>(p, s);
     if (field == fecc::kGF32)
       return inv ? launch<fecc::kGF32, LA, 1, 0>(p, s)
                  : launch<fecc::kGF32, LA, 0, 0>(p, s);
@@ -197,7 +211,8 @@ int log2_exact(int v) {
   return (1 << t) == v ? t : -1;
 }
 
-int run(int field, bool inv, bool seam, ColArgs p, int A, int tr,
+// seam: 0 for K1, 1 for K2, 2 for K6.
+int run(int field, bool inv, int seam, ColArgs p, int A, int tr,
         void* stream) {
   const int la = log2_exact(A);
   p.log_tr = log2_exact(tr);
@@ -226,7 +241,7 @@ int fecc_col(int field, const void* x, void* out, int A, int B, int L,
   p.t0 = (const uint32_t*)t0;
   p.B = B;
   p.L = L;
-  return run(field, inverse != 0, false, p, A, tr, stream);
+  return run(field, inverse != 0, 0, p, A, tr, stream);
 }
 
 // K2: [A=R1, B=C1, L] -> [C1, R1, L]; inverse R1-point stages (inner
@@ -247,7 +262,25 @@ int fecc_seam(int field, const void* x, void* out, int A, int B, int L,
   p.prow = (const uint32_t*)prow;
   p.B = B;
   p.L = L;
-  return run(field, true, true, p, A, tr, stream);
+  return run(field, true, 1, p, A, tr, stream);
+}
+
+// K6: K2 with the middle factor v[k * B + b] (k = c2, b = r2: the
+// decode's x d/dx table m mod p) from the prepared [A * B] table `vec`.
+int fecc_seam_vec(int field, const void* x, void* out, int A, int B, int L,
+                  const void* tw_inv, const void* tw_fwd, const void* seed,
+                  const void* t0, int tr, const void* vec, void* stream) {
+  ColArgs p{};
+  p.x = (const uint32_t*)x;
+  p.out = (uint32_t*)out;
+  p.tw1 = (const uint32_t*)tw_inv;
+  p.tw2 = (const uint32_t*)tw_fwd;
+  p.seed = (const uint32_t*)seed;
+  p.t0 = (const uint32_t*)t0;
+  p.table = (const uint32_t*)vec;
+  p.B = B;
+  p.L = L;
+  return run(field, true, 2, p, A, tr, stream);
 }
 
 }  // extern "C"

@@ -1,23 +1,19 @@
-// Fused four-step NTT passes for Hopper (sm_90a): kernels K4-K10 of the
-// port, with a plain C interface loaded through ctypes
+// Fused four-step NTT passes for Hopper (sm_90a): kernels K4, K5, K7 and
+// K8-K10 of the port, with a plain C interface loaded through ctypes
 // (fastecc_tpu_torch/kernels/_build.py builds it; kernels/ntt_mfa.py
 // wraps it).
 //
 // Replaces these Pallas TPU kernels of fastecc_tpu/kernels/ntt_mfa.py:
 //   K4 fecc_col_pre  <- _col_kernel_pre  (pass A, K1, with the rank-1
 //                       x[m] *= g^m prologue)
-//   (K1 pass A, K2 the encode seam and K3 pass B are kernels of their own
-//   on the register-stage engine regstages.cuh: col.cu, row.cu)
+//   (K1 pass A, K2 the encode seam, K3 pass B, K6 the decode seam and
+//   K7-sel are kernels of their own on the register-stage engine
+//   regstages.cuh: col.cu, row.cu)
 // and the decode fusions, each with a general prepared [N] table v:
 //   K5 fecc_col_vec      <- _col_kernel_prevec  (K1 with x[m] *= v[m]:
 //                           the locator evaluations l(w^j))
-//   K6 fecc_seam_vec     <- _seam_kernel_vec    (K2 with the middle
-//                           multiply by v[m]: the x d/dx table m mod p)
 //   K7 fecc_row_post     <- _row_kernel_post    (K3, then out[k] *= v[k]:
 //                           the Forney inverse derivative)
-//   K7-sel fecc_row_post_sel <- _row_kernel_post_sel (K7, then
-//                           out[k] = mask[k] ? out[k] : orig[k]: the
-//                           erased-row merge)
 // and the GF16 wire pair, whose lanes are u32 pairs of little-endian u16
 // wire words:
 //   K8 fecc_col_wire16  <- _col_kernel_wire16  (K1 on lo = x & 0xFFFF and
@@ -42,16 +38,12 @@
 //
 // In every pass the element (a, b) of the [A, B] view is index a * B + b
 // of the natural-order [N] sequence the reference's table is laid over
-// (K5: m = c * R + r; K6: m = c2 * R2 + r2 with C2 = R1, R2 = C1; K7:
-// k = k_r * C + k_c), so a block loads its A table words v[a * B + b]
-// once into shared memory (`vec_row`) beside the tile; the reference's
-// reshape/transpose of the tables was a Mosaic layout device, not
-// ported. Table traffic is N words a pass against the N * L of the data.
-// Every table multiply is the full `mul_full`: a GF16 table can hold
-// 0x10000 (l(w^j) or inv(x l') equal to p - 1). K7-sel reads `orig`
-// only at rows whose mask is 0 (bit-identical to the select, and at
-// e = n/2 a sixth less traffic than reading it everywhere), and
-// multiplies only at rows whose mask is set.
+// (K5: m = c * R + r; K7: k = k_r * C + k_c), so a block loads its A
+// table words v[a * B + b] once into shared memory (`vec_row`) beside the
+// tile; the reference's reshape/transpose of the tables was a Mosaic
+// layout device, not ported. Table traffic is N words a pass against the
+// N * L of the data. Every table multiply is the full `mul_full`: a GF16
+// table can hold 0x10000 (l(w^j) or inv(x l') equal to p - 1).
 //
 // What bounds it on the H100: at 2^29 elements (the decode's 2^20 rows x
 // 512 lanes, 2 GiB per pass each way) a pass's floor is its 4 GiB of
@@ -98,17 +90,17 @@ constexpr int kTileWords = 8192;  // A * TL words per buffer (32 KB)
 constexpr int kMaxLaneTile = 32;
 constexpr int kMaxLen = 1024;     // longest pass the splits give (2^20)
 
-// (0, 2 and 3 were the modes of K1, K2 and K3, kernels of their own now in
-// col.cu and row.cu. The numbers stay, so sass_check.py keys the other
-// instantiations as before.)
+// (0, 2, 3, 5 and 7 were the modes of K1, K2, K3, K6 and K7-sel, kernels
+// of their own now in col.cu and row.cu. The numbers stay, so
+// sass_check.py keys the other instantiations as before.)
 enum Mode : int {
   kColPre = 1,
-  kColVec = 4, kSeamVec = 5, kRowPost = 6, kRowPostSel = 7,
+  kColVec = 4, kRowPost = 6,
   kColWire16 = 8, kSeamWire16 = 9, kRowWire16 = 10
 };
 
 __host__ __device__ constexpr bool is_row(int mode) {
-  return mode == kRowPost || mode == kRowPostSel;
+  return mode == kRowPost;
 }
 
 // K8 and K9 run each column twice, once per half (the grid's fastest
@@ -125,10 +117,10 @@ __host__ __device__ constexpr int tile_bufs(int mode) {
   return mode == kRowWire16 ? 3 : 2;
 }
 
-// Shared words beyond the tile buffers: one [A] row of factors, for
-// K7-sel a second [A] row for the mask, none for K10.
+// Shared words beyond the tile buffers: one [A] row of factors, none for
+// K10.
 constexpr int scratch_rows(int mode) {
-  return mode == kRowPostSel ? 2 : mode == kRowWire16 ? 0 : 1;
+  return mode == kRowWire16 ? 0 : 1;
 }
 
 struct PassArgs {
@@ -156,10 +148,12 @@ struct PassArgs {
 // once at entry: on the H100 that made K1 9% and K3 5% slower (a
 // 136-byte against a 112-byte PassArgs, same kernels, same inputs).
 // K10's hi input and bitmap output travel here for the same reason.
+// mask and orig were K7-sel's and are unused until K7 leaves this kernel
+// too: removing them would move hi and bitmap, and with them K10's SASS.
 struct TableArgs {
-  const uint32_t* vec;   // [A * B] general table (K5, K6, K7)
-  const uint32_t* mask;  // [A * B] erased-row mask (K7-sel)
-  const uint32_t* orig;  // [A, B, L] rows kept where mask is 0 (K7-sel)
+  const uint32_t* vec;   // [A * B] general table (K5, K7)
+  const uint32_t* mask;  // unused
+  const uint32_t* orig;  // unused
   const uint32_t* hi;    // [A, B, L] hi half; x holds lo (K10)
   uint32_t* bitmap;      // [A * B, L / 8] escape words (K10)
 };
@@ -270,9 +264,8 @@ __global__ void __launch_bounds__(kThreads) pass_kernel(PassArgs p,
   __syncthreads();
   uint32_t* y = run_stages<F>(buf0, buf1, p.A, p.log_a, p.log_tl, p.tw1, p.w31);
 
-  if (MODE == kSeamVec || MODE == kSeamWire16) {
-    if (MODE != kSeamVec) rank1_row<F>(scratch, p, b);
-    else vec_row(scratch, t.vec, p.A, p.B, b);
+  if (MODE == kSeamWire16) {
+    rank1_row<F>(scratch, p, b);
     __syncthreads();
     for (int e = threadIdx.x; e < tile; e += blockDim.x)
       y[e] = mul_full<F>(y[e], scratch[e >> p.log_tl]);
@@ -282,20 +275,14 @@ __global__ void __launch_bounds__(kThreads) pass_kernel(PassArgs p,
   }
 
   if (is_row(MODE)) {
-    uint32_t* mrow = scratch + p.A;
     vec_row(scratch, t.vec, p.A, p.B, b);
-    if (MODE == kRowPostSel) vec_row(mrow, t.mask, p.A, p.B, b);
     __syncthreads();
     // natural order: out[k, b, l] of [A, B, L]
     for (int e = threadIdx.x; e < tile; e += blockDim.x) {
       int l = e & tl_mask, k = e >> p.log_tl;
       if (l0 + l >= p.L) continue;
       size_t o = ((size_t)k * p.B + b) * p.L + l0 + l;
-      uint32_t v = y[e];
-      if (MODE == kRowPost) v = mul_full<F>(v, scratch[k]);
-      if (MODE == kRowPostSel)
-        v = mrow[k] != 0u ? mul_full<F>(v, scratch[k]) : t.orig[o];
-      p.out[o] = v;
+      p.out[o] = mul_full<F>(y[e], scratch[k]);
     }
     return;
   }
@@ -404,23 +391,6 @@ int fecc_col_vec(int field, const void* x, void* out, int A, int B, int L,
   return run<kColVec>(field, p, stream, {(const uint32_t*)vec});
 }
 
-// K6: K2 with the middle multiply y[a, b] *= vec[a * B + b] (a = c2,
-// b = r2) instead of the rank-1 g^m.
-int fecc_seam_vec(int field, const void* x, void* out, int A, int B, int L,
-                  const void* tw1, const void* w31, const void* tw2,
-                  const void* w32, const void* seed, const void* t0, int tr,
-                  const void* vec, void* stream) {
-  PassArgs p = base_args(x, out, A, B, L);
-  p.tw1 = (const uint32_t*)tw1;
-  p.w31 = (const uint32_t*)w31;
-  p.tw2 = (const uint32_t*)tw2;
-  p.w32 = (const uint32_t*)w32;
-  p.seed = (const uint32_t*)seed;
-  p.t0 = (const uint32_t*)t0;
-  p.log_tr = log2_exact(tr);
-  return run<kSeamVec>(field, p, stream, {(const uint32_t*)vec});
-}
-
 // K7: K3, then out[k, b] *= vec[k * B + b].
 int fecc_row_post(int field, const void* x, void* out, int A, int B, int L,
                   const void* tw, const void* w3, const void* vec,
@@ -429,18 +399,6 @@ int fecc_row_post(int field, const void* x, void* out, int A, int B, int L,
   p.tw1 = (const uint32_t*)tw;
   p.w31 = (const uint32_t*)w3;
   return run<kRowPost>(field, p, stream, {(const uint32_t*)vec});
-}
-
-// K7-sel: K7 where mask[k * B + b] != 0, orig[k, b, :] elsewhere.
-int fecc_row_post_sel(int field, const void* x, void* out, int A, int B,
-                      int L, const void* tw, const void* w3, const void* vec,
-                      const void* mask, const void* orig, void* stream) {
-  PassArgs p = base_args(x, out, A, B, L);
-  p.tw1 = (const uint32_t*)tw;
-  p.w31 = (const uint32_t*)w3;
-  return run<kRowPostSel>(field, p, stream,
-                           {(const uint32_t*)vec, (const uint32_t*)mask,
-                            (const uint32_t*)orig});
 }
 
 // K8: [A=C1, B=R1, L=Wu] u32 pairs of LE u16 words -> [2, R1, C1, L]:

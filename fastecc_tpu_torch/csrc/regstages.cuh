@@ -1,11 +1,12 @@
-// Register-resident NTT stages for Hopper: the engine of K3 (row.cu) and of
-// K1 and K2 (col.cu). Three parts:
+// Register-resident NTT stages for Hopper: the engine of K3 and K7-sel
+// (row.cu) and of K1, K2 and K6 (col.cu). Three parts:
 //
 //   * a tile loader that puts a block's [A, TL] column tile of an [A, B, L]
 //     u32 view into shared memory with cp.async, every copy of the tile
 //     issued before the first wait (16-byte copies of 4 lanes where the
 //     base is 16-byte aligned and L % 4 == 0, 4-byte copies otherwise;
-//     lanes past L are zero-filled, never read);
+//     lanes past L are zero-filled, never read), and likewise a column of
+//     an [A, B] table;
 //   * in-place radix-2 DIF transforms of S <= 32 elements held in
 //     registers, with the length, the direction and every twiddle known at
 //     compile time: the twiddles are immediates (`root_pow`), index 0
@@ -206,6 +207,20 @@ __device__ __forceinline__ void load_twiddles_async(uint32_t* dst,
     const int e = threadIdx.x + decltype(i)::value * S::kThreads;
     if (S::A % S::kThreads == 0 || e < S::A)
       cp_async4(dst + e / S::A1 * S::kTwStride + e % S::A1, tw + e, 4);
+  });
+}
+
+// Issue the copies of one [A] column of an [A, stride] table, dst[k] =
+// src[k * stride] (the decode's table rows: K6's middle, K7-sel's
+// factors and mask). The words lie `stride` apart, so 4-byte copies.
+template <class S>
+__device__ __forceinline__ void load_row_async(uint32_t* dst,
+                                               const uint32_t* src,
+                                               int stride) {
+  static_for<(S::A + S::kThreads - 1) / S::kThreads>([&](auto i) {
+    const int k = threadIdx.x + decltype(i)::value * S::kThreads;
+    if (S::A % S::kThreads == 0 || k < S::A)
+      cp_async4(dst + k, src + (size_t)k * stride, 4);
   });
 }
 

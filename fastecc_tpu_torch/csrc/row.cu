@@ -1,11 +1,18 @@
-// Pass B for Hopper (sm_90a): kernel K3 of the port, on the register-stage
-// engine of regstages.cuh, with a plain C interface loaded through ctypes
-// (kernels/_build.py builds it; kernels/ntt_mfa.py row_pass wraps it).
+// Pass B for Hopper (sm_90a): kernels K3 and K7-sel of the port, on the
+// register-stage engine of regstages.cuh, with a plain C interface loaded
+// through ctypes (kernels/_build.py builds it; kernels/ntt_mfa.py row_pass
+// and row_pass_post wrap it).
 //
-// Replaces the Pallas TPU kernel fastecc_tpu/kernels/ntt_mfa.py
-// _row_kernel: R-point forward or inverse stages along axis 0 of
-// [A = R, B = C, L] u32, natural-order output, no scale. The output is
-// the same canonical residues; how it gets there is the port's own.
+// Replaces these Pallas TPU kernels of fastecc_tpu/kernels/ntt_mfa.py:
+//   K3 fecc_row <- _row_kernel: R-point forward or inverse stages along
+//                  axis 0 of [A = R, B = C, L] u32, natural-order output,
+//                  no scale;
+//   K7-sel fecc_row_post_sel <- _row_kernel_post_sel: K3, then at rows k
+//                  whose mask[k * B + b] is not 0 out *= v[k * B + b]
+//                  (the Forney inverse derivative), at the others out =
+//                  orig (the erased-row merge of the decode).
+// The output is the same canonical residues; how it gets there is the
+// port's own.
 //
 // What bounds it on the H100: the encode pair's last pass moves 2 GiB in
 // and 2 GiB out at [512, 1024, 1024] (2^29 elements): 4 GiB at 3.35 TB/s
@@ -49,6 +56,20 @@
 // ~1.9 ms, and the IMADs alone on their one pipe (1.64e13 a second)
 // ~1.2 ms: below half the bytes bound (2.56 ms), but above the bound
 // itself (1.28 ms), so this kernel is issue-bound, not memory-bound.
+//
+// K7-sel is K3's schedule with an epilogue in the store loop. The
+// block's two [A] table rows, v[k * B + b] and the mask, are copied into
+// shared memory with the tile (8 KB more at A = 1024). For each group of
+// A2 outputs a thread first sets every register: erased rows (mask not
+// 0) x v[k], kept rows a read-only load of orig at the same [A, B, L]
+// index over the transform's value, so that all the group's loads are in
+// flight before its first store. The mask is a row's, so a warp splits
+// only where it holds two columns t (TL = 16). Measured against copying
+// the kept rows of orig into the freed exchange with cp.async while the
+// A2-point DIFs run, and reading them from shared memory at the store:
+// that held more registers and lost (PERF.md section 6).
+// orig may be the pass's own input: neither is written. At the decode's
+// e = n / 2 it reads half the rows of orig, 1 GiB at [1024, 1024, 512].
 
 #include <cstddef>
 #include <cstdint>
@@ -61,6 +82,7 @@
 namespace {
 
 using fecc::RegSplit;
+using fecc::mul_full;
 
 constexpr int kMaxLog = 10;   // longest pass the splits give (1024)
 
@@ -71,7 +93,31 @@ struct RowArgs {
   int B, L;             // columns (axis 1), lanes (axis 2)
   int lane_tiles;       // ceil(L / TL)
   int vec;              // x 16-byte aligned and L % 4 == 0
+  const uint32_t* post;  // K7-sel: [A * B] factors v[k * B + b]
+  const uint32_t* mask;  // K7-sel: [A * B] erased-row mask
+  const uint32_t* orig;  // K7-sel: [A, B, L] rows kept where mask is 0
 };
+
+// The schedule up to the store, K3's and K7-sel's: the block's tile and
+// the inner table in flight with whatever `copies()` issues, one wait,
+// then the transform of lane column (t, l): r[j A2 + bitrev(k2)] holds
+// X[t + A2 j + A1 k2].
+template <int F, int INV, class S, class Copies>
+__device__ __forceinline__ void row_transform(const RowArgs& p,
+                                              uint32_t* smem,
+                                              uint32_t (&r)[S::A1], int b,
+                                              int l0, Copies&& copies) {
+  uint32_t* tile = smem;
+  uint32_t* tw = smem + S::kExchWords;
+  fecc::load_tile_async<S>(tile, p.x, p.B, p.L, b, l0, p.vec != 0);
+  fecc::load_twiddles_async<S>(tw, p.tw);
+  copies();
+  fecc::cp_async_wait_all();
+  __syncthreads();
+
+  const int l = threadIdx.x % S::TL, t = threadIdx.x / S::TL;
+  fecc::reg_transform<F, INV != 0, S>(r, tile, tw, t, l);
+}
 
 // Block = (column b, lane tile); thread = (t = n2, lane l).
 template <int F, int LA, int INV>
@@ -79,19 +125,12 @@ __global__ void __launch_bounds__(RegSplit<LA>::kThreads)
     row_kernel(RowArgs p) {
   using S = RegSplit<LA>;
   extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* tile = smem;
-  uint32_t* tw = smem + S::kExchWords;
   const int lt = blockIdx.x % p.lane_tiles;
   const int b = blockIdx.x / p.lane_tiles;
   const int l0 = lt * S::TL;
-  fecc::load_tile_async<S>(tile, p.x, p.B, p.L, b, l0, p.vec != 0);
-  fecc::load_twiddles_async<S>(tw, p.tw);
-  fecc::cp_async_wait_all();
-  __syncthreads();
-
-  const int l = threadIdx.x % S::TL, t = threadIdx.x / S::TL;
   uint32_t r[S::A1];
-  fecc::reg_transform<F, INV != 0, S>(r, tile, tw, t, l);
+  row_transform<F, INV, S>(p, smem, r, b, l0, [] {});
+  const int l = threadIdx.x % S::TL, t = threadIdx.x / S::TL;
   if (l0 + l >= p.L) return;
   // natural order: out[k1 + A1 k2, b, l] of [A, B, L]
   const size_t row = (size_t)p.B * p.L;
@@ -107,11 +146,83 @@ __global__ void __launch_bounds__(RegSplit<LA>::kThreads)
   });
 }
 
+// K7-sel: K3, then out = mask[k] != 0 ? X[k] * post[k] : orig at each
+// output row k, with the block's rows of post and mask in shared memory
+// behind K3's.
 template <int F, int LA, int INV>
+__device__ __forceinline__ void row_sel(const RowArgs& p) {
+  using S = RegSplit<LA>;
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* post = smem + S::kSmemWords;
+  uint32_t* mask = post + S::A;
+  const int lt = blockIdx.x % p.lane_tiles;
+  const int b = blockIdx.x / p.lane_tiles;
+  const int l0 = lt * S::TL;
+  uint32_t r[S::A1];
+  row_transform<F, INV, S>(p, smem, r, b, l0, [&] {
+    fecc::load_row_async<S>(post, p.post + b, p.B);
+    fecc::load_row_async<S>(mask, p.mask + b, p.B);
+  });
+  const int l = threadIdx.x % S::TL, t = threadIdx.x / S::TL;
+  if (l0 + l >= p.L) return;
+  // natural order, as K3: out[k1 + A1 k2, b, l] of [A, B, L]
+  const size_t row = (size_t)p.B * p.L;
+  const size_t at = (size_t)b * p.L + l0 + l;
+  fecc::static_for<S::A1 / S::A2>([&](auto jc) {
+    constexpr int j = decltype(jc)::value;
+    const int k1 = t + S::A2 * j;
+    const uint32_t* orig = p.orig + at + (size_t)k1 * row;
+    // every register of the group first (GF16 tables can hold 0x10000:
+    // the full multiply), so that its orig loads are all in flight
+    fecc::static_for<S::A2>([&](auto k2c) {
+      constexpr int k2 = decltype(k2c)::value;
+      constexpr int src = j * S::A2 + fecc::bitrev(k2, S::LA2);
+      const int k = k1 + k2 * S::A1;
+      r[src] = mask[k] != 0u ? mul_full<F>(r[src], post[k])
+                             : __ldg(orig + (size_t)(k2 * S::A1) * row);
+    });
+    uint32_t* o = p.out + at + (size_t)k1 * row;
+    fecc::static_for<S::A2>([&](auto k2c) {
+      constexpr int k2 = decltype(k2c)::value;
+      constexpr int src = j * S::A2 + fecc::bitrev(k2, S::LA2);
+      o[(size_t)(k2 * S::A1) * row] = r[src];
+    });
+  });
+}
+
+template <int F, int LA, int INV>
+__global__ void __launch_bounds__(RegSplit<LA>::kThreads)
+    row_sel_kernel(RowArgs p) {
+  row_sel<F, LA, INV>(p);
+}
+
+// K7-sel at A >= 512 (kBoundLog), held to two blocks of 512 threads an
+// SM. Unasked, ptxas gives it 66-74 registers and one block at 1024; at
+// 512 it fits 64 unasked, yet the bound (a few bytes of spills) ran 6%
+// faster; at 256 its own choice (40-42 registers, three blocks) ran 7%
+// faster than the bound, and a bound of one block, which lets it take
+// 72-120 registers, was the slowest everywhere (k7sel_options.py).
+constexpr int kBoundLog = 9;
+
+template <int F, int LA, int INV>
+__global__ void __launch_bounds__(RegSplit<LA>::kThreads, 2)
+    row_sel_kernel_lb2(RowArgs p) {
+  row_sel<F, LA, INV>(p);
+}
+
+// SEL: 0 for K3, 1 for K7-sel (two more [A] rows of shared memory).
+template <int F, int LA, int INV, int SEL>
 cudaError_t launch(RowArgs p, cudaStream_t stream) {
   using S = RegSplit<LA>;
-  const size_t smem = (size_t)S::kSmemWords * sizeof(uint32_t);
-  auto kernel = row_kernel<F, LA, INV>;
+  const size_t smem =
+      (size_t)(S::kSmemWords + (SEL ? 2 * S::A : 0)) * sizeof(uint32_t);
+  void (*kernel)(RowArgs);
+  if constexpr (SEL == 0)
+    kernel = row_kernel<F, LA, INV>;
+  else if constexpr (LA >= kBoundLog)
+    kernel = row_sel_kernel_lb2<F, LA, INV>;
+  else
+    kernel = row_sel_kernel<F, LA, INV>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -123,18 +234,18 @@ cudaError_t launch(RowArgs p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int LA>
+template <int LA, int SEL>
 cudaError_t dispatch(int la, int field, bool inv, const RowArgs& p,
                      cudaStream_t s) {
   if constexpr (LA > kMaxLog) {
     return cudaErrorInvalidValue;
   } else {
-    if (la != LA) return dispatch<LA + 1>(la, field, inv, p, s);
+    if (la != LA) return dispatch<LA + 1, SEL>(la, field, inv, p, s);
     if (field == fecc::kGF32)
-      return inv ? launch<fecc::kGF32, LA, 1>(p, s)
-                 : launch<fecc::kGF32, LA, 0>(p, s);
-    return inv ? launch<fecc::kGF16, LA, 1>(p, s)
-               : launch<fecc::kGF16, LA, 0>(p, s);
+      return inv ? launch<fecc::kGF32, LA, 1, SEL>(p, s)
+                 : launch<fecc::kGF32, LA, 0, SEL>(p, s);
+    return inv ? launch<fecc::kGF16, LA, 1, SEL>(p, s)
+               : launch<fecc::kGF16, LA, 0, SEL>(p, s);
   }
 }
 
@@ -142,6 +253,22 @@ int log2_exact(int v) {
   int t = 0;
   while ((1 << t) < v) ++t;
   return (1 << t) == v ? t : -1;
+}
+
+template <int SEL>
+int run(int field, const void* x, void* out, int A, int B, int L,
+        int inverse, const void* tw, RowArgs p, void* stream) {
+  const int la = log2_exact(A);
+  if (la < 1 || la > kMaxLog || B < 1 || L < 1)
+    return (int)cudaErrorInvalidValue;
+  p.x = (const uint32_t*)x;
+  p.out = (uint32_t*)out;
+  p.tw = (const uint32_t*)tw;
+  p.B = B;
+  p.L = L;
+  p.vec = ((uintptr_t)x % 16 == 0) && (L % 4 == 0);
+  return (int)dispatch<1, SEL>(la, field, inverse != 0, p,
+                               (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -153,18 +280,21 @@ extern "C" {
 // inner twiddles of kernels/ntt_mfa.py _row_inner_twiddles.
 int fecc_row(int field, const void* x, void* out, int A, int B, int L,
              int inverse, const void* tw, void* stream) {
-  const int la = log2_exact(A);
-  if (la < 1 || la > kMaxLog || B < 1 || L < 1)
-    return (int)cudaErrorInvalidValue;
+  return run<0>(field, x, out, A, B, L, inverse, tw, RowArgs{}, stream);
+}
+
+// K7-sel: K3 (inverse != 0: inverse, unscaled), then out[k, b, :] =
+// vec[k * B + b] * X[k, b, :] where mask[k * B + b] != 0, else
+// orig[k, b, :]. vec and mask are [A * B] u32, orig [A, B, L] u32 (it may
+// be x itself).
+int fecc_row_post_sel(int field, const void* x, void* out, int A, int B,
+                      int L, int inverse, const void* tw, const void* vec,
+                      const void* mask, const void* orig, void* stream) {
   RowArgs p{};
-  p.x = (const uint32_t*)x;
-  p.out = (uint32_t*)out;
-  p.tw = (const uint32_t*)tw;
-  p.B = B;
-  p.L = L;
-  p.vec = ((uintptr_t)x % 16 == 0) && (L % 4 == 0);
-  return (int)dispatch<1>(la, field, inverse != 0, p,
-                          (cudaStream_t)stream);
+  p.post = (const uint32_t*)vec;
+  p.mask = (const uint32_t*)mask;
+  p.orig = (const uint32_t*)orig;
+  return run<1>(field, x, out, A, B, L, inverse, tw, p, stream);
 }
 
 }  // extern "C"

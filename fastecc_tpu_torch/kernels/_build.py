@@ -45,11 +45,15 @@ SIGNATURES = {
                      _P],
     # row.cu: (field, x, out, A, B, L, inverse, inner twiddles, stream)
     "fecc_row": [_I, _P, _P, _I, _I, _I, _I, _P, _P],
+    # (field, x, out, A, B, L, inverse, inner twiddles, vec, mask, orig,
+    # stream)
+    "fecc_row_post_sel": [_I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # col.cu: (field, x, out, A, B, L, tw_inv, tw_fwd, seed, t0, tr, vec,
+    # stream)
+    "fecc_seam_vec": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
+    # ntt_mfa.cu
     "fecc_col_vec": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
-    "fecc_seam_vec": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
-                      _P, _P],
     "fecc_row_post": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
-    "fecc_row_post_sel": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "fecc_col_wire16": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
     "fecc_seam_wire16": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
                          _P, _P, _P],

@@ -42,8 +42,9 @@ the port's own gate) on every device; both routes give the same bits.
 
 Each kernel has a wrapper and a plain PyTorch version here. The wrapper
 takes the plain version only for a CPU tensor; on a CUDA tensor it
-launches its Hopper kernel (``csrc/col.cu``: K1, K2; ``csrc/row.cu``: K3;
-``csrc/ntt_mfa.cu``: K4-K10; ``csrc/lanes.cu``: K11, K12) or raises, and
+launches its Hopper kernel (``csrc/col.cu``: K1, K2, K6; ``csrc/row.cu``:
+K3, K7-sel; ``csrc/ntt_mfa.cu``: K4, K5, K7, K8-K10; ``csrc/lanes.cu``:
+K11, K12) or raises, and
 counts the launch in :data:`LAUNCHES`.
 Split, lane tile and twiddle tables are the port's own; the output bits
 are the reference's.
@@ -461,25 +462,21 @@ def _launch_seam(y1, field, pre_seed2=None, pre_vec2=None):
     seed, t0 = _seeds_on(field.name, c2 * r2, c2, False, False, tr, dev)
     out = torch.empty((r2, c2, lanes), dtype=torch.uint32, device=y1.device)
     head = [_field_code(field), y1.data_ptr(), out.data_ptr(), r1, c1, lanes]
-    seeds = [seed.data_ptr(), t0.data_ptr(), tr]
+    tw_inv = _row_tw_on(field.name, r1, True, dev)
+    tw_fwd = _row_tw_on(field.name, c2, False, dev)
+    tables = [tw_inv.data_ptr(), tw_fwd.data_ptr(), seed.data_ptr(),
+              t0.data_ptr(), tr]
     with torch.cuda.device(y1.device):
         if pre_vec2 is None:
-            tw_inv = _row_tw_on(field.name, r1, True, dev)
-            tw_fwd = _row_tw_on(field.name, c2, False, dev)
             pcol, prow = _pre_on(field.name, pre_seed2 % field.p, c2, r2, tr,
                                  dev)
-            _build.call("fecc_seam", *head, tw_inv.data_ptr(),
-                        tw_fwd.data_ptr(), *seeds, pcol.data_ptr(),
+            _build.call("fecc_seam", *head, *tables, pcol.data_ptr(),
                         prow.data_ptr(), _stream(y1))
             LAUNCHES["K2_seam"] += 1
         else:
-            tw1, w31 = _stage_tables_on(field.name, r1, True, dev)
-            tw2, w32 = _stage_tables_on(field.name, c2, False, dev)
             vec = _cuda_operand(pre_vec2, y1, c2 * r2,
                                 "seam_pass_vec: pre_vec2")
-            _build.call("fecc_seam_vec", *head, tw1.data_ptr(),
-                        w31.data_ptr(), tw2.data_ptr(), w32.data_ptr(),
-                        *seeds, vec, _stream(y1))
+            _build.call("fecc_seam_vec", *head, *tables, vec, _stream(y1))
             LAUNCHES["K6_seam_vec"] += 1
     return out
 
@@ -496,7 +493,8 @@ def seam_pass(y1: torch.Tensor, field: FieldSpec,
 def seam_pass_vec(y1: torch.Tensor, field: FieldSpec,
                   pre_vec2: torch.Tensor) -> torch.Tensor:
     """K6 (the decode pair's middle pass, a prepared [N] u32 table v[m]
-    in the middle, m = c2*R2 + r2): [R1, C1, L] -> [C1, R1, L]."""
+    in the middle, m = c2*R2 + r2): [R1, C1, L] -> [C1, R1, L]
+    (``csrc/col.cu``: K2's kernel with the middle row from the table)."""
     if not _dispatch(y1, "seam_pass_vec"):
         return seam_pass_plain(y1, field, pre_vec2=pre_vec2)
     return _launch_seam(y1, field, pre_vec2=pre_vec2)
@@ -526,27 +524,31 @@ def row_pass_post(y: torch.Tensor, field: FieldSpec, post_vec: torch.Tensor,
                   inverse: bool = False) -> torch.Tensor:
     """K7 (pass B, then out[k] *= post_vec[k], k = k_r*C + k_c) or, with
     ``sel_mask``/``sel_orig`` ([N] u32 and [R, C, L] u32), K7-sel (then
-    out[k] where sel_mask[k] != 0, else sel_orig[k]): [R, C, L] u32 ->
-    [R, C, L], natural order."""
+    out[k] where sel_mask[k] != 0, else sel_orig[k]; ``csrc/row.cu``, K3's
+    kernel with the select in its store): [R, C, L] u32 -> [R, C, L],
+    natural order."""
     _check_sel(post_vec, sel_mask, sel_orig)
     if not _dispatch(y, "row_pass_post"):
         return row_pass_plain(y, field, inverse, post_vec, sel_mask,
                               sel_orig)
     r, c, lanes = y.shape
-    tw, w3 = _stage_tables_on(field.name, r, inverse, str(y.device))
+    dev = str(y.device)
     vec = _cuda_operand(post_vec, y, r * c, "row_pass_post: post_vec")
     out = torch.empty_like(y)
-    args = [_field_code(field), y.data_ptr(), out.data_ptr(), r, c, lanes,
-            tw.data_ptr(), w3.data_ptr(), vec]
+    head = [_field_code(field), y.data_ptr(), out.data_ptr(), r, c, lanes]
     with torch.cuda.device(y.device):
         if sel_mask is None:
-            _build.call("fecc_row_post", *args, _stream(y))
+            tw, w3 = _stage_tables_on(field.name, r, inverse, dev)
+            _build.call("fecc_row_post", *head, tw.data_ptr(),
+                        w3.data_ptr(), vec, _stream(y))
             LAUNCHES["K7_row_post"] += 1
         else:
             mask = _cuda_operand(sel_mask, y, r * c, "row_pass_post: sel_mask")
             orig = _cuda_operand(sel_orig, y, y.numel(),
                                  "row_pass_post: sel_orig")
-            _build.call("fecc_row_post_sel", *args, mask, orig, _stream(y))
+            tw = _row_tw_on(field.name, r, inverse, dev)
+            _build.call("fecc_row_post_sel", *head, int(inverse),
+                        tw.data_ptr(), vec, mask, orig, _stream(y))
             LAUNCHES["K7_row_post_sel"] += 1
     return out
 

@@ -44,7 +44,8 @@ from fastecc_tpu_torch.kernels.microbench import _VARIANTS
 # namespace's build-specific prefix ("chain_kernel" after the two names
 # that contain it)
 _BASES = ("fused_chain_kernel", "chain_tile_kernel", "chain_kernel",
-          "pass_kernel", "copy_kernel", "row_kernel", "col_kernel",
+          "pass_kernel", "copy_kernel", "row_sel_kernel_lb2",
+          "row_sel_kernel", "row_kernel", "col_kernel",
           "pair_lanes_wire16_kernel", "pair_lanes_kernel")
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")

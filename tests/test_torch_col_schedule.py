@@ -1,11 +1,12 @@
-"""K1's and K2's schedules against the reference, on the CPU.
+"""K1's, K2's and K6's schedules against the reference, on the CPU.
 
-Pass A (K1) and the encode seam (K2) are one kernel template in
-``fastecc_tpu_torch/csrc/col.cu`` on ``csrc/regstages.cuh``; it cannot
-run here, so this file models its exact schedule in numpy: the [A, TL]
-tile in a flat shared-memory buffer per block, the per-row factors the
-block computes from the four-step seeds (and, for the seam, the rank-1
-row pcol[k] * prow[b]), the A1-point in-register DIF with its
+Pass A (K1), the encode seam (K2) and the decode seam (K6) are one kernel
+template in ``fastecc_tpu_torch/csrc/col.cu`` on ``csrc/regstages.cuh``;
+it cannot run here, so this file models its exact schedule in numpy: the
+[A, TL] tile in a flat shared-memory buffer per block, the per-row factors
+the block computes from the four-step seeds (and, for K2, the rank-1 row
+pcol[k] * prow[b]; for K6, the table's column v[k * B + b] copied in
+with the tile), the A1-point in-register DIF with its
 compile-time constants, the inner twiddles from ``_row_inner_twiddles``
 staged into padded rows, the exchange, the A2-point DIFs, the seam's
 register-resident hand-off into its second transform and the transposed
@@ -13,10 +14,12 @@ store from registers, with the same index maps and butterfly order.
 
 The model is held bit for bit against the JAX package's staged transform
 plus its four-step twiddle tables at every A = 2 .. 1024 in both fields
-(K1 forward, scaled inverse and unscaled inverse; K2), on ragged lanes,
-and chained with K3's model (``tests/test_torch_row_schedule.py``)
-against the Pallas passes in interpret mode. The kernel itself is held
-against the plain versions on the card (``tests/test_torch_cuda.py``,
+(K1 forward, scaled inverse and unscaled inverse; K2; K6 with GF16
+tables holding 0x10000), on ragged lanes, and chained with K3's and
+K7-sel's model (``tests/test_torch_row_schedule.py``) against the Pallas
+passes in interpret mode: the encode pair after the port's K1 model, the
+decode pair after the port's plain K5. The kernel itself is held against
+the plain versions on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).
 """
 
@@ -30,9 +33,10 @@ from fastecc_tpu.kernels import ntt_mfa as jmfa
 from fastecc_tpu.ntt import mul_prepared as jmul
 from fastecc_tpu.ntt import ntt_jit as jntt
 from fastecc_tpu_torch import fields
+from fastecc_tpu_torch.interop import from_numpy_u32, to_numpy_u32
 from fastecc_tpu_torch.kernels import ntt_mfa as m
 
-from test_torch_row_schedule import Arith, bitrev, dif_regs
+from test_torch_row_schedule import Arith, bitrev, dif_regs, sel_model
 from test_torch_row_schedule import kernel_model as row_model
 
 FIELDS = [fields.GF32, fields.GF16]
@@ -58,16 +62,19 @@ def smem_words(a, seam):
     return g["exch"] + k * g["tw_words"] + k * a
 
 
-def col_model(x, field, inverse=False, scale=True, seam_g=None):
+def col_model(x, field, inverse=False, scale=True, seam_g=None,
+              seam_vec=None):
     """col.cu's col_kernel on x [A, B, L] -> [B, A, L]: every block
     (column b, lane tile) and every thread (t, l) at once, with the
     kernel's shared-memory index maps. ``seam_g``: K2 with the coset
-    powers of seam_g (first transform inverse, second forward)."""
+    powers of seam_g (first transform inverse, second forward);
+    ``seam_vec``: K6, the same with the middle factors v[k * B + b] of a
+    prepared [A * B] table."""
     a, nb, lanes = x.shape
     g = geometry(a)
     a1, a2, tl = g["a1"], g["a2"], g["tl"]
     row_words, exch, kt = g["row_words"], g["exch"], g["tw_words"]
-    seam = seam_g is not None
+    seam = seam_g is not None or seam_vec is not None
     tr = m._seed_tr(nb)
     f = Arith(field)
     inv1 = True if seam else inverse
@@ -120,6 +127,11 @@ def col_model(x, field, inverse=False, scale=True, seam_g=None):
         if seam:
             smem[:, tw_off[1] + e // a1 * (a1 + 1) + e % a1] = \
                 m._row_inner_twiddles(field.name, a, False).reshape(-1)
+        if seam_vec is not None:
+            # block b's copies: mid[k] = v[k * B + b]
+            smem[:, mid_off:mid_off + a] = seam_vec.astype(np.uint64)[
+                k * nb + b]
+        elif seam:
             pcol, prow = m._pre_mul_tables(field.name, seam_g % field.p, a,
                                            nb, tr)
             smem[:, mid_off:mid_off + a] = f.mul(
@@ -184,6 +196,25 @@ def ref_seam(x, field, g):
     return np.asarray(jnp.transpose(y, (1, 0, 2)))
 
 
+def ref_seam_vec(x, field, vec):
+    """K6 from the JAX package: inverse stages, x v[k * B + b], forward
+    stages, twiddle, transpose."""
+    jf = jfields.FIELDS[field.name]
+    a, nb, _ = x.shape
+    y = jmul(jf, j_stages(jnp.asarray(x), jf, True),
+             jnp.asarray(vec).reshape(a, nb, 1))
+    y = j_twiddle(j_stages(y, jf, False), jf, a * nb, a, False, False)
+    return np.asarray(jnp.transpose(y, (1, 0, 2)))
+
+
+def rand_table(field, n, seed):
+    """A prepared [n] table; GF16 ones hold 0x10000 at every 5th entry."""
+    v = rand_input(field, (n,), seed)
+    if not field.use_mont:
+        v[::5] = 0x10000
+    return v
+
+
 def rand_input(field, shape, seed):
     rng = np.random.default_rng(seed)
     x = rng.integers(0, field.p, size=shape, dtype=np.uint64).astype(
@@ -244,6 +275,47 @@ def test_seam_schedule_matches_reference(la, field):
     g = field.root_of_order(2 * a * COLS)
     np.testing.assert_array_equal(col_model(x, field, seam_g=g),
                                   ref_seam(x, field, g))
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+@pytest.mark.parametrize("la", range(1, 11))
+def test_seam_vec_schedule_matches_reference(la, field):
+    """K6's schedule (K2's with the middle row from the table) == the JAX
+    package's inverse stages, table multiply, forward stages and twiddle,
+    transposed, bit for bit, at A = 2^la over [A, 4, 13]; GF16 tables hold
+    0x10000."""
+    a = 1 << la
+    x = rand_input(field, (a, COLS, LANES), 0x5EB + 4 * la + field.use_mont)
+    vec = rand_table(field, a * COLS, 0x7AB + la)
+    np.testing.assert_array_equal(col_model(x, field, seam_vec=vec),
+                                  ref_seam_vec(x, field, vec))
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+@pytest.mark.parametrize("n", [1 << 7, 1 << 10])
+def test_chained_decode_models_match_pallas_interpret(field, n):
+    """The decode pair as the port chains it, the port's plain K5 ->
+    K6's model -> K7-sel's model (the original the pass-A input, as in
+    decode_prepared), == ntt_pair_pallas with the same tables and merge
+    in interpret mode, over 128 lanes; about half the rows erased."""
+    lanes = 128
+    x = rand_input(field, (n, lanes), 0xDEC + n + field.use_mont)
+    v1, v2, v3 = (rand_table(field, n, 0x7AB + n + i) for i in range(3))
+    mask = (np.random.default_rng(n).random(n) < 0.5).astype(np.uint32)
+    c1 = m._pair_split(n)
+    x3 = x.reshape(c1, n // c1, lanes)
+    col1 = to_numpy_u32(m.col_pass_plain(
+        from_numpy_u32(x3, "cpu"), field, inverse=True, scale=True,
+        pre_vec=from_numpy_u32(v1, "cpu")))
+    col2 = col_model(col1, field, seam_vec=v2)
+    got = sel_model(col2, field, False, v3, mask, x3)
+    rf = jfields.FIELDS[field.name]
+    want = np.asarray(jmfa.ntt_pair_pallas(
+        jnp.asarray(x), rf, pre_vec1=jnp.asarray(v1),
+        pre_vec2=jnp.asarray(v2), post_vec=jnp.asarray(v3),
+        sel_mask=jnp.asarray(mask), sel_orig=jnp.asarray(x), interpret=True,
+        tile=(8, 128)))
+    np.testing.assert_array_equal(got.reshape(n, lanes), want)
 
 
 @pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)

@@ -26,8 +26,8 @@ FIELDS = [fields.GF32, fields.GF16]
 pytestmark = pytest.mark.cuda
 
 
-def rand_field(field, shape):
-    return RNG.integers(0, field.p, size=shape, dtype=np.uint64).astype(
+def rand_field(field, shape, rng=RNG):
+    return rng.integers(0, field.p, size=shape, dtype=np.uint64).astype(
         np.uint32)
 
 
@@ -117,6 +117,71 @@ def test_seam_kernel_every_length_on_card(field, cuda_device):
             assert torch.equal(m.seam_pass(y, field, g),
                                m.seam_pass_plain(y, field, g)), (
                                    a, y.shape[-1], y.data_ptr() % 16)
+
+
+def rand_table(field, n, rng):
+    """A prepared [n] table; GF16 ones hold 0x10000 at every 3rd entry."""
+    vals = rand_field(field, n, rng)
+    if not field.use_mont:
+        vals[::3] = 0x10000
+    return vals
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_seam_vec_kernel_every_length_on_card(field, cuda_device):
+    """K6 (col.cu, K2's kernel with the middle row from the table) vs its
+    plain version at every A = R1 = 2 .. 1024 on [A, 4, L], over 1, 3, 13
+    and 40 lanes, and on a view 4 bytes past a 16-byte boundary; GF16
+    tables hold 0x10000."""
+    rng = np.random.default_rng(0x5EA6 + field.use_mont)
+    for la in range(1, 11):
+        a = 1 << la
+        v = from_numpy_u32(rand_table(field, a * 4, rng), cuda_device)
+        views = [from_numpy_u32(rand_field(field, (a, 4, lanes), rng),
+                                cuda_device) for lanes in (1, 3, 13, 40)]
+        big = from_numpy_u32(rand_field(field, a * 4 * 8 + 1, rng),
+                             cuda_device)
+        views.append(big[1:].reshape(a, 4, 8))
+        assert views[-1].data_ptr() % 16 == 4
+        for y in views:
+            assert torch.equal(m.seam_pass_vec(y, field, v),
+                               m.seam_pass_plain(y, field, pre_vec2=v)), (
+                                   a, y.shape[-1], y.data_ptr() % 16)
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_row_post_sel_kernel_every_length_on_card(field, inverse,
+                                                  cuda_device):
+    """K7-sel (row.cu, K3's kernel with the select in its store) vs its
+    plain version at every A = 2 .. 1024 on [A, 3, L], over 1, 3, 13 and
+    40 lanes and on a view 4 bytes past a 16-byte boundary: masks all 0,
+    about half set (with 1, 0x100 and 0x80000000: any value but 0
+    selects) and all set, the original a tensor of its own and the
+    pass's input; GF16 tables hold 0x10000."""
+    rng = np.random.default_rng(0x5E1 + 2 * field.use_mont + inverse)
+    for la in range(1, 11):
+        a = 1 << la
+        v = from_numpy_u32(rand_table(field, a * 3, rng), cuda_device)
+        sel = rng.choice(np.array([1, 0x100, 0x80000000], np.uint32), a * 3)
+        half = np.where(rng.random(a * 3) < 0.5, sel, 0).astype(np.uint32)
+        masks = [from_numpy_u32(mk, cuda_device) for mk in (
+            np.zeros(a * 3, np.uint32), half, sel)]
+        views = [from_numpy_u32(rand_field(field, (a, 3, lanes), rng),
+                                cuda_device) for lanes in (1, 3, 13, 40)]
+        big = from_numpy_u32(rand_field(field, a * 3 * 8 + 1, rng),
+                             cuda_device)
+        views.append(big[1:].reshape(a, 3, 8))
+        assert views[-1].data_ptr() % 16 == 4
+        for y in views:
+            orig = from_numpy_u32(rand_field(field, tuple(y.shape), rng),
+                                  cuda_device)
+            for mk in masks:
+                for o in (orig, y):
+                    assert torch.equal(
+                        m.row_pass_post(y, field, v, mk, o, inverse),
+                        m.row_pass_plain(y, field, inverse, v, mk, o)), (
+                            a, y.shape[-1], y.data_ptr() % 16, o is y)
 
 
 @pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)

@@ -1,16 +1,19 @@
-"""K3's schedule against the reference transform, on the CPU.
+"""K3's and K7-sel's schedule against the reference, on the CPU.
 
-The pass-B kernel (``fastecc_tpu_torch/csrc/row.cu`` on
-``csrc/regstages.cuh``) cannot run here, so this file models its exact
+The pass-B kernels (``fastecc_tpu_torch/csrc/row.cu`` on
+``csrc/regstages.cuh``) cannot run here, so this file models their exact
 schedule in numpy: the [A, TL] tile in a flat shared-memory buffer, the
 A1-point in-register DIF with its compile-time constants, the inner
 twiddles from ``_row_inner_twiddles`` staged into padded rows, the
 exchange through the padded rows, the A2-point DIFs and the bit-reversed
 register reads of the store, with the same index maps and butterfly
-order. The model is held bit for bit against the JAX package's transform
-at every A = 2 .. 1024 in both fields and both directions, on ragged
-lanes. The kernel itself is held against the plain version on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+order; for K7-sel also the block's table and mask rows staged behind the
+inner table and the select in the store (x the table at rows whose mask
+is not 0, the original elsewhere). The model is held bit for bit against
+the JAX package's transform (and, for K7-sel, its table multiply and row
+select) at every A = 2 .. 1024 in both fields and both directions, on
+ragged lanes. The kernels themselves are held against the plain versions
+on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 
 import numpy as np
@@ -19,6 +22,7 @@ import pytest
 import jax.numpy as jnp
 
 from fastecc_tpu import fields as jfields
+from fastecc_tpu.ntt import mul_prepared as jmul
 from fastecc_tpu.ntt import ntt_jit as jntt
 from fastecc_tpu_torch import fields
 from fastecc_tpu_torch.kernels import ntt_mfa as m
@@ -26,6 +30,7 @@ from fastecc_tpu_torch.ntt import _stage_twiddles
 
 FIELDS = [fields.GF32, fields.GF16]
 LANES = 13          # ragged: not a multiple of 4 nor of any lane tile
+COLS = 3            # B of K7-sel's [A, B, L]: the table index k * B + b
 
 
 def root_pow(field, inverse, order, j):
@@ -78,10 +83,13 @@ def dif_regs(r, s, off, f, field, inverse):
         h //= 2
 
 
-def kernel_model(x, field, inverse):
+def kernel_model(x, field, inverse, post=None, mask=None, orig=None):
     """row.cu's row_kernel on one column b of [A, B = 1, L], every lane
-    tile, every thread, with its shared-memory index maps."""
+    tile, every thread, with its shared-memory index maps; with ``post``,
+    ``mask`` ([A], the column's table rows) and ``orig`` ([A, L]),
+    row_sel_kernel (K7-sel)."""
     a = x.shape[0]
+    sel = post is not None
     la = a.bit_length() - 1
     a1, a2 = m._row_split(a)
     la1, la2 = la - la // 2, la // 2
@@ -89,6 +97,7 @@ def kernel_model(x, field, inverse):
     row_words = (a1 + 1) * tl
     exch = a2 * row_words
     smem_words = exch + a2 * (a1 + 1)
+    post_off, mask_off = smem_words, smem_words + a
     f = Arith(field)
     lanes = x.shape[1]
     out = np.zeros_like(x)
@@ -96,7 +105,7 @@ def kernel_model(x, field, inverse):
     t = np.arange(a2)[:, None]             # thread = (t, l), [A2, TL]
     l = np.arange(tl)[None, :]
     for l0 in range(0, lanes, tl):
-        smem = np.zeros(smem_words, np.uint64)
+        smem = np.zeros(smem_words + (2 * a if sel else 0), np.uint64)
         # the loads: tile[a * TL + l], lanes past L zero-filled
         cols = np.arange(l0, l0 + tl)
         tile = np.zeros((a, tl), np.uint64)
@@ -104,6 +113,9 @@ def kernel_model(x, field, inverse):
         smem[:a * tl] = tile.reshape(-1)
         e = np.arange(a)
         smem[exch + e // a1 * (a1 + 1) + e % a1] = tw
+        if sel:
+            smem[post_off:post_off + a] = post
+            smem[mask_off:mask_off + a] = mask
         # step 1: column n2 = t at stride A2, all threads read, then DIF
         r = [smem[(n1 * a2 + t) * tl + l] for n1 in range(a1)]
         dif_regs(r, a1, 0, f, field, inverse)
@@ -119,12 +131,19 @@ def kernel_model(x, field, inverse):
             for n2 in range(a2):
                 r[j * a2 + n2] = smem[(t + a2 * j) * tl + l + n2 * row_words]
             dif_regs(r, a2, j * a2, f, field, inverse)
-        # the store: out[k1 + A1 k2, l0 + l] = r[j * A2 + bitrev(k2)]
+        # the store: out[k1 + A1 k2, l0 + l] = r[j * A2 + bitrev(k2)];
+        # K7-sel: x post[k] where mask[k] != 0, else orig[k, l0 + l]
         live = (l0 + l < lanes)[0]
         for j in range(a1 // a2):
             for k2 in range(a2):
                 rows = (t + a2 * j + k2 * a1)[:, 0]
                 val = r[j * a2 + bitrev(k2, la2)]
+                if sel:
+                    keep = smem[mask_off + rows] != 0
+                    mul = f.mul(val, smem[post_off + rows][:, None])
+                    kept = np.zeros_like(val)
+                    kept[:, live] = orig[rows[:, None], (l0 + l)[:, live]]
+                    val = np.where(keep[:, None], mul, kept)
                 out[rows[:, None], (l0 + l)[:, live]] = val[:, live]
     return out.astype(np.uint32)
 
@@ -173,3 +192,75 @@ def test_schedule_matches_reference(la, field, inverse):
     want = np.asarray(jntt(jnp.asarray(x), field=jfields.FIELDS[field.name],
                            inverse=inverse, scale=False))
     np.testing.assert_array_equal(kernel_model(x, field, inverse), want)
+
+
+def sel_model(y, field, inverse, vec, mask, orig):
+    """K7-sel on [A, B, L]: row_sel_kernel's blocks, column b with its
+    table rows vec[k * B + b] and mask[k * B + b]."""
+    a, nb, _ = y.shape
+    v, mk = vec.reshape(a, nb), mask.reshape(a, nb)
+    return np.stack([kernel_model(y[:, b], field, inverse, v[:, b], mk[:, b],
+                                  orig[:, b]) for b in range(nb)], axis=1)
+
+
+def ref_sel(y, field, inverse, vec, mask, orig):
+    """K7-sel from the JAX package: the staged transform along axis 0, x
+    the table, then the row select where(mask != 0, ., orig)."""
+    jf = jfields.FIELDS[field.name]
+    a, nb, lanes = y.shape
+    t = jntt(jnp.asarray(y.reshape(a, nb * lanes)), field=jf,
+             inverse=inverse, scale=False).reshape(a, nb, lanes)
+    t = jmul(jf, t, jnp.asarray(vec).reshape(a, nb, 1))
+    keep = jnp.asarray(mask).reshape(a, nb, 1) != 0
+    return np.asarray(jnp.where(keep, t, jnp.asarray(orig)))
+
+
+MASKS = ["none", "all", "half", "half_alias"]
+
+
+def sel_case(la, field, inverse, masks):
+    """K7-sel's operands at A = 2^la over [A, 3, 13]: the pass input, a
+    prepared table (GF16: 0x10000 at every 5th row, as inv(x l') can be
+    p - 1), a mask of kind ``masks`` and an original (the input itself
+    for "half_alias")."""
+    a = 1 << la
+    rng = np.random.default_rng(0x5E1 + 4 * la + 2 * field.use_mont
+                                + inverse)
+    shape = (a, COLS, LANES)
+    y = rng.integers(0, field.p, size=shape, dtype=np.uint64).astype(
+        np.uint32)
+    vec = rng.integers(0, field.p, size=a * COLS, dtype=np.uint64).astype(
+        np.uint32)
+    if not field.use_mont:
+        vec[::5] = 0x10000
+    orig = rng.integers(0, field.p, size=shape, dtype=np.uint64).astype(
+        np.uint32)
+    if masks == "none":
+        mask = np.zeros(a * COLS, np.uint32)
+    elif masks == "all":
+        # any value but 0 selects: ones and values whose low byte is 0
+        mask = np.where(rng.random(a * COLS) < 0.5, 1, 0x100).astype(
+            np.uint32)
+    else:
+        mask = (rng.random(a * COLS) < 0.5).astype(np.uint32)
+    if masks == "half_alias":
+        orig = y
+    return y, vec, mask, orig
+
+
+@pytest.mark.parametrize("masks", MASKS)
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+@pytest.mark.parametrize("la", range(1, 11))
+def test_sel_schedule_matches_reference(la, field, inverse, masks):
+    """K7-sel's schedule == the JAX package's staged transform, table
+    multiply and row select, bit for bit, at A = 2^la over [A, 3, 13]:
+    masks all 0 (every row the original), all set (every row multiplied;
+    values 1 and 0x100), about half set, and half set with the original
+    the pass's own input."""
+    y, vec, mask, orig = sel_case(la, field, inverse, masks)
+    got = sel_model(y, field, inverse, vec, mask, orig)
+    np.testing.assert_array_equal(
+        got, ref_sel(y, field, inverse, vec, mask, orig))
+    if masks == "none":
+        np.testing.assert_array_equal(got, orig)
