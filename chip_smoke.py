@@ -16,8 +16,9 @@ main path on the card and fails loudly on any fault. Phases:
                K3 and K7-sel at every A = 2 .. 1024 in both directions
                over 13 and 40 lanes (1088 at A >= 512), K7-sel with masks
                about half set and its original both a tensor of its own
-               and the pass's input, K1 (forward, inverse scaled and not),
-               K2 and K6 likewise on [A, 4, L]; K11 at k = 32, 2^10, 2^13
+               and the pass's input, K1, K4 and K5 (forward, inverse
+               scaled and not), K2 and K6 likewise on [A, 4, L]; K11 at k
+               = 32, 2^10, 2^13
                over 1088 and 13 lanes in both fields, K12 at those k over
                Wu = 8, 40, 1024 and on dense escapes (the escape counts
                printed); bit-exact
@@ -34,7 +35,8 @@ main path on the card and fails loudly on any fault. Phases:
                its K3 and K1 at the shapes the decode tables give them
                (held equal and timed beside this tree's, in turns); then
                a rate-1/4 encode (k = 2^18,
-               n = 2^20), the path that runs K4, checked the same way;
+               n = 2^20), the path that runs K4, checked the same way,
+               and the parent's K4 on its tensor;
   5. ntt     — the 2^20-point forward NTT over 512 lanes, first and last
                8 lanes checked against the plain staged transform; the
                parent's K1 on its tensor, as in phase 4;
@@ -58,9 +60,11 @@ main path on the card and fails loudly on any fault. Phases:
                checked against the codeword on all 512 lanes, and the
                merge=False form (K7) at the erased rows; median of 5
                timed calls; K3 timed on K7-sel's tensor beside it; where
-               build/parent holds an earlier checkout, its K6 and K7-sel
-               on the same tensors and at decode_blocks' 2^13 pair shapes
-               (held equal and timed beside this tree's, in turns);
+               build/parent holds an earlier checkout, its K5, K6 and
+               K7-sel on the same tensors and at decode_blocks' 2^13 pair
+               shapes, and its K5 at the all-device decode's 2^13 single
+               transforms (held equal and timed beside this tree's, in
+               turns);
   9. decode_small — BASELINE.json:10 as users meet it: the all-device
                decode at n = 2^13, e = 2^12, 1024 lanes; decode_blocks
                over exactly k of 2^13 4 KB blocks (data and parity mixed,
@@ -175,7 +179,8 @@ PEAKS = ("K13_copy", "K14_chain", "K15_fused_chain")
 SOURCE = {k: "fastecc_tpu_torch/csrc/" + (
     "microbench.cu" if k in PEAKS else "lanes.cu" if k in LANES
     else "row.cu" if k in ("K3_row", "K7_row_post_sel")
-    else "col.cu" if k in ("K1_col", "K2_seam", "K6_seam_vec")
+    else "col.cu" if k in ("K1_col", "K2_seam", "K4_col_pre", "K5_col_vec",
+                           "K6_seam_vec")
     else "ntt_mfa.cu")
     for k in REPLACES}
 
@@ -560,26 +565,37 @@ def phase_kernels(gen) -> dict:
         "2 .. 1024, forward and inverse, 13 and 40 lanes (1088 at A >= "
         "512), GF32 and GF16: == plain")
     # K1, K2 and K6 likewise (one instantiation per length, K1 per
-    # direction): [A, 4, L], two seed columns and two t0 rows
+    # direction): [A, 4, L], two seed columns and two t0 rows; K4 and K5
+    # on the same tensors, their tables from a generator of their own (K4
+    # at g of order 4A, so that GF16's pcol and prow hold 0x10000)
+    gen9 = torch.Generator(device="cuda").manual_seed(9)
     for field in (GF32, GF16):
         for la in range(1, 11):
             a = 1 << la
             g = field.root_of_order(8 * a)
+            g4 = field.root_of_order(4 * a)
             for lanes_ in (13, 40) + ((1088,) if a >= 512 else ()):
                 x = rand_field(field.p, (a, 4, lanes_), gen)
+                v5, _ = tables(field, a * 4, gen9)
                 for inv, scale in ((False, True), (True, True), (True, False)):
+                    what = (field.name, a, lanes_, inv, scale)
                     cmp("K1_col", m.col_pass(x, field, inv, scale),
-                        m.col_pass_plain(x, field, inv, scale),
-                        (field.name, a, lanes_, inv, scale))
+                        m.col_pass_plain(x, field, inv, scale), what)
+                    cmp("K4_col_pre", m.col_pass_pre(x, field, g4, inv, scale),
+                        m.col_pass_plain(x, field, inv, scale, pre_seed=g4),
+                        what)
+                    cmp("K5_col_vec", m.col_pass_vec(x, field, v5, inv, scale),
+                        m.col_pass_plain(x, field, inv, scale, pre_vec=v5),
+                        what)
                 cmp("K2_seam", m.seam_pass(x, field, g),
                     m.seam_pass_plain(x, field, g), (field.name, a, lanes_))
                 v, _ = tables(field, a * 4, gen8)
                 cmp("K6_seam_vec", m.seam_pass_vec(x, field, v),
                     m.seam_pass_plain(x, field, pre_vec2=v),
                     (field.name, a, lanes_))
-    say("[kernels] K1 (forward, inverse scaled and not), K2 and K6 at A = "
-        "2 .. 1024 on [A, 4, L], 13 and 40 lanes (1088 at A >= 512), GF32 "
-        "and GF16: == plain")
+    say("[kernels] K1, K4 and K5 (forward, inverse scaled and not), K2 and "
+        "K6 at A = 2 .. 1024 on [A, 4, L], 13 and 40 lanes (1088 at A >= "
+        "512), GF32 and GF16: == plain")
     # the wire16 phase's k = 2^13 (both block sizes), GF16's largest pair,
     # and small orders with Wu a multiple of 8 but not of the lane tile
     for k, wu in ((1 << 13, 16), (1 << 15, 16), (4, 8), (1 << 7, 40)):
@@ -680,8 +696,9 @@ def staged_encode_ref(x, field, n):
 
 
 def profile_once(fn, name: str) -> None:
-    """One call under torch.profiler: device time per kernel name and the
-    device's busy share of the call's wall time."""
+    """One call under torch.profiler: device time per kernel name (the six
+    largest, then the port's own kernels among the rest) and the device's
+    busy share of the call's wall time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -705,7 +722,9 @@ def profile_once(fn, name: str) -> None:
     busy = sum(r[0] for r in rows)
     say(f"[{name}] profiler: device busy {busy / 1e3:.3f} ms of "
         f"{wall_us / 1e3:.3f} ms wall ({100 * busy / wall_us:.1f}%)")
-    for dev_us, count, key in sorted(rows, reverse=True)[:6]:
+    rows.sort(reverse=True)
+    port = [r for r in rows[6:] if "(anonymous namespace)::" in r[2]]
+    for dev_us, count, key in rows[:6] + port:
         say(f"[{name}] profiler: {dev_us / 1e3:8.3f} ms x{count} {key}")
 
 
@@ -834,6 +853,7 @@ def phase_encode(gen, launches, times, shapes):
         lambda x: m.col_pass_plain(x, GF32, pre_seed=g4), x4, 128)
     say(f"[encode_r4] K4_col_pre {times['K4_col_pre']:.3f} ms on "
         f"{shapes['K4_col_pre']}, plain {times['plain_K4_col_pre']:.1f} ms")
+    parent_col_pre_ms(x4, g4)
     del data, x4
     torch.cuda.empty_cache()
 
@@ -843,8 +863,9 @@ def parent_library():
     """The kernel library of the earlier checkout of the package in
     build/parent (as ``sass_check.py --compare build/parent`` wants it),
     built there by its own ``_build``; None where there is none. The
-    argtypes are the parent commit's C signatures (K1, K2 and K3 with the
-    inner twiddles, K6 and K7-sel with the packed Stockham tables)."""
+    argtypes are the parent commit's C signatures (K1, K2, K3, K6 and
+    K7-sel with the inner twiddles, K4 and K5 with the packed Stockham
+    tables)."""
     import ctypes
     from pathlib import Path
     root = Path(__file__).resolve().parent / "build" / "parent"
@@ -859,12 +880,14 @@ def parent_library():
     lib.fecc_row.argtypes = [I, P, P, I, I, I, I, P, P]
     lib.fecc_col.argtypes = [I, P, P, I, I, I, I, P, P, P, I, P]
     lib.fecc_seam.argtypes = [I, P, P, I, I, I, P, P, P, P, I, P, P, P]
-    lib.fecc_seam_vec.argtypes = [I, P, P, I, I, I, P, P, P, P, P, P, I, P,
-                                  P]
-    lib.fecc_row_post_sel.argtypes = [I, P, P, I, I, I, P, P, P, P, P, P]
+    lib.fecc_seam_vec.argtypes = [I, P, P, I, I, I, P, P, P, P, I, P, P]
+    lib.fecc_row_post_sel.argtypes = [I, P, P, I, I, I, I, P, P, P, P, P]
+    lib.fecc_col_pre.argtypes = [I, P, P, I, I, I, P, P, P, P, I, P, P, P]
+    lib.fecc_col_vec.argtypes = [I, P, P, I, I, I, P, P, P, P, I, P, P]
     lib.fecc_copy.argtypes = [P, P, ctypes.c_longlong, P]
     for fn in (lib.fecc_row, lib.fecc_col, lib.fecc_seam, lib.fecc_seam_vec,
-               lib.fecc_row_post_sel, lib.fecc_copy):
+               lib.fecc_row_post_sel, lib.fecc_col_pre, lib.fecc_col_vec,
+               lib.fecc_copy):
         fn.restype = I
     return lib
 
@@ -962,31 +985,51 @@ def parent_seam(y1: torch.Tensor, g: int):
 
 
 def parent_seam_vec(y1: torch.Tensor, vec: torch.Tensor):
-    """The parent's K6 (a mode of its pass kernel, ``fecc_seam_vec``
-    with the packed Stockham tables) on [R1, C1, L]."""
+    """The parent's K6 (``fecc_seam_vec`` with the inner twiddles) on
+    [R1, C1, L]."""
     from fastecc_tpu_torch.fields import GF32
     from fastecc_tpu_torch.kernels import ntt_mfa as m
     r1 = y1.shape[0]
     dev = str(y1.device)
     out, tr, seed, t0 = parent_seam_tables(y1)
-    tw1, w31 = m._stage_tables_on(GF32.name, r1, True, dev)
-    tw2, w32 = m._stage_tables_on(GF32.name, r1, False, dev)
-    return parent_call("fecc_seam_vec", y1, out, tw1.data_ptr(),
-                       w31.data_ptr(), tw2.data_ptr(), w32.data_ptr(),
-                       seed.data_ptr(), t0.data_ptr(), tr, vec.data_ptr())
+    tw_inv = m._row_tw_on(GF32.name, r1, True, dev)
+    tw_fwd = m._row_tw_on(GF32.name, r1, False, dev)
+    return parent_call("fecc_seam_vec", y1, out, tw_inv.data_ptr(),
+                       tw_fwd.data_ptr(), seed.data_ptr(), t0.data_ptr(), tr,
+                       vec.data_ptr())
 
 
 def parent_row_post_sel(y: torch.Tensor, vec: torch.Tensor,
                         mask: torch.Tensor, orig: torch.Tensor):
-    """The parent's K7-sel (a mode of its pass kernel,
-    ``fecc_row_post_sel`` with the packed Stockham tables, forward) on
-    [R, C, L]."""
+    """The parent's K7-sel (``fecc_row_post_sel`` with the inner
+    twiddles, forward) on [R, C, L]."""
     from fastecc_tpu_torch.fields import GF32
     from fastecc_tpu_torch.kernels import ntt_mfa as m
-    tw, w3 = m._stage_tables_on(GF32.name, y.shape[0], False, str(y.device))
-    return parent_call("fecc_row_post_sel", y, torch.empty_like(y),
-                       tw.data_ptr(), w3.data_ptr(), vec.data_ptr(),
-                       mask.data_ptr(), orig.data_ptr())
+    tw = m._row_tw_on(GF32.name, y.shape[0], False, str(y.device))
+    return parent_call("fecc_row_post_sel", y, torch.empty_like(y), 0,
+                       tw.data_ptr(), vec.data_ptr(), mask.data_ptr(),
+                       orig.data_ptr())
+
+
+def parent_col_pre_vec(x3: torch.Tensor, inverse: bool, scale: bool = True,
+                       g: int | None = None, vec: torch.Tensor | None = None):
+    """The parent's K4 (``fecc_col_pre``, with ``g``) or K5
+    (``fecc_col_vec``, with ``vec``), modes of its pass kernel with the
+    packed Stockham tables, on [C, R, L]."""
+    from fastecc_tpu_torch.fields import GF32
+    from fastecc_tpu_torch.kernels import ntt_mfa as m
+    c, r, lanes = x3.shape
+    dev = str(x3.device)
+    tr = m._seed_tr(r)
+    tw, w3 = m._stage_tables_on(GF32.name, c, inverse, dev)
+    seed, t0 = m._seeds_on(GF32.name, c * r, c, inverse, scale, tr, dev)
+    out = torch.empty((r, c, lanes), dtype=torch.uint32, device=x3.device)
+    args = [tw.data_ptr(), w3.data_ptr(), seed.data_ptr(), t0.data_ptr(), tr]
+    if vec is not None:
+        return parent_call("fecc_col_vec", x3, out, *args, vec.data_ptr())
+    pcol, prow = m._pre_on(GF32.name, g % GF32.p, c, r, tr, dev)
+    return parent_call("fecc_col_pre", x3, out, *args, pcol.data_ptr(),
+                       prow.data_ptr())
 
 
 def table_shapes(split) -> list[tuple]:
@@ -1051,16 +1094,36 @@ def parent_seam_ms(col1: torch.Tensor, g: int) -> None:
         f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
 
 
-def parent_decode_ms(col1, col2, dx, ip, mask, orig) -> None:
-    """Where build/parent holds an earlier checkout, its K6 and K7-sel
-    against this tree's, in turns parent, this, this, parent, outputs held
-    equal: on the decode's own tensors (``event_ms``) and at
-    decode_blocks' 2^13 pair shapes over 1024 lanes (``queued_ms``, with
-    random tables and a mask about half set). Printed for the record."""
+def parent_col_pre_ms(x4: torch.Tensor, g: int) -> None:
+    """As :func:`parent_col_ms`, for K4 (forward) on the rate-1/4
+    encode's tensor."""
     from fastecc_tpu_torch.fields import GF32
     from fastecc_tpu_torch.kernels import ntt_mfa as m
     if parent_library() is None:
         return
+    t = turns(parent_col_pre_vec(x4, False, g=g),
+              lambda: m.col_pass_pre(x4, GF32, g), event_ms, "K4")
+    say(f"[encode_r4] K4 against the parent's fecc_col_pre on the same "
+        f"{tuple(x4.shape)} tensor, parent / this / this / parent: "
+        f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
+
+
+def parent_decode_ms(x3, lp, col1, col2, dx, ip, mask, orig) -> None:
+    """Where build/parent holds an earlier checkout, its K5, K6 and K7-sel
+    against this tree's, in turns parent, this, this, parent, outputs held
+    equal: on the decode's own tensors (``event_ms``), at decode_blocks'
+    2^13 pair shapes over 1024 lanes and K5 at the all-device decode's
+    2^13 single transforms, both directions (``queued_ms``, with random
+    tables and a mask about half set). Printed for the record."""
+    from fastecc_tpu_torch.fields import GF32
+    from fastecc_tpu_torch.kernels import ntt_mfa as m
+    if parent_library() is None:
+        return
+    t = turns(parent_col_pre_vec(x3, True, vec=lp), lambda: m.col_pass_vec(
+        x3, GF32, lp, inverse=True), event_ms, "K5")
+    say(f"[decode] K5 against the parent's fecc_col_vec on the same "
+        f"{tuple(x3.shape)} tensor, parent / this / this / parent: "
+        f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
     t = turns(parent_seam_vec(col1, dx), lambda: m.seam_pass_vec(
         col1, GF32, dx), event_ms, "K6")
     say(f"[decode] K6 against the parent's fecc_seam_vec on the same "
@@ -1094,6 +1157,26 @@ def parent_decode_ms(col1, col2, dx, ip, mask, orig) -> None:
         f"{tuple(y2.shape)}, queued, parent / this / this / parent: "
         f"{t[0] * 1e3:.2f} / {t[1] * 1e3:.2f} / {t[2] * 1e3:.2f} / "
         f"{t[3] * 1e3:.2f} us")
+    # K5 at the pair's A1 (the input of K6's shape above), then at the
+    # all-device decode's single transforms: inverse, then forward, on
+    # [C, R, L] = _split(2^13)
+    x5 = rand_field(GF32.p, (c1, n // c1, lanes), gen)
+    t = turns(parent_col_pre_vec(x5, True, vec=v), lambda: m.col_pass_vec(
+        x5, GF32, v, inverse=True), queued_ms, "K5")
+    say(f"[decode] K5 against the parent's fecc_col_vec on "
+        f"{tuple(x5.shape)} inverse, queued, parent / this / this / parent: "
+        f"{t[0] * 1e3:.2f} / {t[1] * 1e3:.2f} / {t[2] * 1e3:.2f} / "
+        f"{t[3] * 1e3:.2f} us")
+    c = m._split(n)
+    xs = rand_field(GF32.p, (c, n // c, lanes), gen)
+    for inv in (True, False):
+        t = turns(parent_col_pre_vec(xs, inv, vec=v),
+                  lambda: m.col_pass_vec(xs, GF32, v, inverse=inv),
+                  queued_ms, "K5")
+        say(f"[decode] K5 against the parent's fecc_col_vec on "
+            f"{tuple(xs.shape)}{' inverse' if inv else ' forward'}, queued, "
+            f"parent / this / this / parent: {t[0] * 1e3:.2f} / "
+            f"{t[1] * 1e3:.2f} / {t[2] * 1e3:.2f} / {t[3] * 1e3:.2f} us")
 
 
 def parent_col_tables_ms() -> None:
@@ -1415,7 +1498,7 @@ def phase_decode(gen, launches, times, shapes):
     say(f"[decode] K3 / K7-sel / K7-sel / K3 on the same "
         f"{tuple(col2.shape)} tensor: {t[0]:.4f} / {t[1]:.4f} / "
         f"{t[2]:.4f} / {t[3]:.4f} ms")
-    parent_decode_ms(col1, col2, dx, ip, mask, orig)
+    parent_decode_ms(x3, lp, col1, col2, dx, ip, mask, orig)
     del cw, bad, x3, orig, col1, col2, tabs, mask, lp, ip
     torch.cuda.empty_cache()
 

@@ -1,17 +1,13 @@
-// Fused four-step NTT passes for Hopper (sm_90a): kernels K4, K5, K7 and
-// K8-K10 of the port, with a plain C interface loaded through ctypes
+// Fused four-step NTT passes for Hopper (sm_90a): kernels K7 and K8-K10
+// of the port, with a plain C interface loaded through ctypes
 // (fastecc_tpu_torch/kernels/_build.py builds it; kernels/ntt_mfa.py
 // wraps it).
 //
-// Replaces these Pallas TPU kernels of fastecc_tpu/kernels/ntt_mfa.py:
-//   K4 fecc_col_pre  <- _col_kernel_pre  (pass A, K1, with the rank-1
-//                       x[m] *= g^m prologue)
-//   (K1 pass A, K2 the encode seam, K3 pass B, K6 the decode seam and
-//   K7-sel are kernels of their own on the register-stage engine
-//   regstages.cuh: col.cu, row.cu)
-// and the decode fusions, each with a general prepared [N] table v:
-//   K5 fecc_col_vec      <- _col_kernel_prevec  (K1 with x[m] *= v[m]:
-//                           the locator evaluations l(w^j))
+// (K1 and K4 pass A, K5 pass A with the decode's table multiply, K2 the
+// encode seam, K3 pass B, K6 the decode seam and K7-sel are kernels of
+// their own on the register-stage engine regstages.cuh: col.cu, row.cu.)
+// Replaces these Pallas TPU kernels of fastecc_tpu/kernels/ntt_mfa.py,
+// the decode fusion with a general prepared [N] table v:
 //   K7 fecc_row_post     <- _row_kernel_post    (K3, then out[k] *= v[k]:
 //                           the Forney inverse derivative)
 // and the GF16 wire pair, whose lanes are u32 pairs of little-endian u16
@@ -36,14 +32,14 @@
 // pass moves each element through device memory once in and once out,
 // whatever the number of stages.
 //
-// In every pass the element (a, b) of the [A, B] view is index a * B + b
-// of the natural-order [N] sequence the reference's table is laid over
-// (K5: m = c * R + r; K7: k = k_r * C + k_c), so a block loads its A
-// table words v[a * B + b] once into shared memory (`vec_row`) beside the
-// tile; the reference's reshape/transpose of the tables was a Mosaic
-// layout device, not ported. Table traffic is N words a pass against the
-// N * L of the data. Every table multiply is the full `mul_full`: a GF16
-// table can hold 0x10000 (l(w^j) or inv(x l') equal to p - 1).
+// In K7 the element (a, b) of the [A, B] view is index a * B + b of the
+// natural-order [N] sequence the reference's table is laid over (k =
+// k_r * C + k_c), so a block loads its A table words v[a * B + b] once
+// into shared memory (`vec_row`) beside the tile; the reference's
+// reshape/transpose of the tables was a Mosaic layout device, not
+// ported. Table traffic is N words a pass against the N * L of the data.
+// Every table multiply is the full `mul_full`: a GF16 table can hold
+// 0x10000 (inv(x l') equal to p - 1).
 //
 // What bounds it on the H100: at 2^29 elements (the decode's 2^20 rows x
 // 512 lanes, 2 GiB per pass each way) a pass's floor is its 4 GiB of
@@ -90,12 +86,11 @@ constexpr int kTileWords = 8192;  // A * TL words per buffer (32 KB)
 constexpr int kMaxLaneTile = 32;
 constexpr int kMaxLen = 1024;     // longest pass the splits give (2^20)
 
-// (0, 2, 3, 5 and 7 were the modes of K1, K2, K3, K6 and K7-sel, kernels
+// (0-5 and 7 were the modes of K1, K4, K2, K3, K5, K6 and K7-sel, kernels
 // of their own now in col.cu and row.cu. The numbers stay, so
 // sass_check.py keys the other instantiations as before.)
 enum Mode : int {
-  kColPre = 1,
-  kColVec = 4, kRowPost = 6,
+  kRowPost = 6,
   kColWire16 = 8, kSeamWire16 = 9, kRowWire16 = 10
 };
 
@@ -151,7 +146,7 @@ struct PassArgs {
 // mask and orig were K7-sel's and are unused until K7 leaves this kernel
 // too: removing them would move hi and bitmap, and with them K10's SASS.
 struct TableArgs {
-  const uint32_t* vec;   // [A * B] general table (K5, K7)
+  const uint32_t* vec;   // [A * B] general table (K7)
   const uint32_t* mask;  // unused
   const uint32_t* orig;  // unused
   const uint32_t* hi;    // [A, B, L] hi half; x holds lo (K10)
@@ -250,14 +245,10 @@ __global__ void __launch_bounds__(kThreads) pass_kernel(PassArgs p,
     row_wire16<F>(p, t, smem, b, l0);
     return;
   }
-  if (MODE == kColPre) rank1_row<F>(scratch, p, b);
-  if (MODE == kColVec) vec_row(scratch, t.vec, p.A, p.B, b);
-  if (MODE == kColPre || MODE == kColVec) __syncthreads();
   for (int e = threadIdx.x; e < tile; e += blockDim.x) {
     int l = e & tl_mask, a = e >> p.log_tl;
     uint32_t v = 0;
     if (l0 + l < p.L) v = x[((size_t)a * p.B + b) * p.L + l0 + l];
-    if (MODE == kColPre || MODE == kColVec) v = mul_full<F>(v, scratch[a]);
     if (MODE == kColWire16) v = half ? v >> 16 : v & 0xFFFFu;
     buf0[e] = v;
   }
@@ -361,35 +352,6 @@ PassArgs base_args(const void* x, void* out, int A, int B, int L) {
 }  // namespace
 
 extern "C" {
-
-// K4: K1 with x[a, b] *= pcol[a] * prow[b] before the stages.
-int fecc_col_pre(int field, const void* x, void* out, int A, int B, int L,
-                 const void* tw, const void* w3, const void* seed,
-                 const void* t0, int tr, const void* pcol, const void* prow,
-                 void* stream) {
-  PassArgs p = base_args(x, out, A, B, L);
-  p.tw1 = (const uint32_t*)tw;
-  p.w31 = (const uint32_t*)w3;
-  p.seed = (const uint32_t*)seed;
-  p.t0 = (const uint32_t*)t0;
-  p.log_tr = log2_exact(tr);
-  p.pcol = (const uint32_t*)pcol;
-  p.prow = (const uint32_t*)prow;
-  return run<kColPre>(field, p, stream);
-}
-
-// K5: K1 with x[a, b] *= vec[a * B + b] before the stages.
-int fecc_col_vec(int field, const void* x, void* out, int A, int B, int L,
-                 const void* tw, const void* w3, const void* seed,
-                 const void* t0, int tr, const void* vec, void* stream) {
-  PassArgs p = base_args(x, out, A, B, L);
-  p.tw1 = (const uint32_t*)tw;
-  p.w31 = (const uint32_t*)w3;
-  p.seed = (const uint32_t*)seed;
-  p.t0 = (const uint32_t*)t0;
-  p.log_tr = log2_exact(tr);
-  return run<kColVec>(field, p, stream, {(const uint32_t*)vec});
-}
 
 // K7: K3, then out[k, b] *= vec[k * B + b].
 int fecc_row_post(int field, const void* x, void* out, int A, int B, int L,

@@ -1,5 +1,5 @@
 // Register-resident NTT stages for Hopper: the engine of K3 and K7-sel
-// (row.cu) and of K1, K2 and K6 (col.cu). Three parts:
+// (row.cu) and of K1, K2, K4, K5 and K6 (col.cu). Three parts:
 //
 //   * a tile loader that puts a block's [A, TL] column tile of an [A, B, L]
 //     u32 view into shared memory with cp.async, every copy of the tile
@@ -272,6 +272,24 @@ __device__ __forceinline__ void reg_transform(uint32_t (&r)[S::A1],
   static_for<S::A1>([&](auto n1) {
     r[decltype(n1)::value] =
         tile[(decltype(n1)::value * S::A2 + t) * S::TL + l];
+  });
+  reg_transform_regs<F, INV, S>(r, tile, tw, t, l);
+}
+
+// reg_transform of the tile times a factor per row: step 1 reads element
+// a = n1 * A2 + t as tile[a] * pre[a] (K4's and K5's input multiply, on
+// the way from shared memory into the registers). pre is a shared [A]
+// row; GF16 factors and elements can be 0x10000, hence the full multiply.
+template <int F, bool INV, class S>
+__device__ __forceinline__ void reg_transform(uint32_t (&r)[S::A1],
+                                              uint32_t* tile,
+                                              const uint32_t* tw,
+                                              const uint32_t* pre, int t,
+                                              int l) {
+  static_for<S::A1>([&](auto n1) {
+    constexpr int a0 = decltype(n1)::value * S::A2;
+    r[decltype(n1)::value] =
+        mul_full<F>(tile[(a0 + t) * S::TL + l], pre[a0 + t]);
   });
   reg_transform_regs<F, INV, S>(r, tile, tw, t, l);
 }

@@ -38,11 +38,14 @@ SIGNATURES = {
     # col.cu: (field, x, out, A, B, L, inverse, inner twiddles, seed, t0,
     # tr, stream)
     "fecc_col": [_I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P],
+    # (... tr, pcol, prow, stream)
+    "fecc_col_pre": [_I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P,
+                     _P],
+    # (... tr, vec, stream)
+    "fecc_col_vec": [_I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P],
     # (field, x, out, A, B, L, tw_inv, tw_fwd, seed, t0, tr, pcol, prow,
     # stream)
     "fecc_seam": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P],
-    "fecc_col_pre": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P,
-                     _P],
     # row.cu: (field, x, out, A, B, L, inverse, inner twiddles, stream)
     "fecc_row": [_I, _P, _P, _I, _I, _I, _I, _P, _P],
     # (field, x, out, A, B, L, inverse, inner twiddles, vec, mask, orig,
@@ -52,7 +55,6 @@ SIGNATURES = {
     # stream)
     "fecc_seam_vec": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
     # ntt_mfa.cu
-    "fecc_col_vec": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
     "fecc_row_post": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "fecc_col_wire16": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
     "fecc_seam_wire16": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,

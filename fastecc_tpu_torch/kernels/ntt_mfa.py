@@ -42,9 +42,9 @@ the port's own gate) on every device; both routes give the same bits.
 
 Each kernel has a wrapper and a plain PyTorch version here. The wrapper
 takes the plain version only for a CPU tensor; on a CUDA tensor it
-launches its Hopper kernel (``csrc/col.cu``: K1, K2, K6; ``csrc/row.cu``:
-K3, K7-sel; ``csrc/ntt_mfa.cu``: K4, K5, K7, K8-K10; ``csrc/lanes.cu``:
-K11, K12) or raises, and
+launches its Hopper kernel (``csrc/col.cu``: K1, K2, K4, K5, K6;
+``csrc/row.cu``: K3, K7-sel; ``csrc/ntt_mfa.cu``: K7, K8-K10;
+``csrc/lanes.cu``: K11, K12) or raises, and
 counts the launch in :data:`LAUNCHES`.
 Split, lane tile and twiddle tables are the port's own; the output bits
 are the reference's.
@@ -403,27 +403,23 @@ def _launch_col(x3, field, inverse, scale, pre_seed=None, pre_vec=None):
     tr = _seed_tr(r)
     seed, t0 = _seeds_on(field.name, c * r, c, inverse, scale, tr, dev)
     out = torch.empty((r, c, lanes), dtype=torch.uint32, device=x3.device)
-    head = [_field_code(field), x3.data_ptr(), out.data_ptr(), c, r, lanes]
-    seeds = [seed.data_ptr(), t0.data_ptr(), tr]
+    tw = _row_tw_on(field.name, c, inverse, dev)
+    args = [_field_code(field), x3.data_ptr(), out.data_ptr(), c, r, lanes,
+            int(inverse), tw.data_ptr(), seed.data_ptr(), t0.data_ptr(), tr]
     with torch.cuda.device(x3.device):
-        if pre_vec is None and pre_seed is None:
-            tw = _row_tw_on(field.name, c, inverse, dev)
-            _build.call("fecc_col", *head, int(inverse), tw.data_ptr(),
-                        *seeds, _stream(x3))
-            LAUNCHES["K1_col"] += 1
-            return out
-        tw, w3 = _stage_tables_on(field.name, c, inverse, dev)
-        args = [*head, tw.data_ptr(), w3.data_ptr(), *seeds]
         if pre_vec is not None:
             vec = _cuda_operand(pre_vec, x3, c * r, "col_pass_vec: pre_vec")
             _build.call("fecc_col_vec", *args, vec, _stream(x3))
             LAUNCHES["K5_col_vec"] += 1
-        else:
+        elif pre_seed is not None:
             pcol, prow = _pre_on(field.name, pre_seed % field.p, c, r, tr,
                                  dev)
             _build.call("fecc_col_pre", *args, pcol.data_ptr(),
                         prow.data_ptr(), _stream(x3))
             LAUNCHES["K4_col_pre"] += 1
+        else:
+            _build.call("fecc_col", *args, _stream(x3))
+            LAUNCHES["K1_col"] += 1
     return out
 
 
@@ -439,7 +435,8 @@ def col_pass(x3: torch.Tensor, field: FieldSpec, inverse: bool = False,
 def col_pass_pre(x3: torch.Tensor, field: FieldSpec, pre_seed: int,
                  inverse: bool = False, scale: bool = True) -> torch.Tensor:
     """K4 (pass A with x[m] *= pre_seed^m, m = r + R*c): [C, R, L] ->
-    [R, C, L]."""
+    [R, C, L] (``csrc/col.cu``: K1's kernel with the rank-1 row
+    pcol[c] * prow[r] applied as the tile enters the registers)."""
     if not _dispatch(x3, "col_pass_pre"):
         return col_pass_plain(x3, field, inverse, scale, pre_seed)
     return _launch_col(x3, field, inverse, scale, pre_seed=pre_seed)
@@ -448,7 +445,9 @@ def col_pass_pre(x3: torch.Tensor, field: FieldSpec, pre_seed: int,
 def col_pass_vec(x3: torch.Tensor, field: FieldSpec, pre_vec: torch.Tensor,
                  inverse: bool = False, scale: bool = True) -> torch.Tensor:
     """K5 (pass A with x[m] *= pre_vec[m], m = c*R + r, a prepared [N]
-    u32 table): [C, R, L] -> [R, C, L]."""
+    u32 table): [C, R, L] -> [R, C, L] (``csrc/col.cu``: K1's kernel with
+    the table's column copied in beside the tile and applied as the tile
+    enters the registers)."""
     if not _dispatch(x3, "col_pass_vec"):
         return col_pass_plain(x3, field, inverse, scale, pre_vec=pre_vec)
     return _launch_col(x3, field, inverse, scale, pre_vec=pre_vec)

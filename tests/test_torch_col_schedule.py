@@ -1,12 +1,15 @@
-"""K1's, K2's and K6's schedules against the reference, on the CPU.
+"""K1's, K2's, K4's, K5's and K6's schedules against the reference, on
+the CPU.
 
-Pass A (K1), the encode seam (K2) and the decode seam (K6) are one kernel
+Pass A (K1), pass A with an input multiply (K4: the rank-1 g^m; K5: a
+table row), the encode seam (K2) and the decode seam (K6) are one kernel
 template in ``fastecc_tpu_torch/csrc/col.cu`` on ``csrc/regstages.cuh``;
 it cannot run here, so this file models its exact schedule in numpy: the
 [A, TL] tile in a flat shared-memory buffer per block, the per-row factors
-the block computes from the four-step seeds (and, for K2, the rank-1 row
-pcol[k] * prow[b]; for K6, the table's column v[k * B + b] copied in
-with the tile), the A1-point in-register DIF with its
+the block computes from the four-step seeds (and, for K2 and K4, the
+rank-1 row pcol[k] * prow[b]; for K5 and K6, the table's column
+v[k * B + b] copied in with the tile), K4's and K5's multiply as step 1
+reads the tile, the A1-point in-register DIF with its
 compile-time constants, the inner twiddles from ``_row_inner_twiddles``
 staged into padded rows, the exchange, the A2-point DIFs, the seam's
 register-resident hand-off into its second transform and the transposed
@@ -14,12 +17,13 @@ store from registers, with the same index maps and butterfly order.
 
 The model is held bit for bit against the JAX package's staged transform
 plus its four-step twiddle tables at every A = 2 .. 1024 in both fields
-(K1 forward, scaled inverse and unscaled inverse; K2; K6 with GF16
-tables holding 0x10000), on ragged lanes, and chained with K3's and
-K7-sel's model (``tests/test_torch_row_schedule.py``) against the Pallas
-passes in interpret mode: the encode pair after the port's K1 model, the
-decode pair after the port's plain K5. The kernel itself is held against
-the plain versions on the card (``tests/test_torch_cuda.py``,
+(K1, K4 and K5 forward, scaled inverse and unscaled inverse, K4 and K5 on
+the input pre-multiplied in JAX; K2; K5 and K6 with GF16 tables holding
+0x10000), on ragged lanes, and chained with K3's and K7-sel's model
+(``tests/test_torch_row_schedule.py``) against the Pallas passes in
+interpret mode: the single transform after K1's and K4's model, the
+encode pair after K1's, the decode pair after K5's. The kernel itself is
+held against the plain versions on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).
 """
 
@@ -33,7 +37,6 @@ from fastecc_tpu.kernels import ntt_mfa as jmfa
 from fastecc_tpu.ntt import mul_prepared as jmul
 from fastecc_tpu.ntt import ntt_jit as jntt
 from fastecc_tpu_torch import fields
-from fastecc_tpu_torch.interop import from_numpy_u32, to_numpy_u32
 from fastecc_tpu_torch.kernels import ntt_mfa as m
 
 from test_torch_row_schedule import Arith, bitrev, dif_regs, sel_model
@@ -55,26 +58,32 @@ def geometry(a):
                 tw_words=a2 * (a1 + 1))
 
 
-def smem_words(a, seam):
-    """col.cu smem_words: exchange, inner tables, T's row, the mid row."""
+def smem_words(a, seam, row=None):
+    """col.cu smem_words: exchange, inner tables (two in a seam), T's
+    row, the second factor row (the seam's middle, K4's and K5's
+    input)."""
     g = geometry(a)
-    k = 2 if seam else 1
-    return g["exch"] + k * g["tw_words"] + k * a
+    row = seam if row is None else row
+    return (g["exch"] + (2 if seam else 1) * g["tw_words"]
+            + (2 if row else 1) * a)
 
 
 def col_model(x, field, inverse=False, scale=True, seam_g=None,
-              seam_vec=None):
+              seam_vec=None, pre_g=None, pre_vec=None):
     """col.cu's col_kernel on x [A, B, L] -> [B, A, L]: every block
     (column b, lane tile) and every thread (t, l) at once, with the
     kernel's shared-memory index maps. ``seam_g``: K2 with the coset
     powers of seam_g (first transform inverse, second forward);
     ``seam_vec``: K6, the same with the middle factors v[k * B + b] of a
-    prepared [A * B] table."""
+    prepared [A * B] table. ``pre_g``: K4, K1 after x[k, b] *= pre_g^(b +
+    B k) from the rank-1 tables; ``pre_vec``: K5, K1 after x[k, b] *=
+    v[k * B + b]."""
     a, nb, lanes = x.shape
     g = geometry(a)
     a1, a2, tl = g["a1"], g["a2"], g["tl"]
     row_words, exch, kt = g["row_words"], g["exch"], g["tw_words"]
     seam = seam_g is not None or seam_vec is not None
+    pre = pre_g is not None or pre_vec is not None
     tr = m._seed_tr(nb)
     f = Arith(field)
     inv1 = True if seam else inverse
@@ -109,7 +118,7 @@ def col_model(x, field, inverse=False, scale=True, seam_g=None,
         return r
 
     for l0 in range(0, lanes, tl):
-        smem = np.zeros((nb, smem_words(a, seam)), np.uint64)
+        smem = np.zeros((nb, smem_words(a, seam, seam or pre)), np.uint64)
         # the copies: tile[a * TL + l], lanes past L zero-filled; the
         # inner tables into rows of A1 + 1 words
         cols = np.arange(l0, l0 + tl)
@@ -127,17 +136,21 @@ def col_model(x, field, inverse=False, scale=True, seam_g=None,
         if seam:
             smem[:, tw_off[1] + e // a1 * (a1 + 1) + e % a1] = \
                 m._row_inner_twiddles(field.name, a, False).reshape(-1)
-        if seam_vec is not None:
+        vec = seam_vec if seam_vec is not None else pre_vec
+        rank1 = seam_g if seam_g is not None else pre_g
+        if vec is not None:
             # block b's copies: mid[k] = v[k * B + b]
-            smem[:, mid_off:mid_off + a] = seam_vec.astype(np.uint64)[
-                k * nb + b]
-        elif seam:
-            pcol, prow = m._pre_mul_tables(field.name, seam_g % field.p, a,
+            smem[:, mid_off:mid_off + a] = vec.astype(np.uint64)[k * nb + b]
+        elif rank1 is not None:
+            pcol, prow = m._pre_mul_tables(field.name, rank1 % field.p, a,
                                            nb, tr)
             smem[:, mid_off:mid_off + a] = f.mul(
                 pcol.astype(np.uint64)[None, :], prow.reshape(-1)[:, None])
-        # step 1 of the first transform: column n2 = t at stride A2
+        # step 1 of the first transform: column n2 = t at stride A2; K4
+        # and K5 multiply each element by its row's factor on the way in
         r = [sm((n1 * a2 + t) * tl + l) for n1 in range(a1)]
+        if pre:
+            r = [f.mul(r[n1], sm(mid_off + n1 * a2 + t)) for n1 in range(a1)]
         r = transform_regs(r, tw_off[0], inv1)
         if seam:
             # the hand-off: n1 = j + (A1 / A2) k2 is in r[j A2 + bitrev(k2)]
@@ -173,13 +186,26 @@ def j_stages(y, jf, inverse):
                 scale=False).reshape(a, nb, lanes)
 
 
-def ref_col(x, field, inverse, scale):
-    """Pass A from the JAX package: staged transform, twiddle, transpose."""
+def ref_col(x, field, inverse, scale, pre=None):
+    """Pass A from the JAX package: (x pre[k, b] if given, a [A, B] jnp
+    array of prepared factors,) staged transform, twiddle, transpose."""
     jf = jfields.FIELDS[field.name]
     a, nb, _ = x.shape
-    y = j_twiddle(j_stages(jnp.asarray(x), jf, inverse), jf, a * nb, a,
-                  inverse, scale)
+    x = jnp.asarray(x)
+    if pre is not None:
+        x = jmul(jf, x, pre[:, :, None])
+    y = j_twiddle(j_stages(x, jf, inverse), jf, a * nb, a, inverse, scale)
     return np.asarray(jnp.transpose(y, (1, 0, 2)))
+
+
+def j_rank1(field, g, a, nb):
+    """The JAX package's rank-1 g^(b + B k) over [A, B] (its pre tables
+    at the port's seed width)."""
+    jf = jfields.FIELDS[field.name]
+    pcol, prow = jmfa._pre_mul_tables(jf.name, g % field.p, a, nb,
+                                      m._seed_tr(nb))
+    return jmul(jf, jnp.asarray(pcol)[:, None],
+                jnp.asarray(prow).reshape(1, -1))
 
 
 def ref_seam(x, field, g):
@@ -187,10 +213,7 @@ def ref_seam(x, field, g):
     stages, twiddle, transpose (C2 = R1 = A, R2 = C1 = B)."""
     jf = jfields.FIELDS[field.name]
     a, nb, _ = x.shape
-    tr = m._seed_tr(nb)
-    pcol, prow = jmfa._pre_mul_tables(jf.name, g % field.p, a, nb, tr)
-    pre = jmul(jf, jnp.asarray(pcol)[:, None],
-               jnp.asarray(prow).reshape(1, -1))
+    pre = j_rank1(field, g, a, nb)
     y = jmul(jf, j_stages(jnp.asarray(x), jf, True), pre[:, :, None])
     y = j_twiddle(j_stages(y, jf, False), jf, a * nb, a, False, False)
     return np.asarray(jnp.transpose(y, (1, 0, 2)))
@@ -263,6 +286,42 @@ def test_col_schedule_matches_reference(la, field, mode):
                                   ref_col(x, field, inverse, scale))
 
 
+@pytest.mark.parametrize("mode", ["fwd", "inv_scaled", "inv"])
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+@pytest.mark.parametrize("la", range(1, 11))
+def test_col_pre_schedule_matches_reference(la, field, mode):
+    """K4's schedule (K1's with the rank-1 row at step 1's loads) == the
+    JAX package's staged transform of x g^m (its own pre tables), x its
+    four-step twiddle, transposed, bit for bit, at A = 2^la over
+    [A, 4, 13]; g of order 4A, so GF16's tables hold 0x10000."""
+    a = 1 << la
+    inverse, scale = mode != "fwd", mode == "inv_scaled"
+    x = rand_input(field, (a, COLS, LANES),
+                   0xC04 + 8 * la + 2 * field.use_mont + inverse + 4 * scale)
+    g = field.root_of_order(a * COLS)
+    np.testing.assert_array_equal(
+        col_model(x, field, inverse, scale, pre_g=g),
+        ref_col(x, field, inverse, scale, j_rank1(field, g, a, COLS)))
+
+
+@pytest.mark.parametrize("mode", ["fwd", "inv_scaled", "inv"])
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+@pytest.mark.parametrize("la", range(1, 11))
+def test_col_vec_schedule_matches_reference(la, field, mode):
+    """K5's schedule (K1's with the table's column copied in beside the
+    tile and applied at step 1's loads) == the JAX package's staged
+    transform of x v[k * B + b], x its four-step twiddle, transposed, bit
+    for bit, at A = 2^la over [A, 4, 13]; GF16 tables hold 0x10000."""
+    a = 1 << la
+    inverse, scale = mode != "fwd", mode == "inv_scaled"
+    x = rand_input(field, (a, COLS, LANES),
+                   0xC05 + 8 * la + 2 * field.use_mont + inverse + 4 * scale)
+    vec = rand_table(field, a * COLS, 0x7A5 + 4 * la + inverse + 2 * scale)
+    np.testing.assert_array_equal(
+        col_model(x, field, inverse, scale, pre_vec=vec),
+        ref_col(x, field, inverse, scale, jnp.asarray(vec).reshape(a, COLS)))
+
+
 @pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
 @pytest.mark.parametrize("la", range(1, 11))
 def test_seam_schedule_matches_reference(la, field):
@@ -294,8 +353,8 @@ def test_seam_vec_schedule_matches_reference(la, field):
 @pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
 @pytest.mark.parametrize("n", [1 << 7, 1 << 10])
 def test_chained_decode_models_match_pallas_interpret(field, n):
-    """The decode pair as the port chains it, the port's plain K5 ->
-    K6's model -> K7-sel's model (the original the pass-A input, as in
+    """The decode pair as the port chains it, K5's model -> K6's model ->
+    K7-sel's model (the original the pass-A input, as in
     decode_prepared), == ntt_pair_pallas with the same tables and merge
     in interpret mode, over 128 lanes; about half the rows erased."""
     lanes = 128
@@ -304,9 +363,7 @@ def test_chained_decode_models_match_pallas_interpret(field, n):
     mask = (np.random.default_rng(n).random(n) < 0.5).astype(np.uint32)
     c1 = m._pair_split(n)
     x3 = x.reshape(c1, n // c1, lanes)
-    col1 = to_numpy_u32(m.col_pass_plain(
-        from_numpy_u32(x3, "cpu"), field, inverse=True, scale=True,
-        pre_vec=from_numpy_u32(v1, "cpu")))
+    col1 = col_model(x3, field, True, True, pre_vec=v1)
     col2 = col_model(col1, field, seam_vec=v2)
     got = sel_model(col2, field, False, v3, mask, x3)
     rf = jfields.FIELDS[field.name]
@@ -342,4 +399,21 @@ def test_chained_models_match_pallas_interpret(field, n):
     got = row_model(col2.reshape(c1, (n // c1) * lanes), field, False)
     want = np.asarray(jmfa.ntt_coset_pair_pallas(jx, rf, g, interpret=True,
                                                  tile=(8, 128)))
+    np.testing.assert_array_equal(got.reshape(n, lanes), want)
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_chained_pre_models_match_pallas_interpret(field):
+    """K4's model -> K3's model, as ntt_fused chains them for a coset
+    transform (x[m] *= g^m fused into pass A), == ntt_pallas(pre_seed=g)
+    in interpret mode at n = 2^10 over 128 lanes."""
+    n, lanes = 1 << 10, 128
+    x = rand_input(field, (n, lanes), 0xC4B + field.use_mont)
+    g = field.root_of_order(4 * n)
+    c = m._split(n)
+    col = col_model(x.reshape(c, n // c, lanes), field, pre_g=g)
+    got = row_model(col.reshape(n // c, c * lanes), field, False)
+    want = np.asarray(jmfa.ntt_pallas(jnp.asarray(x),
+                                      jfields.FIELDS[field.name],
+                                      pre_seed=g, interpret=True))
     np.testing.assert_array_equal(got.reshape(n, lanes), want)

@@ -151,6 +151,35 @@ def test_seam_vec_kernel_every_length_on_card(field, cuda_device):
 
 @pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
 @pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_col_pre_vec_kernels_every_length_on_card(field, inverse,
+                                                  cuda_device):
+    """K4 and K5 (col.cu, K1's kernel with the rank-1 row or the table's
+    column at step 1's loads; one instantiation per length and direction)
+    vs their plain versions at every A = 2 .. 1024 on [A, 4, L], over 13
+    and 40 lanes and, at A >= 512, 1088 (the last lane tile), the inverse
+    scaled and not; K4's g of order 4A and K5's random tables put
+    0x10000 into GF16's factors."""
+    rng = np.random.default_rng(0xC45 + 2 * field.use_mont + inverse)
+    for la in range(1, 11):
+        a = 1 << la
+        g = field.root_of_order(4 * a)
+        v = from_numpy_u32(rand_table(field, a * 4, rng), cuda_device)
+        for lanes in (13, 40) + ((1088,) if a >= 512 else ()):
+            x = from_numpy_u32(rand_field(field, (a, 4, lanes), rng),
+                               cuda_device)
+            for scale in (True, False) if inverse else (True,):
+                assert torch.equal(
+                    m.col_pass_pre(x, field, g, inverse, scale),
+                    m.col_pass_plain(x, field, inverse, scale,
+                                     pre_seed=g)), (a, lanes, scale)
+                assert torch.equal(
+                    m.col_pass_vec(x, field, v, inverse, scale),
+                    m.col_pass_plain(x, field, inverse, scale,
+                                     pre_vec=v)), (a, lanes, scale)
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
 def test_row_post_sel_kernel_every_length_on_card(field, inverse,
                                                   cuda_device):
     """K7-sel (row.cu, K3's kernel with the select in its store) vs its
