@@ -101,16 +101,21 @@ main path on the card and fails loudly on any fault. Phases:
                bit-exact: K13 (the copy) at ragged sizes (around a
                block's span) and unaligned, K14
                (the chains) for every variant at depth 3 and at its default
-               depth on four 512-row tiles, K15 (the fused chains) on the
-               three fused configs at one and two row tiles, depth 2; then
+               depth on four 512-row tiles, and the Solinas family on the
+               edge operands of microbench.solinas_edge_pairs at depths 1,
+               3 and 128, K15 (the fused chains) on the three fused configs
+               at one and two row tiles and at every c = 2 .. 2048 in both
+               fields over 13 and 40 lanes, depths 0-3; then
                microbench.measure_peaks() at the reference's full sizes (a
                1024 MiB copy, 64 MiB chains, 64 row tiles), printed as one
                JSON line; then each kernel again at those sizes against
                its plain version (the 256 MiB and 1 GiB copies, every
                variant on 64 MiB at its default depth, every fused config
                on 64 row tiles), timed there, with torch's copy_ as K13's
-               library time (and the parent's K13 beside this one, where
-               build/parent holds it); and profiling.encode_roofline(2^20, 1024)
+               library time (and, where build/parent holds an earlier
+               checkout, its K13, its K14 solinas, generic, raw-mul and
+               raw-add chains and its K15 at depths 2 and 4 beside this
+               tree's, in turns); and profiling.encode_roofline(2^20, 1024)
                under the published and the measured peaks beside phase
                encode's time.
 
@@ -863,9 +868,8 @@ def parent_library():
     """The kernel library of the earlier checkout of the package in
     build/parent (as ``sass_check.py --compare build/parent`` wants it),
     built there by its own ``_build``; None where there is none. The
-    argtypes are the parent commit's C signatures (K1, K2, K3, K6 and
-    K7-sel with the inner twiddles, K4 and K5 with the packed Stockham
-    tables)."""
+    argtypes are the parent commit's C signatures (K1-K7-sel with the
+    inner twiddles, K15 with the packed Stockham tables)."""
     import ctypes
     from pathlib import Path
     root = Path(__file__).resolve().parent / "build" / "parent"
@@ -882,12 +886,14 @@ def parent_library():
     lib.fecc_seam.argtypes = [I, P, P, I, I, I, P, P, P, P, I, P, P, P]
     lib.fecc_seam_vec.argtypes = [I, P, P, I, I, I, P, P, P, P, I, P, P]
     lib.fecc_row_post_sel.argtypes = [I, P, P, I, I, I, I, P, P, P, P, P]
-    lib.fecc_col_pre.argtypes = [I, P, P, I, I, I, P, P, P, P, I, P, P, P]
-    lib.fecc_col_vec.argtypes = [I, P, P, I, I, I, P, P, P, P, I, P, P]
+    lib.fecc_col_pre.argtypes = [I, P, P, I, I, I, I, P, P, P, I, P, P, P]
+    lib.fecc_col_vec.argtypes = [I, P, P, I, I, I, I, P, P, P, I, P, P]
     lib.fecc_copy.argtypes = [P, P, ctypes.c_longlong, P]
+    lib.fecc_chain.argtypes = [I, P, P, P, I, I, P]
+    lib.fecc_fused_chain.argtypes = [I, P, P, I, I, P, P, I, P]
     for fn in (lib.fecc_row, lib.fecc_col, lib.fecc_seam, lib.fecc_seam_vec,
                lib.fecc_row_post_sel, lib.fecc_col_pre, lib.fecc_col_vec,
-               lib.fecc_copy):
+               lib.fecc_copy, lib.fecc_chain, lib.fecc_fused_chain):
         fn.restype = I
     return lib
 
@@ -1014,17 +1020,17 @@ def parent_row_post_sel(y: torch.Tensor, vec: torch.Tensor,
 def parent_col_pre_vec(x3: torch.Tensor, inverse: bool, scale: bool = True,
                        g: int | None = None, vec: torch.Tensor | None = None):
     """The parent's K4 (``fecc_col_pre``, with ``g``) or K5
-    (``fecc_col_vec``, with ``vec``), modes of its pass kernel with the
-    packed Stockham tables, on [C, R, L]."""
+    (``fecc_col_vec``, with ``vec``), with the inner twiddles, on
+    [C, R, L]."""
     from fastecc_tpu_torch.fields import GF32
     from fastecc_tpu_torch.kernels import ntt_mfa as m
     c, r, lanes = x3.shape
     dev = str(x3.device)
     tr = m._seed_tr(r)
-    tw, w3 = m._stage_tables_on(GF32.name, c, inverse, dev)
+    tw = m._row_tw_on(GF32.name, c, inverse, dev)
     seed, t0 = m._seeds_on(GF32.name, c * r, c, inverse, scale, tr, dev)
     out = torch.empty((r, c, lanes), dtype=torch.uint32, device=x3.device)
-    args = [tw.data_ptr(), w3.data_ptr(), seed.data_ptr(), t0.data_ptr(), tr]
+    args = [int(inverse), tw.data_ptr(), seed.data_ptr(), t0.data_ptr(), tr]
     if vec is not None:
         return parent_call("fecc_col_vec", x3, out, *args, vec.data_ptr())
     pcol, prow = m._pre_on(GF32.name, g % GF32.p, c, r, tr, dev)
@@ -1237,6 +1243,65 @@ def parent_copy_ms(src: torch.Tensor, dst: torch.Tensor) -> None:
     say(f"[peaks] {src.numel() * 4 >> 20} MiB copy, K13 kernels into one "
         f"output, parent / this / this / parent: {t[0]:.4f} / {t[1]:.4f} / "
         f"{t[2]:.4f} / {t[3]:.4f} ms")
+
+
+def parent_peaks_ms(x: torch.Tensor, z: torch.Tensor,
+                    xf: torch.Tensor) -> None:
+    """Where build/parent holds an earlier checkout, its K14 (the solinas,
+    generic, raw-mul and raw-add chains at depth 128 on [rows, 128] x, z)
+    and K15 (GF32 on xf [c, rows, 128] at depths 2 and 4) against this
+    tree's, both called straight through their libraries into one output
+    each, held equal, in turns parent, this, this, parent (``event_ms``);
+    printed for the record."""
+    from fastecc_tpu_torch.fields import GF32
+    from fastecc_tpu_torch.kernels import _build
+    from fastecc_tpu_torch.kernels import microbench as mb
+    from fastecc_tpu_torch.kernels import ntt_mfa as m
+    lib = parent_library()
+    if lib is None:
+        return
+    stream = torch.cuda.current_stream().cuda_stream
+    out, out_p = torch.empty_like(x), torch.empty_like(x)
+    for v in ("solinas", "generic", "raw-mul", "raw-add"):
+        code = mb._VARIANT_CODE[v]
+
+        def parent():
+            rc = lib.fecc_chain(code, x.data_ptr(), z.data_ptr(),
+                                out_p.data_ptr(), x.shape[0], 128, stream)
+            check(rc == 0, f"parent fecc_chain returned {rc}")
+            return out_p
+
+        def this():
+            _build.call("fecc_chain", code, x.data_ptr(), z.data_ptr(),
+                        out.data_ptr(), x.shape[0], 128, stream)
+            return out
+        t = turns(parent, this, event_ms, f"K14 {v}")
+        say(f"[peaks] K14 {v} [{x.shape[0]}, 128] depth 128, parent / this "
+            f"/ this / parent: {t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / "
+            f"{t[3]:.4f} ms")
+    del out, out_p
+    c, lanes = xf.shape[0], xf.numel() // xf.shape[0]
+    dev = str(xf.device)
+    tw, w3 = m._stage_tables_on(GF32.name, c, False, dev)
+    inner = m._row_tw_on(GF32.name, c, False, dev)
+    out, out_p = torch.empty_like(xf), torch.empty_like(xf)
+    for depth in (2, 4):
+        def parent():
+            rc = lib.fecc_fused_chain(0, xf.data_ptr(), out_p.data_ptr(), c,
+                                      lanes, tw.data_ptr(), w3.data_ptr(),
+                                      depth, stream)
+            check(rc == 0, f"parent fecc_fused_chain returned {rc}")
+            return out_p
+
+        def this():
+            _build.call("fecc_fused_chain", 0, xf.data_ptr(),
+                        out.data_ptr(), c, lanes, inner.data_ptr(), depth,
+                        stream)
+            return out
+        t = turns(parent, this, event_ms, f"K15 depth {depth}")
+        say(f"[peaks] K15 GF32 {list(xf.shape)} depth {depth}, parent / "
+            f"this / this / parent: {t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / "
+            f"{t[3]:.4f} ms")
 
 
 def phase_ntt(gen, launches, times):
@@ -1970,24 +2035,44 @@ def phase_peaks(gen, launches, times, shapes, worst):
         cmp("K13_copy", mb.copy(words[1:n + 1]), words[1:n + 1].clone(),
             ("unaligned", n))
     cmp("K13_copy", mb.copy(words[1:]), words[1:].clone(), "unaligned")
-    # K14, every variant, at depth 3 and at its default depth
+    # K14, every variant, at depth 3 and at its default depth; the Solinas
+    # family also on the edge operands (mb.solinas_edge_pairs)
     x, z = mb.chain_inputs(4 * mb._TS, "cuda")
     for v in mb._VARIANTS:
         deep = mb._COMPOSITE_DEPTH if v in mb._COMPOSITE else mb._DEFAULT_DEPTH
         for depth in (3, deep):
             cmp("K14_chain", mb.chain(x, z, v, depth),
                 mb.chain_plain(x, z, v, depth), (v, depth))
-    # K15 on the three fused configs
+    ex, ez = mb.solinas_edge_inputs("cuda")
+    for v in ("solinas", "solinas-bcast", "solinas-masksel"):
+        for depth in (1, 3, mb._DEFAULT_DEPTH):
+            cmp("K14_chain", mb.chain(ex, ez, v, depth),
+                mb.chain_plain(ex, ez, v, depth), (v, "edge", depth))
+    # K15 on the three fused configs, and at every c in both fields over
+    # 13 and 40 lanes (zero-filled past L), at depths 0-3
     for key, cfg in mb._FUSED_CONFIGS.items():
         field = FIELDS[cfg["field_name"]]
         for rows_tiles in (1, 2):
             xf = mb.fused_inputs(field, cfg["c"], rows_tiles, "cuda")
-            cmp("K15_fused_chain", mb.fused_chain(xf, field, 2),
-                mb.fused_chain_plain(xf, field, 2), (key, rows_tiles))
+            for depth in range(4):
+                cmp("K15_fused_chain", mb.fused_chain(xf, field, depth),
+                    mb.fused_chain_plain(xf, field, depth),
+                    (key, rows_tiles, depth))
+    g15 = torch.Generator(device="cuda").manual_seed(0xF15)
+    for field in FIELDS.values():
+        for la in range(1, 12):
+            for lanes in (13, 40):
+                y = rand_field(field.p, (1 << la, lanes), g15)
+                for depth in range(4):
+                    cmp("K15_fused_chain", mb.fused_chain(y, field, depth),
+                        mb.fused_chain_plain(y, field, depth),
+                        (field.name, 1 << la, lanes, depth))
     say(f"[peaks] K13 (ragged, unaligned), K14 ({len(mb._VARIANTS)} "
-        f"variants at depth 3 and their default), K15 (3 configs, 1-2 row "
-        f"tiles, depth 2) == plain")
-    del words, x, z, xf
+        f"variants at depth 3 and their default; the Solinas family on "
+        f"{len(mb.solinas_edge_pairs()[0])} edge pairs at depths 1, 3, "
+        f"128), K15 (3 configs, 1-2 row tiles; every c = 2 .. 2048 in both "
+        f"fields over 13 and 40 lanes; depths 0-3) == plain")
+    del words, x, z, ex, ez, xf, y
 
     # the main path: the reference's measure_peaks at its full sizes
     peaks = run_path("peaks", mb.measure_peaks, launches, PEAKS)
@@ -2032,7 +2117,9 @@ def phase_peaks(gen, launches, times, shapes, worst):
     times["plain_K14_chain"] = event_ms(
         lambda: mb.chain_plain(x, z, "solinas", 128), reps=1)
     shapes["K14_chain"] = (rows, mb._TL, 128)
-    del x, z
+    xf = mb.fused_inputs(GF32, 2048, 64, "cuda")
+    parent_peaks_ms(x, z, xf)
+    del x, z, xf
     # K15: every fused config at 64 row tiles and depth 2, against the
     # plain chain over 32-lane slices; the row is fused_gf32_c2048
     for key, cfg in mb._FUSED_CONFIGS.items():

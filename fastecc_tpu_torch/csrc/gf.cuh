@@ -64,26 +64,54 @@ template <> __device__ __forceinline__ uint32_t mul_tw<kGF32>(uint32_t a, uint32
 }
 
 // The Solinas REDC for p = 0xFFF00001 = 2^32 - 2^20 + 1, the counterpart of
-// fastecc_tpu/gf.py mont_mul's default branch: only the two words of a * b
-// are multiplies. With n' = p - 2, m = lo * n' = -(lo + (lo << 20)) and
-// (m * p) >> 32 = m - (m >> 12) - [m < (m & 0xFFF) << 20]. The quotient
-// u = hi + mp_hi + [lo != 0] < 2p is reduced by the carry trick of add:
-// t2 = hi + carry + (2^32 - p) never wraps, and s = mp_hi + t2 wraps
-// exactly when u >= p. Bit-identical to mul_full<kGF32> (the generic REDC,
-// four multiplies), which the passes call.
+// fastecc_tpu/gf.py mont_mul's default branch (the microbenchmark's
+// "solinas" step; the passes call mul_full), written for Hopper: IMAD-class
+// instructions issue on one integer pipe, IADD3, LOP3, SHF, LEA, ISETP and
+// SEL on the other, each at half the issue rate. It is REDC with
+// the negated Montgomery factor: m = lo * p^-1 mod 2^32 makes a * b - m * p
+// divisible by 2^32 with no borrow out of the low word, so the quotient is
+// d = hi - q, q = (m * p) >> 32, in (-p, p), and + p where negative.
+// p^-1 = 1 + 2^20 mod 2^32, so with l = lo << 20 the factor is m = lo + l,
+// whose carry out is c = [m < l], and since m * 2^20 = (m >> 12) * 2^32 + l,
+// q = m - (m >> 12) - c. The carry rides into t = (m >> 12) + ~m + c = ~q,
+// so d = hi + t + 1, and hi - q wrapped exactly when d > hi. ptxas makes
+// it IMAD.WIDE (a * b), LEA (m and c), LEA.HI.X (t), then d, the compare
+// and the predicated + p: ~8 instructions a step, 2.6 of them IMAD-class
+// (`sass_check.py --ops`), against mul_full's 10.2. Forms weighed on the
+// H100 (chain_options.py, PERF.md section 6): this select won
+// against d + k * (2^32 - p) as a multiply-add, funnel shifts and plain C.
+// Two ptxas 12.8 behaviours shaped it: subc after add.cc subtracts
+// 1 - carry (not the carry), and a sub.cc of mul.hi's result is folded
+// into IMAD.HI with a wrong carry when the subtrahend is 0; so the flag is
+// read only by addc, right after add.cc. The same canonical residue as
+// mul_full<kGF32>, bit for bit (tests/test_torch_solinas_step.py runs this
+// asm text against fastecc_tpu/gf.py).
 __device__ __forceinline__ uint32_t mul_solinas(uint32_t a, uint32_t b) {
-  uint32_t lo = a * b;
-  uint32_t hi = __umulhi(a, b);
-  uint32_t m = 0u - (lo + (lo << 20));
-  uint32_t mp_hi = m - (m >> 12) - (m < ((m & 0xFFFu) << 20) ? 1u : 0u);
-  uint32_t t2 = hi + (lo != 0u ? 1u : 0u) + kBias32;
-  uint32_t s = mp_hi + t2;
-  return s < t2 ? s : s - kBias32;
+  uint32_t r;
+  asm("{\n\t"
+      ".reg .u32 lo, hi, l, m, nm, s, t, d, k;\n\t"
+      ".reg .pred w;\n\t"
+      "mul.lo.u32 lo, %1, %2;\n\t"
+      "mul.hi.u32 hi, %1, %2;\n\t"
+      "mul.lo.u32 l, lo, 1048576;\n\t"
+      "add.cc.u32 m, lo, l;\n\t"
+      "mul.hi.u32 s, m, 1048576;\n\t"
+      "not.b32 nm, m;\n\t"
+      "addc.u32 t, s, nm;\n\t"
+      "add.u32 d, hi, t;\n\t"
+      "add.u32 d, d, 1;\n\t"
+      "setp.gt.u32 w, d, hi;\n\t"
+      "selp.u32 k, -1048575, 0, w;\n\t"
+      "add.u32 %0, d, k;\n\t"
+      "}"
+      : "=r"(r) : "r"(a), "r"(b));
+  return r;
 }
 
 // The reference microbenchmark's "*-masksel" forms
 // (fastecc_tpu/kernels/microbench.py _addmod_masksel, _mont_mul_masksel):
-// the final select written as mask arithmetic, s - (bias & -[no wrap]).
+// the final select written as mask arithmetic, s - (bias & -[no wrap]);
+// the Solinas one on mul_solinas' REDC, d + (p & k), k = -[d > hi].
 __device__ __forceinline__ uint32_t add_masksel(uint32_t a, uint32_t b) {
   uint32_t t = b + kBias32;
   uint32_t s = a + t;
@@ -92,14 +120,24 @@ __device__ __forceinline__ uint32_t add_masksel(uint32_t a, uint32_t b) {
 }
 
 __device__ __forceinline__ uint32_t mul_solinas_masksel(uint32_t a, uint32_t b) {
-  uint32_t lo = a * b;
-  uint32_t hi = __umulhi(a, b);
-  uint32_t m = 0u - (lo + (lo << 20));
-  uint32_t mp_hi = m - (m >> 12) - (m < ((m & 0xFFFu) << 20) ? 1u : 0u);
-  uint32_t t2 = hi + (lo != 0u ? 1u : 0u) + kBias32;
-  uint32_t s = mp_hi + t2;
-  uint32_t nw = s >= t2 ? 1u : 0u;
-  return s - (kBias32 & (0u - nw));
+  uint32_t r;
+  asm("{\n\t"
+      ".reg .u32 lo, hi, l, m, nm, s, t, d, k;\n\t"
+      "mul.lo.u32 lo, %1, %2;\n\t"
+      "mul.hi.u32 hi, %1, %2;\n\t"
+      "mul.lo.u32 l, lo, 1048576;\n\t"
+      "add.cc.u32 m, lo, l;\n\t"
+      "mul.hi.u32 s, m, 1048576;\n\t"
+      "not.b32 nm, m;\n\t"
+      "addc.u32 t, s, nm;\n\t"
+      "add.u32 d, hi, t;\n\t"
+      "add.u32 d, d, 1;\n\t"
+      "set.gt.u32.u32 k, d, hi;\n\t"
+      "and.b32 k, k, -1048575;\n\t"
+      "add.u32 %0, d, k;\n\t"
+      "}"
+      : "=r"(r) : "r"(a), "r"(b));
+  return r;
 }
 
 template <> __device__ __forceinline__ uint32_t add<kGF16>(uint32_t a, uint32_t b) {

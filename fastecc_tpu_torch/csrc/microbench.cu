@@ -29,25 +29,42 @@
 // would measure the steps' latency, so each thread carries kIlp = 4
 // independent elements, and 16 M elements (the 64 MiB default) keep every
 // SM full. The steps are the reference's: raw u32 multiply and add,
-// GF32 addmod, the Solinas REDC (two multiplies) and the generic REDC
-// (four, what the passes call), their mask-select forms, the GF16
-// multiplies, and five composites that permute rows inside a 512-row tile
-// (the reference's _TS): one Stockham interleave plus an add, and
-// radix-2 / radix-4 stages in either field with the passes' own add, sub
-// and mul_tw. The "*-bcast" variants and the stage composites take
+// GF32 addmod, the Solinas REDC (only a * b multiplies) and the generic
+// REDC (four multiplies, what the passes call), their mask-select forms,
+// the GF16 multiplies, and five composites that permute rows inside a
+// 512-row tile (the reference's _TS): one Stockham interleave plus an
+// add, and radix-2 / radix-4 stages in either field with the passes' own
+// add, sub and mul_tw. The "*-bcast" variants and the stage composites take
 // z[row, 0] of the [rows, 128] array, the reference's z[:, :1] of a
 // 128-lane tile. A composite block holds a [512, 8] tile in two shared
 // buffers (32 KB). The raw add and multiply are inline PTX, which the
 // compiler cannot fold: a plain loop of y += z becomes y + depth * z.
 // The raw add also adds a zero that only the launch knows: ptxas fuses two
 // dependent two-input adds into one three-input IADD3, and y + z + 0 keeps
-// one IADD3 per step.
+// one IADD3 per step. The Solinas steps (gf.cuh mul_solinas and its
+// masksel form) are one asm block each: REDC with the negated Montgomery
+// factor, whose one carry rides the flag from an LEA into an IADD3.X, ~8
+// SASS instructions a step against the generic REDC's 10.2
+// (`sass_check.py --ops` counts them by pipe).
 //
-// K15 is the passes' stage loop (stages.cuh run_stages) applied `depth`
-// times to a [c, TL] tile in shared memory: after one load it is bound by
-// the stage rounds, which is what it measures. c reaches 2048, above the
-// passes' longest transform (1024), so it has its own limits; TL = 8192 / c
-// lanes (4 at c = 2048) keeps both buffers at 32 KB, as in the passes.
+// K15 is `depth` c-point transforms on the register-stage engine of the
+// passes (regstages.cuh: K1-K6 and K7-sel run on it), so it measures the
+// rate of their own stages: after one load of a [c, TL] lane tile and the
+// [A2, A1] inner-twiddle table (cp.async, one wait) each transform is the
+// A1-point DIF in registers, the inner twiddles, one exchange through
+// shared memory and the A2-point DIFs, and the next transform takes the
+// registers where this one left them (col.cu's seam hand-off): no store
+// between transforms, one at the end, straight from registers in natural
+// order. The length is a template parameter, c = 2 .. 2048 in both fields
+// (11 splits; RegSplit<11> is A1 = 64, A2 = 32, TL = 8, 256 threads, a
+// 16,640-word exchange and a 2,080-word table, ~73 KB); the entry refuses
+// any other length. Handing the registers over through shared memory in
+// natural order instead (two more barriers a transform) ran 16% slower at
+// c = 2048 (chain_options.py). What bounds it: at the row's [2048, 512,
+// 128], depth 2, it moves 1 GiB (0.32 ms at 3.35 TB/s) but issues ~89
+// SASS instructions an element a transform, ~60 of them on the ALU pipe:
+// 2^28 element-transforms x 60 at 1.67e13 a second is ~0.97 ms, so the
+// integer pipes bound it, as they bound the passes.
 
 #include <cstddef>
 #include <cstdint>
@@ -56,7 +73,7 @@
 #include <cuda_runtime.h>
 
 #include "gf.cuh"
-#include "stages.cuh"
+#include "regstages.cuh"
 
 namespace {
 
@@ -276,54 +293,125 @@ cudaError_t dispatch_chain(int v, const ChainArgs& a, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// K15: chained transforms on the passes' stage loop.
+// K15: chained transforms on the register-stage engine.
 // ---------------------------------------------------------------------------
 
-constexpr int kFusedTileWords = 8192;  // c * TL words per buffer (32 KB)
-constexpr int kFusedMaxLaneTile = 32;
-constexpr int kFusedMaxLen = 2048;
+constexpr int kFusedMaxLog = 11;  // c = 2048, above the passes' 1024
 
-// Block b holds columns [b * TL, (b + 1) * TL) of x viewed [c, L].
-template <int F>
-__global__ void __launch_bounds__(kThreads) fused_chain_kernel(
-    const uint32_t* __restrict__ x, uint32_t* __restrict__ out, int A,
-    int log_a, int L, int log_tl, const uint32_t* __restrict__ tw,
-    const uint32_t* __restrict__ w3, int depth) {
-  extern __shared__ uint32_t smem[];
-  const int tile = A << log_tl;
-  const int tl_mask = (1 << log_tl) - 1;
-  const int l0 = blockIdx.x << log_tl;
-  uint32_t* buf0 = smem;
-  uint32_t* buf1 = smem + tile;
-  for (int e = threadIdx.x; e < tile; e += blockDim.x) {
-    int l = e & tl_mask, a = e >> log_tl;
-    buf0[e] = l0 + l < L ? x[(size_t)a * L + l0 + l] : 0u;
-  }
+// Block = lane tile [l0, l0 + TL) of x viewed [c, L]; thread = (t = n2,
+// lane l). The tile and the [A2, A1] inner table are copied in with
+// cp.async before one wait. The registers hold the column in the order a
+// transform leaves it: r[j A2 + bitrev(k2)] = element t + A2 j + A1 k2,
+// which is element n1 A2 + t of step 1 for n1 = j + (A1 / A2) k2 (col.cu's
+// seam hand-off). So the tile is read into that order, each transform
+// renames its registers into step 1's order (A1 moves at run time) and
+// runs on them, and the store writes them back to the same rows: depth 0
+// is a copy.
+template <int F, int LA>
+__device__ __forceinline__ void fused_chain(const uint32_t* __restrict__ x,
+                                            uint32_t* __restrict__ out,
+                                            int L, int vec,
+                                            const uint32_t* __restrict__ tw,
+                                            int depth) {
+  using S = fecc::RegSplit<LA>;
+  constexpr int kRho = S::A1 / S::A2;
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* tile = smem;
+  uint32_t* tws = smem + S::kExchWords;
+  const int l0 = blockIdx.x * S::TL;
+  fecc::load_tile_async<S>(tile, x, 1, L, 0, l0, vec != 0);
+  fecc::load_twiddles_async<S>(tws, tw);
+  fecc::cp_async_wait_all();
   __syncthreads();
-  uint32_t* y = buf0;
-  for (int d = 0; d < depth; ++d)
-    y = run_stages<F>(y, y == buf0 ? buf1 : buf0, A, log_a, log_tl, tw, w3);
-  for (int e = threadIdx.x; e < tile; e += blockDim.x) {
-    int l = e & tl_mask, a = e >> log_tl;
-    if (l0 + l < L) out[(size_t)a * L + l0 + l] = y[e];
+
+  const int l = threadIdx.x % S::TL, t = threadIdx.x / S::TL;
+  uint32_t r[S::A1];
+  fecc::static_for<S::A1>([&](auto nc) {
+    constexpr int n1 = decltype(nc)::value;
+    r[n1 % kRho * S::A2 + fecc::bitrev(n1 / kRho, S::LA2)] =
+        tile[(n1 * S::A2 + t) * S::TL + l];
+  });
+  for (int d = 0; d < depth; ++d) {
+    uint32_t y[S::A1];
+    fecc::static_for<S::A1>([&](auto nc) {
+      constexpr int n1 = decltype(nc)::value;
+      y[n1] = r[n1 % kRho * S::A2 + fecc::bitrev(n1 / kRho, S::LA2)];
+    });
+    fecc::reg_transform_regs<F, false, S>(y, tile, tws, t, l);
+    fecc::static_for<S::A1>([&](auto i) {
+      r[decltype(i)::value] = y[decltype(i)::value];
+    });
   }
+  if (l0 + l >= L) return;
+  // natural order: out[t + A2 j + A1 k2, l0 + l] of [c, L]
+  uint32_t* o = out + l0 + l;
+  fecc::static_for<S::A1 / S::A2>([&](auto jc) {
+    constexpr int j = decltype(jc)::value;
+    fecc::static_for<S::A2>([&](auto k2c) {
+      constexpr int k2 = decltype(k2c)::value;
+      o[(size_t)(t + S::A2 * j + S::A1 * k2) * L] =
+          r[j * S::A2 + fecc::bitrev(k2, S::LA2)];
+    });
+  });
 }
 
-template <int F>
-cudaError_t launch_fused(const uint32_t* x, uint32_t* out, int A, int log_a,
-                         int L, int log_tl, const uint32_t* tw,
-                         const uint32_t* w3, int depth, cudaStream_t stream) {
-  size_t smem = 2 * ((size_t)A << log_tl) * sizeof(uint32_t);
-  auto kernel = fused_chain_kernel<F>;
+template <int F, int LA>
+__global__ void __launch_bounds__(fecc::RegSplit<LA>::kThreads)
+    fused_chain_kernel(const uint32_t* __restrict__ x,
+                       uint32_t* __restrict__ out, int L, int vec,
+                       const uint32_t* __restrict__ tw, int depth) {
+  fused_chain<F, LA>(x, out, L, vec, tw, depth);
+}
+
+// From c = 512 on (kFusedBoundLog) K15 is held to two blocks an SM.
+// Unasked, ptxas gives it 76-78 registers at 512 and 1024 (one block of
+// 512 threads an SM) and 122-127 at 2048; held, it takes 64 and 128 with
+// 8-48 bytes of spills, and runs 11-13% faster at c = 512 and 2048, but
+// 3-6% slower at c = 256 (chain_options.py, PERF.md section 6).
+constexpr int kFusedBoundLog = 9;
+
+template <int F, int LA>
+__global__ void __launch_bounds__(fecc::RegSplit<LA>::kThreads, 2)
+    fused_chain_kernel_lb2(const uint32_t* __restrict__ x,
+                           uint32_t* __restrict__ out, int L, int vec,
+                           const uint32_t* __restrict__ tw, int depth) {
+  fused_chain<F, LA>(x, out, L, vec, tw, depth);
+}
+
+template <int F, int LA>
+cudaError_t launch_fused(const uint32_t* x, uint32_t* out, int L,
+                         const uint32_t* tw, int depth, cudaStream_t stream) {
+  using S = fecc::RegSplit<LA>;
+  const size_t smem = (size_t)S::kSmemWords * sizeof(uint32_t);
+  void (*kernel)(const uint32_t*, uint32_t*, int, int, const uint32_t*, int);
+  if constexpr (LA >= kFusedBoundLog)
+    kernel = fused_chain_kernel_lb2<F, LA>;
+  else
+    kernel = fused_chain_kernel<F, LA>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  unsigned blocks = (unsigned)((L + (1 << log_tl) - 1) >> log_tl);
-  kernel<<<blocks, kThreads, smem, stream>>>(x, out, A, log_a, L, log_tl, tw,
-                                             w3, depth);
+  const int vec = ((uintptr_t)x % 16 == 0) && (L % 4 == 0);
+  const unsigned blocks = (unsigned)((L + S::TL - 1) / S::TL);
+  kernel<<<blocks, S::kThreads, smem, stream>>>(x, out, L, vec, tw, depth);
   return cudaGetLastError();
+}
+
+template <int LA>
+cudaError_t dispatch_fused(int la, int field, const uint32_t* x,
+                           uint32_t* out, int L, const uint32_t* tw,
+                           int depth, cudaStream_t s) {
+  if constexpr (LA > kFusedMaxLog) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (la != LA)
+      return dispatch_fused<LA + 1>(la, field, x, out, L, tw, depth, s);
+    return field == kGF32
+               ? launch_fused<kGF32, LA>(x, out, L, tw, depth, s)
+               : launch_fused<kGF16, LA>(x, out, L, tw, depth, s);
+  }
 }
 
 int log2_exact(long long v) {
@@ -366,27 +454,17 @@ int fecc_chain(int variant, const void* x, const void* z, void* out,
   return (int)dispatch_chain<0>(variant, a, (cudaStream_t)stream);
 }
 
-// K15: `depth` forward c-point transforms along axis 0 of x [c, L] u32
-// (tw, w3: the packed forward stage tables of length c).
+// K15: `depth` forward c-point transforms along axis 0 of x [c, L] u32, c
+// = 2 .. 2048 (tw: the [A2, A1] inner twiddles of kernels/ntt_mfa.py
+// _row_inner_twiddles, forward, length c).
 int fecc_fused_chain(int field, const void* x, void* out, int c, int L,
-                     const void* tw, const void* w3, int depth,
-                     void* stream) {
+                     const void* tw, int depth, void* stream) {
   const int log_a = log2_exact(c);
-  if (log_a < 1 || c > kFusedMaxLen || L < 1 || depth < 0)
+  if (log_a < 1 || log_a > kFusedMaxLog || L < 1 || depth < 0)
     return (int)cudaErrorInvalidValue;
-  int tl = kFusedTileWords / c;
-  if (tl > kFusedMaxLaneTile) tl = kFusedMaxLaneTile;
-  const int log_tl = log2_exact(tl);
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e =
-      field == fecc::kGF32
-          ? launch_fused<kGF32>((const uint32_t*)x, (uint32_t*)out, c, log_a,
-                                L, log_tl, (const uint32_t*)tw,
-                                (const uint32_t*)w3, depth, s)
-          : launch_fused<kGF16>((const uint32_t*)x, (uint32_t*)out, c, log_a,
-                                L, log_tl, (const uint32_t*)tw,
-                                (const uint32_t*)w3, depth, s);
-  return (int)e;
+  return (int)dispatch_fused<1>(log_a, field, (const uint32_t*)x,
+                                (uint32_t*)out, L, (const uint32_t*)tw,
+                                depth, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -70,8 +70,8 @@ SIGNATURES = {
     "fecc_copy": [_P, _P, ctypes.c_longlong, _P],
     # (variant, x, z, out, rows, depth, stream)
     "fecc_chain": [_I, _P, _P, _P, _I, _I, _P],
-    # (field, x, out, c, L, tw, w3, depth, stream)
-    "fecc_fused_chain": [_I, _P, _P, _I, _I, _P, _P, _I, _P],
+    # (field, x, out, c, L, inner twiddles, depth, stream)
+    "fecc_fused_chain": [_I, _P, _P, _I, _I, _P, _I, _P],
 }
 
 

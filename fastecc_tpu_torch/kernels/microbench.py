@@ -12,7 +12,7 @@
     permute rows inside a 512-row tile (an interleave, radix-2 / radix-4
     stages).
   * :func:`fused_stage_gops` — element-stages/s of `depth` chained
-    c-point transforms on the passes' own stage loop (K15).
+    c-point transforms on the register-stage engine of the passes (K15).
   * :func:`measure_peaks` — all of them, under the reference's keys, so
     the dict drops into ``utils.profiling``'s ``peaks=``.
 
@@ -27,13 +27,14 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .. import gf, interop
 from ..fields import FIELDS, GF16, GF32
 from ..utils.timer import time_fn
 from . import _build
-from .ntt_mfa import _stage_tables_on, row_pass_plain
+from .ntt_mfa import _row_tw_on, row_pass_plain
 
 _TL = 128          # lanes of every array: [rows, 128] u32
 _TS = 512          # rows of a composite step's tile
@@ -173,7 +174,7 @@ _FUSED_CONFIGS = {
     "fused_gf16_c256_gops": dict(field_name="GF16", c=256),
 }
 
-# the fused chain's longest transform (csrc/microbench.cu kFusedMaxLen)
+# the fused chain's longest transform (csrc/microbench.cu kFusedMaxLog: 2^11)
 MAX_FUSED_LEN = 2048
 
 
@@ -278,7 +279,7 @@ def chain(x: torch.Tensor, z: torch.Tensor, variant: str,
 def fused_chain(x: torch.Tensor, field, depth: int) -> torch.Tensor:
     """K15: ``depth`` forward c-point transforms along axis 0 of x
     [c, ...] u32 (c a power of two in [2, 2048]), each on the passes'
-    stage loop with the tile held in shared memory throughout."""
+    register-stage engine with the tile held on chip throughout."""
     c = x.shape[0] if x.dim() else 0
     if not (2 <= c <= MAX_FUSED_LEN and c & (c - 1) == 0) or depth < 0:
         raise ValueError(f"fused_chain: needs c a power of two in "
@@ -286,12 +287,12 @@ def fused_chain(x: torch.Tensor, field, depth: int) -> torch.Tensor:
                          f"{tuple(x.shape)}, {depth}")
     if not _on_card(x, "fused_chain"):
         return fused_chain_plain(x, field, depth)
-    tw, w3 = _stage_tables_on(field.name, c, False, str(x.device))
+    tw = _row_tw_on(field.name, c, False, str(x.device))
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         _build.call("fecc_fused_chain", 0 if field.use_mont else 1,
                     x.data_ptr(), out.data_ptr(), c, x.numel() // c,
-                    tw.data_ptr(), w3.data_ptr(), depth, _stream(x))
+                    tw.data_ptr(), depth, _stream(x))
         LAUNCHES["K15_fused_chain"] += 1
     return out
 
@@ -313,6 +314,62 @@ def chain_inputs(rows: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     z = (((i * 2654435761) & 0xFFFF) | 1).to(torch.int32).view(
         torch.uint32).reshape(rows, _TL)
     return x, z
+
+
+def solinas_edge_pairs(n_each: int = 40, seed: int = 0x5011
+                       ) -> tuple[np.ndarray, np.ndarray]:
+    """Operand pairs (a, b), both below p, that reach every corner of the
+    Solinas steps (``csrc/gf.cuh`` mul_solinas and its masksel form):
+    every pair of nine edge words (0, 1, 2, p - 1, p - 2, 2^16, 2^20, 2^31,
+    (p - 1) / 2); pairs whose product has a zero low word; and, from seeded
+    random pairs, ``n_each`` on each side of every conditional step of both
+    REDC forms: the reference's [m < (m & 0xFFF) << 20] and wrap of
+    mp_hi + t2 (fastecc_tpu/gf.py mont_mul), the kernel's carry out of
+    lo + (lo << 20) and borrow of hi - q. u32 arrays."""
+    p, mask = GF32.p, (1 << 32) - 1
+    rng = np.random.default_rng(seed)
+    words = [0, 1, 2, p - 1, p - 2, 1 << 16, 1 << 20, 1 << 31, (p - 1) // 2]
+    a = [u for u in words for _ in words]
+    b = words * len(words)
+    for i in (1, 4, 12, 16, 20, 28, 31):     # 2^i u * 2^(32 - i) v
+        for _ in range(4):
+            a.append((1 << i) * int(rng.integers(0, p >> i) | 1))
+            b.append((1 << (32 - i)) * int(rng.integers(0, p >> (32 - i)) | 1))
+    ra = rng.integers(0, p, 1 << 16, dtype=np.uint64)
+    rb = rng.integers(0, p, 1 << 16, dtype=np.uint64)
+    t = ra * rb                                 # < p^2 < 2^64
+    lo, hi = t & np.uint64(mask), t >> np.uint64(32)
+    m = (np.uint64(1 << 32) - (lo + (lo << np.uint64(20))) % np.uint64(
+        1 << 32)) & np.uint64(mask)
+    s20 = (m & np.uint64(0xFFF)) << np.uint64(20)
+    under = m < s20
+    mp_hi = (m - (m >> np.uint64(12)) - under) & np.uint64(mask)
+    t2 = (hi + (lo != 0) + np.uint64((1 << 32) - p)) & np.uint64(mask)
+    wrap = ((mp_hi + t2) & np.uint64(mask)) < t2
+    sh = (lo << np.uint64(20)) & np.uint64(mask)
+    mk = (lo + sh) & np.uint64(mask)
+    carry = mk < sh
+    borrow = hi < mk - (mk >> np.uint64(12)) - carry
+    for flag in (under, wrap, carry, borrow):
+        for side in (flag, ~flag):
+            idx = np.flatnonzero(side)[:n_each]
+            a.extend(ra[idx].tolist())
+            b.extend(rb[idx].tolist())
+    return np.array(a, np.uint32), np.array(b, np.uint32)
+
+
+def solinas_edge_inputs(device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chain operands x, z [512, 128] holding ``solinas_edge_pairs``:
+    pair i at x[i, 0] and along row i of z (so the "-bcast" form, which
+    takes z[i, 0], steps it too); every other word random below p."""
+    a, b = solinas_edge_pairs()
+    rng = np.random.default_rng(0x5012)
+    x = rng.integers(0, GF32.p, (_TS, _TL), dtype=np.uint64).astype(np.uint32)
+    z = np.repeat(rng.integers(0, GF32.p, (_TS, 1), dtype=np.uint64).astype(
+        np.uint32), _TL, axis=1)
+    x[:len(a), 0] = a
+    z[:len(b)] = b[:, None]
+    return interop.from_numpy_u32(x, device), interop.from_numpy_u32(z, device)
 
 
 def fused_inputs(field, c: int, rows_tiles: int, device) -> torch.Tensor:
@@ -361,8 +418,8 @@ def fused_stage_gops(field_name: str = "GF32", c: int = 2048,
                      rows_tiles: int = 64, depth: int = 2, iters: int = 3,
                      device=None) -> float:
     """Element-stages/s of ``depth`` chained c-point transforms on the
-    passes' stage loop, depth against 2 * depth differenced so memory and
-    launch cancel: elems * log2(c) * depth / marginal."""
+    passes' register-stage engine, depth against 2 * depth differenced so
+    memory and launch cancel: elems * log2(c) * depth / marginal."""
     dev = interop.resolve_device(device)
     field = FIELDS[field_name]
     x = fused_inputs(field, c, rows_tiles, dev)

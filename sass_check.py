@@ -13,10 +13,16 @@ both, instruction for instruction, keyed by kernel and template arguments
 (the anonymous namespace's mangled prefix differs between builds).
 
 ``--ops`` prints, for each K14 variant, the instructions of its chain
-loop's body by opcode, and for the elementwise variants the count per
-step (the body holds kChainUnroll * kIlp = 32 steps and the loop's own
-control): the check that the compiler kept `depth` dependent steps, and
-the source of the op counts in ``fastecc_tpu_torch/utils/profiling.py``.
+loop's body by opcode and by pipe, and for the elementwise variants the
+count per step (the body holds kChainUnroll * kIlp = 32 steps and the
+loop's own control): the check that the compiler kept `depth` dependent
+steps, the source of the op counts in
+``fastecc_tpu_torch/utils/profiling.py``, and what a step asks of each
+of Hopper's two integer pipes (IMAD-class instructions issue on one, the
+rest on the other, each at half the issue rate). For each K15
+instantiation (``fused_chain_kernel<F,LA>``, ``_lb2`` from c = 512 on)
+it prints the loop body (one transform) by pipe and per element of a
+thread's column (A1 of them).
 
 ``--count`` prints, for each kernel whose key starts with PREFIX (e.g.
 ``col_kernel<0,9,``), its SASS instruction count and its most common
@@ -43,7 +49,8 @@ from fastecc_tpu_torch.kernels.microbench import _VARIANTS
 # every kernel of the library, so that no key carries the anonymous
 # namespace's build-specific prefix ("chain_kernel" after the two names
 # that contain it)
-_BASES = ("fused_chain_kernel", "chain_tile_kernel", "chain_kernel",
+_BASES = ("fused_chain_kernel_lb2", "fused_chain_kernel",
+          "chain_tile_kernel", "chain_kernel",
           "pass_kernel", "copy_kernel", "row_sel_kernel_lb2",
           "row_sel_kernel", "row_kernel", "col_kernel",
           "pair_lanes_wire16_kernel", "pair_lanes_kernel")
@@ -51,7 +58,7 @@ _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 _BRA = re.compile(r"\bBRA\b[^`(0-9]*`?\(?(\.L_x_\d+|0x[0-9a-f]+)")
 # csrc/microbench.cu: steps in one iteration of an elementwise chain loop
-_STEPS_PER_ITER = 8 * 4
+STEPS_PER_ITER = 8 * 4
 
 
 def cuobjdump() -> str:
@@ -131,6 +138,14 @@ def opcode(text: str) -> str:
     return re.sub(r"^@!?U?P\w+\s+", "", text).split()[0]
 
 
+def by_pipe(body: list[str]) -> dict[str, int]:
+    """Instructions by Hopper integer pipe: "imad" (IMAD, IMAD.WIDE,
+    IMAD.HI, IMAD.SHL, IMAD.MOV, ...) and "other" (IADD3, LOP3, SHF,
+    ISETP, SEL, PRMT and the rest, loads, stores and branches included)."""
+    imad = sum(opcode(t).startswith("IMAD") for t in body)
+    return {"imad": imad, "other": len(body) - imad}
+
+
 def compare(parent_root: Path) -> dict:
     """Build both libraries; per kernel of both, identical or not."""
     code = ("from fastecc_tpu_torch.kernels import _build; "
@@ -148,8 +163,10 @@ def compare(parent_root: Path) -> dict:
 
 
 def chain_ops() -> dict:
-    """Per K14 variant: its chain loop's body by opcode, and for the
-    elementwise variants the instructions per step."""
+    """Per K14 variant: its chain loop's body by opcode and by pipe, and
+    for the elementwise variants the instructions per step; per K15
+    instantiation its loop body (one transform) by pipe, and per element
+    of a thread's column."""
     funcs = functions(_build.build().path)
     rows = {}
     for v, name in enumerate(_VARIANTS):
@@ -161,11 +178,24 @@ def chain_ops() -> dict:
             continue
         body = loop_body(funcs[key])
         hist = collections.Counter(opcode(t) for t in body)
-        row = {"kernel": key, "body": len(body), "ops": dict(sorted(
-            hist.items(), key=lambda kv: -kv[1]))}
+        row = {"kernel": key, "body": len(body), "pipes": by_pipe(body),
+               "ops": dict(sorted(hist.items(), key=lambda kv: -kv[1]))}
         if key.startswith("chain_kernel"):
-            row["per_step"] = round(len(body) / _STEPS_PER_ITER, 3)
+            row["per_step"] = round(len(body) / STEPS_PER_ITER, 3)
+            row["per_step_by_pipe"] = {
+                k: round(n / STEPS_PER_ITER, 3)
+                for k, n in row["pipes"].items()}
         rows[name] = row
+    for key in sorted(k for k in funcs if k.startswith("fused_chain_kernel")):
+        targs = key[key.index("<") + 1:-1].split(",")
+        if len(targs) != 2:     # an older library's K15 (no length)
+            continue
+        la = int(targs[1])
+        body = loop_body(funcs[key])
+        a1 = 1 << ((la + 1) // 2)
+        rows[key] = {"kernel": key, "body": len(body), "pipes": by_pipe(body),
+                     "per_element": round(len(body) / a1, 3),
+                     "instructions": len(funcs[key])}
     return rows
 
 

@@ -504,3 +504,30 @@ def test_fused_chain_kernel_matches_plain_on_card(key, cuda_device):
     y = from_numpy_u32(rand_field(field, (2, 37)), cuda_device)
     assert torch.equal(mb.fused_chain(y, field, 3),
                        mb.fused_chain_plain(y, field, 3))
+
+
+@pytest.mark.parametrize("variant", ["solinas", "solinas-bcast",
+                                     "solinas-masksel"])
+def test_solinas_chain_on_edge_pairs_on_card(variant, cuda_device):
+    """K14's Solinas family == its plain version on the edge operands
+    (microbench.solinas_edge_pairs: edge words, zero low words, both sides
+    of every conditional step of the REDC) at depths 1, 3 and 128."""
+    x, z = mb.solinas_edge_inputs(cuda_device)
+    for depth in (1, 3, mb._DEFAULT_DEPTH):
+        assert torch.equal(mb.chain(x, z, variant, depth),
+                           mb.chain_plain(x, z, variant, depth)), depth
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_fused_chain_every_length_on_card(field, cuda_device):
+    """K15 == its plain version at every c = 2 .. 2048, depths 0-3, over
+    13 and 40 lanes (the last block zero-filled past L)."""
+    rng = np.random.default_rng(0xF15 + field.use_mont)
+    for la in range(1, 12):
+        for lanes in (13, 40):
+            y = from_numpy_u32(rand_field(field, (1 << la, lanes), rng),
+                               cuda_device)
+            for depth in range(4):
+                assert torch.equal(mb.fused_chain(y, field, depth),
+                                   mb.fused_chain_plain(y, field, depth)), (
+                    la, lanes, depth)
