@@ -21,7 +21,8 @@ main path on the card and fails loudly on any fault. Phases:
                = 32, 2^10, 2^13
                over 1088 and 13 lanes in both fields, K12 at those k over
                Wu = 8, 40, 1024 and on dense escapes (the escape counts
-               printed); bit-exact
+               printed) and at every k = 4 .. 2^13 over Wu = 8, 40, 1024,
+               K9 at every R1 = 2 .. 1024 over Wu = 8, 16, 40; bit-exact
                (``torch.equal``, tolerance 0: exact integer arithmetic);
   3. golden  — the JAX package's pinned SHA-256 digests (codewords of
                tests/test_rs.py, GF32 wire blob of tests/test_wire_golden.py)
@@ -50,8 +51,9 @@ main path on the card and fails loudly on any fault. Phases:
                -> encode_parity on K1 -> K2 -> K3 -> serialize_parity) on
                every lane, with escapes present, and its first and last 8
                lanes against the plain staged transforms; median of 5 timed
-               calls (wire GB/s = n * B / time); then encode_blocks at
-               B = 4096, bytes against the generic route's;
+               calls (wire GB/s = n * B / time); the parent's K9 on its
+               tensor, as in phase 4; then encode_blocks at B = 4096,
+               bytes against the generic route's;
   8. decode  — the reference bench's decode (bench.py:184): GF32,
                n = 2^20, k = 2^19, 512 lanes, the codeword from rs.encode
                on the card with e = 2^19 random erasures overwritten with
@@ -87,7 +89,8 @@ main path on the card and fails loudly on any fault. Phases:
                flag off (the three-pass route) on every lane, the batch and
                k = 2^13 also on their edge lanes against the plain staged
                transforms; median of 5 calls of both routes at each shape;
-               then each route's kernels on 128 MiB at k = 2^10 .. 2^13
+               the parent's K12 on the GF16 wire encode's pairs, as in
+               phase 4; then each route's kernels on 128 MiB at k = 2^10 .. 2^13
                (GF32 and the GF16 wire pair), held equal and timed;
  12. errors  — unknown-position error correction: correct_errors on the
                full-width GF32 codeword (n = 2^20, 1024 lanes) with 16
@@ -185,7 +188,7 @@ SOURCE = {k: "fastecc_tpu_torch/csrc/" + (
     "microbench.cu" if k in PEAKS else "lanes.cu" if k in LANES
     else "row.cu" if k in ("K3_row", "K7_row_post_sel")
     else "col.cu" if k in ("K1_col", "K2_seam", "K4_col_pre", "K5_col_vec",
-                           "K6_seam_vec")
+                           "K6_seam_vec", "K9_seam_wire16")
     else "ntt_mfa.cu")
     for k in REPLACES}
 
@@ -628,6 +631,36 @@ def phase_kernels(gen) -> dict:
         "dense escapes: == plain; escape bits (saturated words): " +
         ", ".join(f"k={k} Wu={wu}{' dense' if d else ''}: {b} ({sat})"
                   for (k, wu, d), (b, sat) in escapes.items()))
+    # K12 has one instantiation per length (the engine's one-exchange split
+    # below 2^12, the two-exchange split at 2^12 and 2^13): every k = 4 ..
+    # 2^13 over Wu = 8, 40 and 1024 (lane tiles of 32 down to 2, ragged),
+    # from a generator of its own
+    gen12 = torch.Generator(device="cuda").manual_seed(12)
+    for la in range(2, 14):
+        k = 1 << la
+        g = GF16.root_of_order(2 * k)
+        for wu in (8, 40, 1024):
+            x = torch.randint(-(1 << 31), 1 << 31, (k, wu), dtype=torch.int32,
+                              device="cuda", generator=gen12).view(
+                                  torch.uint32)
+            for a, b in zip(m.ntt_pair_lanes_wire16(x, GF16, g),
+                            m.pair_lanes_wire16_plain(x, GF16, g)):
+                cmp("K12_pair_lanes_wire16", a, b, ("every k", k, wu))
+    say("[kernels] K12 at every k = 4 .. 2^13 over Wu = 8, 40, 1024: == "
+        "plain")
+    # K9 is K2's kernel on each half: every R1 = 2 .. 1024 on [2, R1, 4,
+    # Wu], Wu = 8, 16, 40, GF16 (the pair split reaches R1 = 256 at 2^15;
+    # 512 and 1024 only through seam_pass_wire16 itself)
+    gen11 = torch.Generator(device="cuda").manual_seed(11)
+    for la in range(1, 11):
+        a = 1 << la
+        g = GF16.root_of_order(8 * a)
+        for wu in (8, 16, 40):
+            y = rand_field(GF16.p, (2, a, 4, wu), gen11)
+            cmp("K9_seam_wire16", m.seam_pass_wire16(y, GF16, g),
+                m.seam_pass_wire16_plain(y, GF16, g), ("every R1", a, wu))
+    say("[kernels] K9 at every R1 = 2 .. 1024 on [2, R1, 4, Wu], Wu = 8, "
+        "16, 40: == plain")
     return worst
 
 
@@ -868,8 +901,8 @@ def parent_library():
     """The kernel library of the earlier checkout of the package in
     build/parent (as ``sass_check.py --compare build/parent`` wants it),
     built there by its own ``_build``; None where there is none. The
-    argtypes are the parent commit's C signatures (K1-K7-sel with the
-    inner twiddles, K15 with the packed Stockham tables)."""
+    argtypes are the parent commit's C signatures (K1-K7-sel and K15 with
+    the inner twiddles, K9 and K12 with the packed Stockham tables)."""
     import ctypes
     from pathlib import Path
     root = Path(__file__).resolve().parent / "build" / "parent"
@@ -890,10 +923,16 @@ def parent_library():
     lib.fecc_col_vec.argtypes = [I, P, P, I, I, I, I, P, P, P, I, P, P]
     lib.fecc_copy.argtypes = [P, P, ctypes.c_longlong, P]
     lib.fecc_chain.argtypes = [I, P, P, P, I, I, P]
-    lib.fecc_fused_chain.argtypes = [I, P, P, I, I, P, P, I, P]
+    lib.fecc_fused_chain.argtypes = [I, P, P, I, I, P, I, P]
+    # K9 and K12 with the packed Stockham tables (tw, w3 a transform)
+    lib.fecc_seam_wire16.argtypes = [I, P, P, I, I, I, P, P, P, P, P, P, I,
+                                     P, P, P]
+    lib.fecc_pair_lanes_wire16.argtypes = [I, P, P, P, I, I, P, P, P, P, P,
+                                           P]
     for fn in (lib.fecc_row, lib.fecc_col, lib.fecc_seam, lib.fecc_seam_vec,
                lib.fecc_row_post_sel, lib.fecc_col_pre, lib.fecc_col_vec,
-               lib.fecc_copy, lib.fecc_chain, lib.fecc_fused_chain):
+               lib.fecc_copy, lib.fecc_chain, lib.fecc_fused_chain,
+               lib.fecc_seam_wire16, lib.fecc_pair_lanes_wire16):
         fn.restype = I
     return lib
 
@@ -1282,14 +1321,12 @@ def parent_peaks_ms(x: torch.Tensor, z: torch.Tensor,
     del out, out_p
     c, lanes = xf.shape[0], xf.numel() // xf.shape[0]
     dev = str(xf.device)
-    tw, w3 = m._stage_tables_on(GF32.name, c, False, dev)
     inner = m._row_tw_on(GF32.name, c, False, dev)
     out, out_p = torch.empty_like(xf), torch.empty_like(xf)
     for depth in (2, 4):
         def parent():
             rc = lib.fecc_fused_chain(0, xf.data_ptr(), out_p.data_ptr(), c,
-                                      lanes, tw.data_ptr(), w3.data_ptr(),
-                                      depth, stream)
+                                      lanes, inner.data_ptr(), depth, stream)
             check(rc == 0, f"parent fecc_fused_chain returned {rc}")
             return out_p
 
@@ -1302,6 +1339,72 @@ def parent_peaks_ms(x: torch.Tensor, z: torch.Tensor,
         say(f"[peaks] K15 GF32 {list(xf.shape)} depth {depth}, parent / "
             f"this / this / parent: {t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / "
             f"{t[3]:.4f} ms")
+
+
+def parent_wire16_ms(h1: torch.Tensor, g: int) -> None:
+    """Where build/parent holds an earlier checkout, its K9 (``fecc_seam_
+    wire16`` with the packed Stockham tables) against this tree's on the
+    wire16 phase's [2, R1, C1, Wu] tensor, outputs held equal, in turns
+    parent, this, this, parent (``event_ms``); printed for the record."""
+    from fastecc_tpu_torch.fields import GF16
+    from fastecc_tpu_torch.kernels import ntt_mfa as m
+    lib = parent_library()
+    if lib is None:
+        return
+    _, r1, c1, lanes = h1.shape
+    dev = str(h1.device)
+    tr = m._seed_tr(c1)
+    tw1, w31 = m._stage_tables_on(GF16.name, r1, True, dev)
+    tw2, w32 = m._stage_tables_on(GF16.name, r1, False, dev)
+    seed, t0 = m._seeds_on(GF16.name, r1 * c1, r1, False, False, tr, dev)
+    pcol, prow = m._pre_on(GF16.name, g % GF16.p, r1, c1, tr, dev)
+    out = torch.empty((2, c1, r1, lanes), dtype=torch.uint32, device=dev)
+
+    def parent():
+        code = lib.fecc_seam_wire16(
+            1, h1.data_ptr(), out.data_ptr(), r1, c1, lanes, tw1.data_ptr(),
+            w31.data_ptr(), tw2.data_ptr(), w32.data_ptr(), seed.data_ptr(),
+            t0.data_ptr(), tr, pcol.data_ptr(), prow.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        check(code == 0, f"parent fecc_seam_wire16 returned {code}")
+        return out
+    t = turns(parent, lambda: m.seam_pass_wire16(h1, GF16, g), event_ms,
+              "K9")
+    say(f"[wire16] K9 against the parent's fecc_seam_wire16 on the same "
+        f"{tuple(h1.shape)} tensor, parent / this / this / parent: "
+        f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
+
+
+def parent_lanes_wire16_ms(words: torch.Tensor, g: int) -> None:
+    """As :func:`parent_wire16_ms`, for K12 (``fecc_pair_lanes_wire16``
+    with the packed Stockham tables) on the lanes phase's [k, Wu] pairs:
+    both parts held equal, the parent's and this tree's calls timed in
+    turns."""
+    from fastecc_tpu_torch.fields import GF16
+    from fastecc_tpu_torch.kernels import ntt_mfa as m
+    lib = parent_library()
+    if lib is None:
+        return
+    k, wu = words.shape
+    tables = m._lanes_tables(GF16, k, g, str(words.device))
+    stored = torch.empty_like(words)
+    bitmap = torch.empty((k, wu // 8), dtype=torch.uint32,
+                         device=words.device)
+
+    def parent():
+        code = lib.fecc_pair_lanes_wire16(
+            1, words.data_ptr(), stored.data_ptr(), bitmap.data_ptr(), k, wu,
+            *tables, torch.cuda.current_stream().cuda_stream)
+        check(code == 0, f"parent fecc_pair_lanes_wire16 returned {code}")
+        return stored, bitmap
+
+    def this():
+        return m.ntt_pair_lanes_wire16(words, GF16, g)
+    check(same(parent(), this()), "parent K12 != this K12")
+    t = [event_ms(f) for f in (parent, this, this, parent)]
+    say(f"[lanes_wire16] K12 against the parent's fecc_pair_lanes_wire16 on "
+        f"the same {tuple(words.shape)} pairs, parent / this / this / "
+        f"parent: {t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
 
 
 def phase_ntt(gen, launches, times):
@@ -1449,6 +1552,7 @@ def phase_wire16(gen, launches, times, shapes):
     for kk in WIRE16:
         say(f"[wire16] {kk} {times[kk]:.3f} ms on {shapes[kk]} per half, "
             f"plain {times['plain_' + kk]:.1f} ms")
+    parent_wire16_ms(h1, g)
     del x3, h1, h2
 
     # encode_blocks, bytes in and out, at the default 4 KB wire format
@@ -1844,6 +1948,7 @@ def phase_lanes(gen, launches, times, shapes):
         f"{times['K12_pair_lanes_wire16']:.4f} ms on "
         f"{shapes['K12_pair_lanes_wire16']}, plain "
         f"{times['plain_K12_pair_lanes_wire16']:.1f} ms")
+    parent_lanes_wire16_ms(words, g16)
 
     # GF16 encode_blocks at BASELINE.json:9: 2^14 blocks of 4 KB (k = 2^13),
     # against the generic route; the generic route with the flag on runs

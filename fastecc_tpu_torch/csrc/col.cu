@@ -1,9 +1,9 @@
 // Pass A, pass A with an input multiply, and the two seams for Hopper
-// (sm_90a): kernels K1, K2, K4, K5 and K6 of the port, on the
+// (sm_90a): kernels K1, K2, K4, K5, K6 and K9 of the port, on the
 // register-stage engine of regstages.cuh (as K3 and K7-sel in row.cu),
 // with a plain C interface loaded through ctypes (kernels/_build.py
 // builds it; kernels/ntt_mfa.py col_pass, col_pass_pre, col_pass_vec,
-// seam_pass and seam_pass_vec wrap it).
+// seam_pass, seam_pass_vec and seam_pass_wire16 wrap it).
 //
 // Replaces these Pallas TPU kernels of fastecc_tpu/kernels/ntt_mfa.py:
 //   K1 fecc_col  <- _col_kernel  (pass A: C-point stages along axis 0 of
@@ -21,6 +21,8 @@
 //   K6 fecc_seam_vec <- _seam_kernel_vec (the decode pair's middle pass:
 //                   K2 with the middle factor v[k * B + b] read from a
 //                   prepared [N] table, the x d/dx table m mod p)
+//   K9 fecc_seam_wire16 <- _seam_kernel_wire16 (the GF16 wire pair's
+//                   seam: K2 on the lo half and on the hi half)
 // The output is the same canonical residues; how it gets there is the
 // port's own.
 //
@@ -332,6 +334,24 @@ int fecc_seam(int field, const void* x, void* out, int A, int B, int L,
   p.B = B;
   p.L = L;
   return run(field, true, kSeam, p, A, tr, stream);
+}
+
+// K9: [2, A=R1, B=C1, L] -> [2, C1, R1, L]; K2 (GF16) on each half of the
+// wire pair, one launch a half (each half is contiguous, and 16-byte
+// aligned where x is and L % 4 == 0, as the wire pair's L % 8 == 0 gives).
+int fecc_seam_wire16(int field, const void* x, void* out, int A, int B,
+                     int L, const void* tw_inv, const void* tw_fwd,
+                     const void* seed, const void* t0, int tr,
+                     const void* pcol, const void* prow, void* stream) {
+  if (field != fecc::kGF16) return (int)cudaErrorInvalidValue;
+  const size_t half = (size_t)A * B * L;
+  for (int h = 0; h < 2; ++h) {
+    const int e = fecc_seam(field, (const uint32_t*)x + h * half,
+                            (uint32_t*)out + h * half, A, B, L, tw_inv,
+                            tw_fwd, seed, t0, tr, pcol, prow, stream);
+    if (e != 0) return e;
+  }
+  return 0;
 }
 
 // K6: K2 with the middle factor v[k * B + b] (k = c2, b = r2: the

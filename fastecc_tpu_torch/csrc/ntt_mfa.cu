@@ -1,11 +1,12 @@
-// Fused four-step NTT passes for Hopper (sm_90a): kernels K7 and K8-K10
+// Fused four-step NTT passes for Hopper (sm_90a): kernels K7, K8 and K10
 // of the port, with a plain C interface loaded through ctypes
 // (fastecc_tpu_torch/kernels/_build.py builds it; kernels/ntt_mfa.py
 // wraps it).
 //
 // (K1 and K4 pass A, K5 pass A with the decode's table multiply, K2 the
-// encode seam, K3 pass B, K6 the decode seam and K7-sel are kernels of
-// their own on the register-stage engine regstages.cuh: col.cu, row.cu.)
+// encode seam, K3 pass B, K6 the decode seam, K7-sel and K9 (K2 on each
+// half of the wire pair) are kernels of their own on the register-stage
+// engine regstages.cuh: col.cu, row.cu.)
 // Replaces these Pallas TPU kernels of fastecc_tpu/kernels/ntt_mfa.py,
 // the decode fusion with a general prepared [N] table v:
 //   K7 fecc_row_post     <- _row_kernel_post    (K3, then out[k] *= v[k]:
@@ -14,7 +15,6 @@
 // wire words:
 //   K8 fecc_col_wire16  <- _col_kernel_wire16  (K1 on lo = x & 0xFFFF and
 //                          on hi = x >> 16)
-//   K9 fecc_seam_wire16 <- _seam_kernel_wire16 (K2 on lo and on hi)
 //   K10 fecc_row_wire16 <- _row_kernel_wire16  (K3 on lo and on hi, then
 //                          stored = lo16 | hi16 << 16 and the escape
 //                          bitmap)
@@ -54,11 +54,12 @@
 //
 // The wire pair. Lo and hi are independent lane sets; the reference kept
 // them as two arrays only because a lane concatenate is a paid relayout
-// on the TPU. Here K8 and K9 put the half in the grid (the fastest block
-// index, so a column's two blocks run side by side and K8's second read
-// of the same input tile comes from L2) and keep both halves in one
-// [2, ...] tensor. K10 needs both halves of a row in one block to re-pack
-// them, so it runs lo's stages, parks the result and runs hi's in a third
+// on the TPU. Here K8 puts the half in the grid (the fastest block
+// index, so a column's two blocks run side by side and its second read
+// of the same input tile comes from L2) and keeps both halves in one
+// [2, ...] tensor, which K9 (col.cu) takes half by half. K10 needs both
+// halves of a row in one block to re-pack them, so it runs lo's stages,
+// parks the result and runs hi's in a third
 // tile buffer, then writes the stored words and one escape word per group
 // of 8 lanes (bit 2t for lo, 2t + 1 for hi of lane 8g + t: v >> 16 is the
 // escape flag, as GF16 values are <= 0x10000). The reference's MXU
@@ -86,22 +87,22 @@ constexpr int kTileWords = 8192;  // A * TL words per buffer (32 KB)
 constexpr int kMaxLaneTile = 32;
 constexpr int kMaxLen = 1024;     // longest pass the splits give (2^20)
 
-// (0-5 and 7 were the modes of K1, K4, K2, K3, K5, K6 and K7-sel, kernels
-// of their own now in col.cu and row.cu. The numbers stay, so
+// (0-5, 7 and 9 were the modes of K1, K4, K2, K3, K5, K6, K7-sel and K9,
+// kernels of their own now in col.cu and row.cu. The numbers stay, so
 // sass_check.py keys the other instantiations as before.)
 enum Mode : int {
   kRowPost = 6,
-  kColWire16 = 8, kSeamWire16 = 9, kRowWire16 = 10
+  kColWire16 = 8, kRowWire16 = 10
 };
 
 __host__ __device__ constexpr bool is_row(int mode) {
   return mode == kRowPost;
 }
 
-// K8 and K9 run each column twice, once per half (the grid's fastest
-// index); their input and output are [2, A * B * L] (K8's input is one).
+// K8 runs each column twice, once per half (the grid's fastest index);
+// its output is [2, A * B * L].
 __host__ __device__ constexpr bool has_halves(int mode) {
-  return mode == kColWire16 || mode == kSeamWire16;
+  return mode == kColWire16;
 }
 
 constexpr bool is_wire16(int mode) { return mode >= kColWire16; }
@@ -128,14 +129,16 @@ struct PassArgs {
   int lane_tiles;        // ceil(L / TL)
   const uint32_t* tw1;   // packed stage tables, first transform
   const uint32_t* w31;   // packed radix-4 w^3j tables, first transform
-  const uint32_t* tw2;   // second transform (seam only)
-  const uint32_t* w32;
+  const uint32_t* tw2;   // unused (K9's second transform)
+  const uint32_t* w32;   // unused
   const uint32_t* seed;  // [A, tr] four-step seeds
   const uint32_t* t0;    // [B / tr, A] four-step column bases
   int log_tr;
-  const uint32_t* pcol;  // [A] rank-1 multiply, row factor
-  const uint32_t* prow;  // [B] rank-1 multiply, column factor
+  const uint32_t* pcol;  // unused (K9's rank-1 multiply, row factor)
+  const uint32_t* prow;  // unused (column factor)
 };
+// The unused fields stay, as TableArgs' mask and orig do: removing them
+// would move the later fields and with them K7's, K8's and K10's SASS.
 
 // The decode operands travel in a second kernel parameter. Kept in
 // PassArgs they grow it past 128 bytes, and NVVM then reads its fields
@@ -152,15 +155,6 @@ struct TableArgs {
   const uint32_t* hi;    // [A, B, L] hi half; x holds lo (K10)
   uint32_t* bitmap;      // [A * B, L / 8] escape words (K10)
 };
-
-// scratch[a] = pcol[a] * prow[b] (a rank-1 row of g^m, m = a * B + b).
-template <int F>
-__device__ __forceinline__ void rank1_row(uint32_t* scratch, const PassArgs& p,
-                                          int b) {
-  const uint32_t pr = p.prow[b];
-  for (int a = threadIdx.x; a < p.A; a += blockDim.x)
-    scratch[a] = mul_full<F>(p.pcol[a], pr);
-}
 
 // scratch[a] = v[a * B + b] (column b of a general [A, B] table).
 __device__ __forceinline__ void vec_row(uint32_t* scratch,
@@ -236,9 +230,8 @@ __global__ void __launch_bounds__(kThreads) pass_kernel(PassArgs p,
   const int lt = blk % p.lane_tiles;
   const int b = blk / p.lane_tiles;
   const int l0 = lt << p.log_tl;
-  // K8 and K9 write half `half` of a [2, ...] output; K9 reads one too
+  // K8 writes half `half` of a [2, ...] output
   const size_t half_off = (size_t)half * p.A * p.B * p.L;
-  const uint32_t* x = p.x + (MODE == kSeamWire16 ? half_off : 0);
   uint32_t* out = p.out + half_off;
 
   if (MODE == kRowWire16) {
@@ -248,22 +241,12 @@ __global__ void __launch_bounds__(kThreads) pass_kernel(PassArgs p,
   for (int e = threadIdx.x; e < tile; e += blockDim.x) {
     int l = e & tl_mask, a = e >> p.log_tl;
     uint32_t v = 0;
-    if (l0 + l < p.L) v = x[((size_t)a * p.B + b) * p.L + l0 + l];
+    if (l0 + l < p.L) v = p.x[((size_t)a * p.B + b) * p.L + l0 + l];
     if (MODE == kColWire16) v = half ? v >> 16 : v & 0xFFFFu;
     buf0[e] = v;
   }
   __syncthreads();
   uint32_t* y = run_stages<F>(buf0, buf1, p.A, p.log_a, p.log_tl, p.tw1, p.w31);
-
-  if (MODE == kSeamWire16) {
-    rank1_row<F>(scratch, p, b);
-    __syncthreads();
-    for (int e = threadIdx.x; e < tile; e += blockDim.x)
-      y[e] = mul_full<F>(y[e], scratch[e >> p.log_tl]);
-    __syncthreads();
-    y = run_stages<F>(y, y == buf0 ? buf1 : buf0, p.A, p.log_a, p.log_tl,
-                      p.tw2, p.w32);
-  }
 
   if (is_row(MODE)) {
     vec_row(scratch, t.vec, p.A, p.B, b);
@@ -375,24 +358,6 @@ int fecc_col_wire16(int field, const void* x, void* out, int A, int B, int L,
   p.t0 = (const uint32_t*)t0;
   p.log_tr = log2_exact(tr);
   return run<kColWire16>(field, p, stream);
-}
-
-// K9: [2, A=R1, B=C1, L] -> [2, C1, R1, L]; K2 on each half.
-int fecc_seam_wire16(int field, const void* x, void* out, int A, int B, int L,
-                     const void* tw1, const void* w31, const void* tw2,
-                     const void* w32, const void* seed, const void* t0, int tr,
-                     const void* pcol, const void* prow, void* stream) {
-  PassArgs p = base_args(x, out, A, B, L);
-  p.tw1 = (const uint32_t*)tw1;
-  p.w31 = (const uint32_t*)w31;
-  p.tw2 = (const uint32_t*)tw2;
-  p.w32 = (const uint32_t*)w32;
-  p.seed = (const uint32_t*)seed;
-  p.t0 = (const uint32_t*)t0;
-  p.log_tr = log2_exact(tr);
-  p.pcol = (const uint32_t*)pcol;
-  p.prow = (const uint32_t*)prow;
-  return run<kSeamWire16>(field, p, stream);
 }
 
 // K10: lo, hi [A=R2, B=C2, L] -> stored [R2, C2, L] (natural order, as

@@ -57,13 +57,16 @@ SIGNATURES = {
     # ntt_mfa.cu
     "fecc_row_post": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "fecc_col_wire16": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
-    "fecc_seam_wire16": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
-                         _P, _P, _P],
+    # col.cu: (field, x, out, A, B, L, tw_inv, tw_fwd, seed, t0, tr, pcol,
+    # prow, stream), K2 on each half
+    "fecc_seam_wire16": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P,
+                         _P],
     # (field, lo, hi, stored, bitmap, A, B, L, tw, w3, stream)
     "fecc_row_wire16": [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # lanes.cu: (field, x, out, k, L, tw_i, w3_i, tw_f, w3_f, mid, stream)
     "fecc_pair_lanes": [_I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
-    # (field, x, stored, bitmap, k, L, tw_i, w3_i, tw_f, w3_f, mid, stream)
+    # (field, x, stored, bitmap, k, L, lvl_i, lvl_f, tw_i, tw_f, mid,
+    # stream)
     "fecc_pair_lanes_wire16": [_I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
                                _P],
     # microbench.cu: (x, out, n, stream)

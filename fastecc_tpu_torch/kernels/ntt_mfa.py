@@ -25,7 +25,7 @@ merge where(mask[k] != 0, out[k], orig[k])).
 The GF16 wire pair (:func:`ntt_coset_pair_wire16`) is the encode pair
 over [k, Wu] u32 pairs of little-endian u16 wire words: K8 splits each
 pair into lo = x & 0xFFFF and hi = x >> 16 and runs K1 on both, K9 runs
-K2 on both, and K10 runs K3 on both and writes the wire parity directly:
+K2's kernel on each, and K10 runs K3 on both and writes the wire parity directly:
 stored = lo16 | hi16 << 16 (0x10000 stored as 0) and the escape bitmap.
 Lo and hi are independent lane sets; between passes they are one
 [2, ...] tensor, half 0 lo and half 1 hi.
@@ -42,8 +42,8 @@ the port's own gate) on every device; both routes give the same bits.
 
 Each kernel has a wrapper and a plain PyTorch version here. The wrapper
 takes the plain version only for a CPU tensor; on a CUDA tensor it
-launches its Hopper kernel (``csrc/col.cu``: K1, K2, K4, K5, K6;
-``csrc/row.cu``: K3, K7-sel; ``csrc/ntt_mfa.cu``: K7, K8-K10;
+launches its Hopper kernel (``csrc/col.cu``: K1, K2, K4, K5, K6, K9;
+``csrc/row.cu``: K3, K7-sel; ``csrc/ntt_mfa.cu``: K7, K8, K10;
 ``csrc/lanes.cu``: K11, K12) or raises, and
 counts the launch in :data:`LAUNCHES`.
 Split, lane tile and twiddle tables are the port's own; the output bits
@@ -130,18 +130,24 @@ def _row_split(a: int) -> tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=None)
-def _row_inner_twiddles(field_name: str, a: int, inverse: bool):
-    """The inner twiddles of K1-K3: prepared [A2, A1] table T[n2, k1] =
-    w_a^(n2 * k1) (w^-1 for the inverse), the four-step twiddle between
-    the A1-point and the A2-point halves of one column
-    (``csrc/regstages.cuh``). GF16 entries can be 0x10000."""
+def _split_twiddles(field_name: str, a: int, a1: int, inverse: bool):
+    """Prepared [a / a1, a1] table T[n2, k1] = w_a^(n2 * k1) (w^-1 for the
+    inverse): the four-step twiddle between the a1-point and the
+    (a / a1)-point halves of an a-point column. GF16 entries can be
+    0x10000."""
     field = FIELDS[field_name]
-    a1, a2 = _row_split(a)
     w = field.root_of_order(a)
     if inverse:
         w = field.inv_host(w)
     return np.asarray(prepare_consts(
-        field, powers_outer_host(field, powers_host(field, w, a2), a1)))
+        field, powers_outer_host(field, powers_host(field, w, a // a1), a1)))
+
+
+def _row_inner_twiddles(field_name: str, a: int, inverse: bool):
+    """The inner twiddles of K1-K3: the [A2, A1] table of
+    :func:`_split_twiddles` at the register split :func:`_row_split`
+    (``csrc/regstages.cuh``)."""
+    return _split_twiddles(field_name, a, _row_split(a)[0], inverse)
 
 
 @functools.lru_cache(maxsize=None)
@@ -702,12 +708,50 @@ def _lanes_input(x: torch.Tensor, name: str) -> None:
 
 
 def _lanes_tables(field: FieldSpec, k: int, pre_seed: int, dev: str):
-    """Pointers of the lanes kernels' tables: inverse and forward stage
-    tables, then the mid table."""
+    """Pointers of K11's tables: inverse and forward stage tables, then
+    the mid table."""
     tw_i, w3_i = _stage_tables_on(field.name, k, True, dev)
     tw_f, w3_f = _stage_tables_on(field.name, k, False, dev)
     mid = _mid_on(field.name, k, pre_seed % field.p, dev)
     return [t.data_ptr() for t in (tw_i, w3_i, tw_f, w3_f, mid)]
+
+
+# K12's split of a k-point column (``csrc/lanes.cu`` kTwoExchangeLog):
+# the engine's one-exchange split (RegSplit) below 2^12; from there on a
+# thread would hold 64 or more elements of a column, so k = B1 * A1 * A2
+# with two exchanges and no thread holding more than 32.
+LANES16_TWO_EXCHANGE_K = 1 << 12
+
+
+def _lanes16_b1(k: int) -> int:
+    """B1 of K12's two-exchange split k = B1 * M, M = A1 * A2 with A1 =
+    B1 = 2^ceil(log2 k / 3) (2^13 = 32 * 32 * 8, 2^12 = 16 * 16 * 16);
+    0 below :data:`LANES16_TWO_EXCHANGE_K` (the one-exchange split)."""
+    return 1 << -(-_log2(k) // 3) if k >= LANES16_TWO_EXCHANGE_K else 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lanes16_level_twiddles(field_name: str, k: int, inverse: bool):
+    """K12's twiddles between the outer B1-point level and the inner
+    M-point transforms: inverse [B1, M] T[k1, n] = w_k^-(n * k1)
+    (k1-major, as the inverse's first level reads them), forward [M, B1]
+    T[kk, r] = w_k^(kk * r); prepared, GF16 entries can be 0x10000."""
+    t = _split_twiddles(field_name, k, _lanes16_b1(k), inverse)
+    return np.ascontiguousarray(t.T) if inverse else t
+
+
+@functools.lru_cache(maxsize=None)
+def _lanes16_tables_on(field_name: str, k: int, g: int, device: str):
+    """K12's tables on ``device``: the level twiddles inverse and forward
+    (None for the one-exchange split), the [A2, A1] inner twiddles of its
+    (inner) register split inverse and forward, the mid table."""
+    b1 = _lanes16_b1(k)
+    a, a1 = (k // b1, b1) if b1 else (k, _row_split(k)[0])
+    lvl = [_u32_on(_lanes16_level_twiddles(field_name, k, inv), device)
+           if b1 else None for inv in (True, False)]
+    inner = [_u32_on(_split_twiddles(field_name, a, a1, inv), device)
+             for inv in (True, False)]
+    return (*lvl, *inner, _mid_on(field_name, k, g, device))
 
 
 def ntt_pair_lanes(x: torch.Tensor, field: FieldSpec,
@@ -816,7 +860,8 @@ def col_pass_wire16(x3: torch.Tensor, field: FieldSpec) -> torch.Tensor:
 def seam_pass_wire16(y: torch.Tensor, field: FieldSpec,
                      pre_seed2: int) -> torch.Tensor:
     """K9 (the wire pair's middle pass, g^m in the middle): [2, R1, C1,
-    Wu] u32 -> [2, C1, R1, Wu]."""
+    Wu] u32 -> [2, C1, R1, Wu] (``csrc/col.cu``: K2's kernel, launched
+    once on each half, with K2's tables)."""
     _check_gf16(field, "seam_pass_wire16")
     if not _dispatch(y, "seam_pass_wire16", dims=4):
         return seam_pass_wire16_plain(y, field, pre_seed2)
@@ -827,17 +872,16 @@ def seam_pass_wire16(y: torch.Tensor, field: FieldSpec,
     c2, r2 = r1, c1
     dev = str(y.device)
     tr = _seed_tr(r2)
-    tw1, w31 = _stage_tables_on(field.name, r1, True, dev)
-    tw2, w32 = _stage_tables_on(field.name, c2, False, dev)
     seed, t0 = _seeds_on(field.name, c2 * r2, c2, False, False, tr, dev)
     pcol, prow = _pre_on(field.name, pre_seed2 % field.p, c2, r2, tr, dev)
+    tw_inv = _row_tw_on(field.name, r1, True, dev)
+    tw_fwd = _row_tw_on(field.name, c2, False, dev)
     out = torch.empty((2, r2, c2, lanes), dtype=torch.uint32, device=y.device)
     with torch.cuda.device(y.device):
         _build.call("fecc_seam_wire16", _field_code(field), y.data_ptr(),
-                    out.data_ptr(), r1, c1, lanes, tw1.data_ptr(),
-                    w31.data_ptr(), tw2.data_ptr(), w32.data_ptr(),
-                    seed.data_ptr(), t0.data_ptr(), tr, pcol.data_ptr(),
-                    prow.data_ptr(), _stream(y))
+                    out.data_ptr(), r1, c1, lanes, tw_inv.data_ptr(),
+                    tw_fwd.data_ptr(), seed.data_ptr(), t0.data_ptr(), tr,
+                    pcol.data_ptr(), prow.data_ptr(), _stream(y))
         LAUNCHES["K9_seam_wire16"] += 1
     return out
 
@@ -896,7 +940,9 @@ def ntt_pair_lanes_wire16(x_pairs: torch.Tensor, field: FieldSpec,
     """K12 (the counterpart of ``ntt_pair_lanes_wire16_pallas``): the GF16
     wire pair in one pass, [k, Wu] u32 pairs of LE u16 wire words ->
     (stored [k, Wu], bitmap [k, Wu/8]) u32, the same parts as
-    :func:`wire16_pass_b2`; k a power of two in [4, 2^13], Wu % 8 == 0."""
+    :func:`wire16_pass_b2`; k a power of two in [4, 2^13], Wu % 8 == 0
+    (``csrc/lanes.cu``: the register-stage kernel, its length a template
+    parameter, one block per lane tile and half)."""
     _check_gf16(field, "ntt_pair_lanes_wire16")
     if x_pairs.dim() != 2 or x_pairs.shape[1] % 8:
         raise ValueError(f"ntt_pair_lanes_wire16: needs [k, Wu] pairs with "
@@ -909,10 +955,11 @@ def ntt_pair_lanes_wire16(x_pairs: torch.Tensor, field: FieldSpec,
     bitmap = torch.empty((k, wu // 8), dtype=torch.uint32,
                          device=x_pairs.device)
     with torch.cuda.device(x_pairs.device):
+        tables = _lanes16_tables_on(field.name, k, pre_seed % field.p,
+                                    str(x_pairs.device))
         _build.call("fecc_pair_lanes_wire16", _field_code(field),
                     x_pairs.data_ptr(), stored.data_ptr(), bitmap.data_ptr(),
-                    k, wu, *_lanes_tables(field, k, pre_seed,
-                                          str(x_pairs.device)),
-                    _stream(x_pairs))
+                    k, wu, *(None if t is None else t.data_ptr()
+                             for t in tables), _stream(x_pairs))
         LAUNCHES["K12_pair_lanes_wire16"] += 1
     return stored, bitmap

@@ -15,6 +15,9 @@ staged into padded rows, the exchange, the A2-point DIFs, the seam's
 register-resident hand-off into its second transform and the transposed
 store from registers, with the same index maps and butterfly order.
 
+K9 (the GF16 wire pair's seam) is K2's kernel launched once on each half
+of the [2, R1, C1, Wu] pair; its model is K2's on each half.
+
 The model is held bit for bit against the JAX package's staged transform
 plus its four-step twiddle tables at every A = 2 .. 1024 in both fields
 (K1, K4 and K5 forward, scaled inverse and unscaled inverse, K4 and K5 on
@@ -417,3 +420,42 @@ def test_chained_pre_models_match_pallas_interpret(field):
                                       jfields.FIELDS[field.name],
                                       pre_seed=g, interpret=True))
     np.testing.assert_array_equal(got.reshape(n, lanes), want)
+
+
+@pytest.mark.parametrize("la", range(1, 11))
+def test_seam_wire16_halves_match_reference(la):
+    """K9's schedule, K2's on each half of the wire pair's [2, R1, C1, Wu]
+    (GF16, Wu = 8: whole bitmap groups), == the JAX package's seam on that
+    half, bit for bit, at R1 = 2^la; and the port's K9 wrapper on the CPU
+    (its plain version) gives the same halves."""
+    from fastecc_tpu_torch.interop import from_numpy_u32, to_numpy_u32
+    a, f = 1 << la, fields.GF16
+    y = np.stack([rand_input(f, (a, COLS, 8), 0x9E + 4 * la + h)
+                  for h in (0, 1)])
+    g = f.root_of_order(2 * a * COLS)
+    got = np.stack([col_model(h, f, seam_g=g) for h in y])
+    for h in (0, 1):
+        np.testing.assert_array_equal(got[h], ref_seam(y[h], f, g))
+    np.testing.assert_array_equal(to_numpy_u32(m.seam_pass_wire16(
+        from_numpy_u32(y, "cpu"), f, g)), got)
+
+
+@pytest.mark.parametrize("k", [1 << 7, 1 << 10])
+def test_wire16_pair_with_seam_model_matches_pallas_interpret(k):
+    """The GF16 wire pair as the port runs it, plain K8 -> K9's model (K2's
+    on each half) -> plain K10, == ntt_coset_pair_wire16_pallas in
+    interpret mode over 128 pair lanes of random wire words."""
+    from fastecc_tpu_torch.interop import from_numpy_u32, to_numpy_u32
+    f = fields.GF16
+    pairs = np.random.default_rng(0x9A + k).integers(
+        0, 1 << 32, size=(k, 128), dtype=np.uint64).astype(np.uint32)
+    g = f.root_of_order(2 * k)
+    c1 = m._pair_split(k)
+    h1 = to_numpy_u32(m.col_pass_wire16(
+        from_numpy_u32(pairs.reshape(c1, k // c1, 128), "cpu"), f))
+    h2 = [from_numpy_u32(col_model(h, f, seam_g=g), "cpu") for h in h1]
+    got = m.wire16_pass_b2(h2[0], h2[1], f)
+    want = jmfa.ntt_coset_pair_wire16_pallas(
+        jnp.asarray(pairs), jfields.GF16, g, interpret=True, tile=(8, 128))
+    for a_, b_ in zip(got, want):
+        np.testing.assert_array_equal(to_numpy_u32(a_), np.asarray(b_))

@@ -419,6 +419,38 @@ def test_lanes_wire16_kernel_matches_plain_on_card(k, wu, cuda_device):
     assert bool((gf.widen(got[1]) == 0xFFFF).any())
 
 
+@pytest.mark.parametrize("la", range(2, 14))
+def test_lanes_wire16_kernel_every_length_on_card(la, cuda_device):
+    """K12 (one instantiation per length: the one-exchange split below
+    2^12, the two-exchange split at 2^12 and 2^13) vs its plain version at
+    k = 2^la over Wu = 8, 40 and 1024."""
+    f = fields.GF16
+    k = 1 << la
+    g = f.root_of_order(2 * k)
+    rng = np.random.default_rng(0x12 + la)
+    for wu in (8, 40, 1024):
+        x = from_numpy_u32(rng.integers(0, 1 << 32, size=(k, wu),
+                                        dtype=np.uint64).astype(np.uint32),
+                           cuda_device)
+        got = m.ntt_pair_lanes_wire16(x, f, g)
+        want = m.pair_lanes_wire16_plain(x, f, g)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_seam_wire16_kernel_every_length_on_card(cuda_device):
+    """K9 (K2's kernel on each half) vs its plain version at every R1 =
+    2 .. 1024 on [2, R1, 4, Wu], Wu = 8, 16 and 40."""
+    f = fields.GF16
+    rng = np.random.default_rng(0x9)
+    for la in range(1, 11):
+        a = 1 << la
+        g = f.root_of_order(8 * a)
+        for wu in (8, 16, 40):
+            y = from_numpy_u32(rand_field(f, (2, a, 4, wu), rng), cuda_device)
+            assert torch.equal(m.seam_pass_wire16(y, f, g),
+                               m.seam_pass_wire16_plain(y, f, g)), (a, wu)
+
+
 def test_lanes_dispatch_on_card(cuda_device, monkeypatch):
     """With the flag on, the rate-1/2 encode, the batch, the GF32 wire
     decode and the GF16 wire encode launch K11 / K12 alone and give the
