@@ -13,11 +13,15 @@ main path on the card and fails loudly on any fault. Phases:
                lane count, both fields, with random prepared tables (GF16
                ones holding 0x10000) and masks about half set, and K10 on
                outputs that are ~90% 0x10000 (saturated bitmap words);
-               K3 and K7-sel at every A = 2 .. 1024 in both directions
-               over 13 and 40 lanes (1088 at A >= 512), K7-sel with masks
-               about half set and its original both a tensor of its own
-               and the pass's input, K1, K4 and K5 (forward, inverse
-               scaled and not), K2 and K6 likewise on [A, 4, L]; K11 at k
+               K3, K7 and K7-sel at every A = 2 .. 1024 in both
+               directions over 13 and 40 lanes (1088 at A >= 512), K7-sel
+               with masks about half set and its original both a tensor
+               of its own and the pass's input, K7 also on a view 4 bytes
+               past a 16-byte boundary, K1, K4 and K5 (forward, inverse
+               scaled and not), K2 and K6 likewise on [A, 4, L]; K8 at
+               every C1 = 2 .. 1024 on [C1, 4, Wu] random 32-bit pairs
+               over Wu = 8, 40, 1024 and on a view 4 bytes past a
+               16-byte boundary; K11 at k
                = 32, 2^10, 2^13
                over 1088 and 13 lanes in both fields, K12 at those k over
                Wu = 8, 40, 1024 and on dense escapes (the escape counts
@@ -51,9 +55,9 @@ main path on the card and fails loudly on any fault. Phases:
                -> encode_parity on K1 -> K2 -> K3 -> serialize_parity) on
                every lane, with escapes present, and its first and last 8
                lanes against the plain staged transforms; median of 5 timed
-               calls (wire GB/s = n * B / time); the parent's K9 on its
-               tensor, as in phase 4; then encode_blocks at B = 4096,
-               bytes against the generic route's;
+               calls (wire GB/s = n * B / time); the parent's K8, K9 and
+               K10 on their tensors, as in phase 4; then encode_blocks at
+               B = 4096, bytes against the generic route's;
   8. decode  — the reference bench's decode (bench.py:184): GF32,
                n = 2^20, k = 2^19, 512 lanes, the codeword from rs.encode
                on the card with e = 2^19 random erasures overwritten with
@@ -62,7 +66,7 @@ main path on the card and fails loudly on any fault. Phases:
                checked against the codeword on all 512 lanes, and the
                merge=False form (K7) at the erased rows; median of 5
                timed calls; K3 timed on K7-sel's tensor beside it; where
-               build/parent holds an earlier checkout, its K5, K6 and
+               build/parent holds an earlier checkout, its K5, K6, K7 and
                K7-sel on the same tensors and at decode_blocks' 2^13 pair
                shapes, and its K5 at the all-device decode's 2^13 single
                transforms (held equal and timed beside this tree's, in
@@ -186,9 +190,9 @@ LANES = ("K11_pair_lanes", "K12_pair_lanes_wire16")
 PEAKS = ("K13_copy", "K14_chain", "K15_fused_chain")
 SOURCE = {k: "fastecc_tpu_torch/csrc/" + (
     "microbench.cu" if k in PEAKS else "lanes.cu" if k in LANES
-    else "row.cu" if k in ("K3_row", "K7_row_post_sel")
+    else "row.cu" if k in ("K3_row", "K7_row_post", "K7_row_post_sel")
     else "col.cu" if k in ("K1_col", "K2_seam", "K4_col_pre", "K5_col_vec",
-                           "K6_seam_vec", "K9_seam_wire16")
+                           "K6_seam_vec", "K8_col_wire16", "K9_seam_wire16")
     else "ntt_mfa.cu")
     for k in REPLACES}
 
@@ -356,7 +360,8 @@ def phase_build() -> None:
     _build.library()
     say(f"[build] {b.path.name} in {b.seconds:.1f} s")
     for line in b.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if ("registers" in line or "spill" in line or "Compiling" in line
+                or line.startswith("[nvcc]")):
             say("[build]", line.strip())
 
 
@@ -564,14 +569,32 @@ def phase_kernels(gen) -> dict:
                     cmp("K3_row", m.row_pass(y, field, inv),
                         m.row_pass_plain(y, field, inv),
                         (field.name, a, lanes_, inv))
+                    cmp("K7_row_post", m.row_pass_post(y, field, v,
+                                                       inverse=inv),
+                        m.row_pass_plain(y, field, inv, v),
+                        (field.name, a, lanes_, inv))
                     for o in (orig, y):
                         cmp("K7_row_post_sel",
                             m.row_pass_post(y, field, v, mask, o, inv),
                             m.row_pass_plain(y, field, inv, v, mask, o),
                             (field.name, a, lanes_, inv, o is y))
-    say("[kernels] K3 and K7-sel (its original apart and the input) at A = "
-        "2 .. 1024, forward and inverse, 13 and 40 lanes (1088 at A >= "
-        "512), GF32 and GF16: == plain")
+    # K7 on a view 4 bytes past a 16-byte boundary (the 4-byte copies),
+    # from a generator of its own
+    gen7 = torch.Generator(device="cuda").manual_seed(7)
+    for field in (GF32, GF16):
+        for la in range(1, 11):
+            a = 1 << la
+            v, _ = tables(field, a * 3, gen7)
+            y = rand_field(field.p, (a * 3 * 8 + 1,), gen7)[1:].view(a, 3, 8)
+            check(y.data_ptr() % 16 == 4, "K7's view is 4 bytes past 16")
+            for inv in (False, True):
+                cmp("K7_row_post", m.row_pass_post(y, field, v, inverse=inv),
+                    m.row_pass_plain(y, field, inv, v),
+                    (field.name, a, "offset view", inv))
+    say("[kernels] K3, K7 and K7-sel (its original apart and the input) at "
+        "A = 2 .. 1024, forward and inverse, 13 and 40 lanes (1088 at A >= "
+        "512), K7 also on a view 4 bytes past a 16-byte boundary, GF32 and "
+        "GF16: == plain")
     # K1, K2 and K6 likewise (one instantiation per length, K1 per
     # direction): [A, 4, L], two seed columns and two t0 rows; K4 and K5
     # on the same tensors, their tables from a generator of their own (K4
@@ -661,6 +684,28 @@ def phase_kernels(gen) -> dict:
                 m.seam_pass_wire16_plain(y, GF16, g), ("every R1", a, wu))
     say("[kernels] K9 at every R1 = 2 .. 1024 on [2, R1, 4, Wu], Wu = 8, "
         "16, 40: == plain")
+    # K8 is K1's GF16 kernel on both halves of the pairs, one
+    # instantiation per length: every C1 = 2 .. 1024 on [C1, 4, Wu] random
+    # 32-bit pairs, Wu = 8, 40, 1024, and on a view 4 bytes past a 16-byte
+    # boundary (the 4-byte copies)
+    gen10 = torch.Generator(device="cuda").manual_seed(10)
+
+    def words(*shape):
+        return torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32,
+                             device="cuda", generator=gen10).view(
+                                 torch.uint32)
+    for la in range(1, 11):
+        a = 1 << la
+        views = [words(a, 4, wu) for wu in (8, 40, 1024)]
+        views.append(words(a * 4 * 8 + 1)[1:].view(a, 4, 8))
+        check(views[-1].data_ptr() % 16 == 4, "K8's view is 4 bytes past 16")
+        for x in views:
+            cmp("K8_col_wire16", m.col_pass_wire16(x, GF16),
+                m.col_pass_wire16_plain(x, GF16),
+                ("every C1", a, x.shape[-1], x.data_ptr() % 16))
+    say("[kernels] K8 at every C1 = 2 .. 1024 on [C1, 4, Wu] random 32-bit "
+        "pairs, Wu = 8, 40, 1024 and a view 4 bytes past a 16-byte "
+        "boundary: == plain")
     return worst
 
 
@@ -901,8 +946,9 @@ def parent_library():
     """The kernel library of the earlier checkout of the package in
     build/parent (as ``sass_check.py --compare build/parent`` wants it),
     built there by its own ``_build``; None where there is none. The
-    argtypes are the parent commit's C signatures (K1-K7-sel and K15 with
-    the inner twiddles, K9 and K12 with the packed Stockham tables)."""
+    argtypes are the parent commit's C signatures (K1-K6, K7-sel, K9, K12
+    and K15 with the inner twiddles, K7, K8 and K10 with the packed
+    Stockham tables)."""
     import ctypes
     from pathlib import Path
     root = Path(__file__).resolve().parent / "build" / "parent"
@@ -910,9 +956,12 @@ def parent_library():
         return None
     code = ("from fastecc_tpu_torch.kernels import _build; "
             "print(_build.build().path)")
+    t0 = time.perf_counter()
     lib = ctypes.CDLL(subprocess.run(
         [sys.executable, "-c", code], cwd=root, check=True,
         capture_output=True, text=True).stdout.strip().splitlines()[-1])
+    say(f"[parent] kernel library of build/parent built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.fecc_row.argtypes = [I, P, P, I, I, I, I, P, P]
     lib.fecc_col.argtypes = [I, P, P, I, I, I, I, P, P, P, I, P]
@@ -924,15 +973,19 @@ def parent_library():
     lib.fecc_copy.argtypes = [P, P, ctypes.c_longlong, P]
     lib.fecc_chain.argtypes = [I, P, P, P, I, I, P]
     lib.fecc_fused_chain.argtypes = [I, P, P, I, I, P, I, P]
-    # K9 and K12 with the packed Stockham tables (tw, w3 a transform)
-    lib.fecc_seam_wire16.argtypes = [I, P, P, I, I, I, P, P, P, P, P, P, I,
-                                     P, P, P]
+    lib.fecc_seam_wire16.argtypes = [I, P, P, I, I, I, P, P, P, P, I, P, P,
+                                     P]
     lib.fecc_pair_lanes_wire16.argtypes = [I, P, P, P, I, I, P, P, P, P, P,
                                            P]
+    # K7, K8 and K10 with the packed Stockham tables (tw, w3)
+    lib.fecc_row_post.argtypes = [I, P, P, I, I, I, P, P, P, P]
+    lib.fecc_col_wire16.argtypes = [I, P, P, I, I, I, P, P, P, P, I, P]
+    lib.fecc_row_wire16.argtypes = [I, P, P, P, P, I, I, I, P, P, P]
     for fn in (lib.fecc_row, lib.fecc_col, lib.fecc_seam, lib.fecc_seam_vec,
                lib.fecc_row_post_sel, lib.fecc_col_pre, lib.fecc_col_vec,
                lib.fecc_copy, lib.fecc_chain, lib.fecc_fused_chain,
-               lib.fecc_seam_wire16, lib.fecc_pair_lanes_wire16):
+               lib.fecc_seam_wire16, lib.fecc_pair_lanes_wire16,
+               lib.fecc_row_post, lib.fecc_col_wire16, lib.fecc_row_wire16):
         fn.restype = I
     return lib
 
@@ -1056,6 +1109,16 @@ def parent_row_post_sel(y: torch.Tensor, vec: torch.Tensor,
                        orig.data_ptr())
 
 
+def parent_row_post(y: torch.Tensor, vec: torch.Tensor):
+    """The parent's K7 (``fecc_row_post`` with the packed Stockham
+    tables, forward) on [R, C, L]."""
+    from fastecc_tpu_torch.fields import GF32
+    from fastecc_tpu_torch.kernels import ntt_mfa as m
+    tw, w3 = m._stage_tables_on(GF32.name, y.shape[0], False, str(y.device))
+    return parent_call("fecc_row_post", y, torch.empty_like(y),
+                       tw.data_ptr(), w3.data_ptr(), vec.data_ptr())
+
+
 def parent_col_pre_vec(x3: torch.Tensor, inverse: bool, scale: bool = True,
                        g: int | None = None, vec: torch.Tensor | None = None):
     """The parent's K4 (``fecc_col_pre``, with ``g``) or K5
@@ -1154,9 +1217,9 @@ def parent_col_pre_ms(x4: torch.Tensor, g: int) -> None:
 
 
 def parent_decode_ms(x3, lp, col1, col2, dx, ip, mask, orig) -> None:
-    """Where build/parent holds an earlier checkout, its K5, K6 and K7-sel
-    against this tree's, in turns parent, this, this, parent, outputs held
-    equal: on the decode's own tensors (``event_ms``), at decode_blocks'
+    """Where build/parent holds an earlier checkout, its K5, K6, K7-sel and
+    K7 against this tree's, in turns parent, this, this, parent, outputs
+    held equal: on the decode's own tensors (``event_ms``), at decode_blocks'
     2^13 pair shapes over 1024 lanes and K5 at the all-device decode's
     2^13 single transforms, both directions (``queued_ms``, with random
     tables and a mask about half set). Printed for the record."""
@@ -1179,6 +1242,11 @@ def parent_decode_ms(x3, lp, col1, col2, dx, ip, mask, orig) -> None:
               "K7-sel")
     say(f"[decode] K7-sel against the parent's fecc_row_post_sel on the "
         f"same {tuple(col2.shape)} tensor, parent / this / this / parent: "
+        f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
+    t = turns(parent_row_post(col2, ip),
+              lambda: m.row_pass_post(col2, GF32, ip), event_ms, "K7")
+    say(f"[decode] K7 against the parent's fecc_row_post on the same "
+        f"{tuple(col2.shape)} tensor, parent / this / this / parent: "
         f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
     gen = torch.Generator(device="cuda").manual_seed(8)
     n, lanes = 1 << 13, 1024
@@ -1341,43 +1409,82 @@ def parent_peaks_ms(x: torch.Tensor, z: torch.Tensor,
             f"{t[3]:.4f} ms")
 
 
-def parent_wire16_ms(h1: torch.Tensor, g: int) -> None:
-    """Where build/parent holds an earlier checkout, its K9 (``fecc_seam_
-    wire16`` with the packed Stockham tables) against this tree's on the
-    wire16 phase's [2, R1, C1, Wu] tensor, outputs held equal, in turns
-    parent, this, this, parent (``event_ms``); printed for the record."""
+def parent_wire16_ms(x3: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor,
+                     g: int) -> None:
+    """Where build/parent holds an earlier checkout, its K8 and K10 (with
+    the packed Stockham tables) and its K9 (with the inner twiddles)
+    against this tree's on the wire16 phase's tensors (the pairs, then
+    each pass's [2, ...] input), outputs held equal, in turns parent,
+    this, this, parent (``event_ms``); printed for the record."""
     from fastecc_tpu_torch.fields import GF16
     from fastecc_tpu_torch.kernels import ntt_mfa as m
     lib = parent_library()
     if lib is None:
         return
-    _, r1, c1, lanes = h1.shape
     dev = str(h1.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    c, r, lanes = x3.shape
+    tr = m._seed_tr(r)
+    tw, w3 = m._stage_tables_on(GF16.name, c, True, dev)
+    seed, t0 = m._seeds_on(GF16.name, c * r, c, True, True, tr, dev)
+    out8 = torch.empty((2, r, c, lanes), dtype=torch.uint32, device=dev)
+
+    def parent8():
+        code = lib.fecc_col_wire16(
+            1, x3.data_ptr(), out8.data_ptr(), c, r, lanes, tw.data_ptr(),
+            w3.data_ptr(), seed.data_ptr(), t0.data_ptr(), tr, stream)
+        check(code == 0, f"parent fecc_col_wire16 returned {code}")
+        return out8
+    t = turns(parent8, lambda: m.col_pass_wire16(x3, GF16), event_ms, "K8")
+    say(f"[wire16] K8 against the parent's fecc_col_wire16 on the same "
+        f"{tuple(x3.shape)} pairs, parent / this / this / parent: "
+        f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
+    _, r1, c1, _ = h1.shape
     tr = m._seed_tr(c1)
-    tw1, w31 = m._stage_tables_on(GF16.name, r1, True, dev)
-    tw2, w32 = m._stage_tables_on(GF16.name, r1, False, dev)
+    tw_inv = m._row_tw_on(GF16.name, r1, True, dev)
+    tw_fwd = m._row_tw_on(GF16.name, r1, False, dev)
     seed, t0 = m._seeds_on(GF16.name, r1 * c1, r1, False, False, tr, dev)
     pcol, prow = m._pre_on(GF16.name, g % GF16.p, r1, c1, tr, dev)
-    out = torch.empty((2, c1, r1, lanes), dtype=torch.uint32, device=dev)
+    out9 = torch.empty((2, c1, r1, lanes), dtype=torch.uint32, device=dev)
 
-    def parent():
+    def parent9():
         code = lib.fecc_seam_wire16(
-            1, h1.data_ptr(), out.data_ptr(), r1, c1, lanes, tw1.data_ptr(),
-            w31.data_ptr(), tw2.data_ptr(), w32.data_ptr(), seed.data_ptr(),
-            t0.data_ptr(), tr, pcol.data_ptr(), prow.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            1, h1.data_ptr(), out9.data_ptr(), r1, c1, lanes,
+            tw_inv.data_ptr(), tw_fwd.data_ptr(), seed.data_ptr(),
+            t0.data_ptr(), tr, pcol.data_ptr(), prow.data_ptr(), stream)
         check(code == 0, f"parent fecc_seam_wire16 returned {code}")
-        return out
-    t = turns(parent, lambda: m.seam_pass_wire16(h1, GF16, g), event_ms,
+        return out9
+    t = turns(parent9, lambda: m.seam_pass_wire16(h1, GF16, g), event_ms,
               "K9")
     say(f"[wire16] K9 against the parent's fecc_seam_wire16 on the same "
         f"{tuple(h1.shape)} tensor, parent / this / this / parent: "
+        f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
+    _, r2, c2, _ = h2.shape
+    tw, w3 = m._stage_tables_on(GF16.name, r2, False, dev)
+    stored = torch.empty((r2 * c2, lanes), dtype=torch.uint32, device=dev)
+    bitmap = torch.empty((r2 * c2, lanes // 8), dtype=torch.uint32,
+                         device=dev)
+
+    def parent10():
+        code = lib.fecc_row_wire16(
+            1, h2[0].data_ptr(), h2[1].data_ptr(), stored.data_ptr(),
+            bitmap.data_ptr(), r2, c2, lanes, tw.data_ptr(), w3.data_ptr(),
+            stream)
+        check(code == 0, f"parent fecc_row_wire16 returned {code}")
+        return stored, bitmap
+
+    def this10():
+        return m.wire16_pass_b2(h2[0], h2[1], GF16)
+    check(same(parent10(), this10()), "parent K10 != this K10")
+    t = [event_ms(f) for f in (parent10, this10, this10, parent10)]
+    say(f"[wire16] K10 against the parent's fecc_row_wire16 on the same "
+        f"{tuple(h2.shape)} tensor, parent / this / this / parent: "
         f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
 
 
 def parent_lanes_wire16_ms(words: torch.Tensor, g: int) -> None:
     """As :func:`parent_wire16_ms`, for K12 (``fecc_pair_lanes_wire16``
-    with the packed Stockham tables) on the lanes phase's [k, Wu] pairs:
+    with its level and inner twiddles) on the lanes phase's [k, Wu] pairs:
     both parts held equal, the parent's and this tree's calls timed in
     turns."""
     from fastecc_tpu_torch.fields import GF16
@@ -1386,7 +1493,9 @@ def parent_lanes_wire16_ms(words: torch.Tensor, g: int) -> None:
     if lib is None:
         return
     k, wu = words.shape
-    tables = m._lanes_tables(GF16, k, g, str(words.device))
+    tables = [None if t is None else t.data_ptr() for t in
+              m._lanes16_tables_on(GF16.name, k, g % GF16.p,
+                                   str(words.device))]
     stored = torch.empty_like(words)
     bitmap = torch.empty((k, wu // 8), dtype=torch.uint32,
                          device=words.device)
@@ -1552,7 +1661,7 @@ def phase_wire16(gen, launches, times, shapes):
     for kk in WIRE16:
         say(f"[wire16] {kk} {times[kk]:.3f} ms on {shapes[kk]} per half, "
             f"plain {times['plain_' + kk]:.1f} ms")
-    parent_wire16_ms(h1, g)
+    parent_wire16_ms(x3, h1, h2, g)
     del x3, h1, h2
 
     # encode_blocks, bytes in and out, at the default 4 KB wire format

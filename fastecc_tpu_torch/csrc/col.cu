@@ -1,9 +1,10 @@
-// Pass A, pass A with an input multiply, and the two seams for Hopper
-// (sm_90a): kernels K1, K2, K4, K5, K6 and K9 of the port, on the
-// register-stage engine of regstages.cuh (as K3 and K7-sel in row.cu),
-// with a plain C interface loaded through ctypes (kernels/_build.py
-// builds it; kernels/ntt_mfa.py col_pass, col_pass_pre, col_pass_vec,
-// seam_pass, seam_pass_vec and seam_pass_wire16 wrap it).
+// Pass A, pass A with an input multiply, the two seams and the GF16 wire
+// pair's first two passes for Hopper (sm_90a): kernels K1, K2, K4, K5,
+// K6, K8 and K9 of the port, on the register-stage engine of
+// regstages.cuh (as K3, K7 and K7-sel in row.cu), with a plain C
+// interface loaded through ctypes (kernels/_build.py builds it;
+// kernels/ntt_mfa.py col_pass, col_pass_pre, col_pass_vec, seam_pass,
+// seam_pass_vec, col_pass_wire16 and seam_pass_wire16 wrap it).
 //
 // Replaces these Pallas TPU kernels of fastecc_tpu/kernels/ntt_mfa.py:
 //   K1 fecc_col  <- _col_kernel  (pass A: C-point stages along axis 0 of
@@ -21,6 +22,10 @@
 //   K6 fecc_seam_vec <- _seam_kernel_vec (the decode pair's middle pass:
 //                   K2 with the middle factor v[k * B + b] read from a
 //                   prepared [N] table, the x d/dx table m mod p)
+//   K8 fecc_col_wire16 <- _col_kernel_wire16 (the GF16 wire pair's pass
+//                   A1: K1, inverse and scaled, on lo = x & 0xFFFF and on
+//                   hi = x >> 16 of [C1, R1, Wu] u32 pairs, into half 0
+//                   and half 1 of a [2, R1, C1, Wu] output)
 //   K9 fecc_seam_wire16 <- _seam_kernel_wire16 (the GF16 wire pair's
 //                   seam: K2 on the lo half and on the hi half)
 // The output is the same canonical residues; how it gets there is the
@@ -71,6 +76,21 @@
 //     at 1024: a 16,896-word exchange, two inner tables and two factor
 //     rows, ~84 KB a block; K4 and K5 one inner table and two rows).
 // Ragged lanes as in K3: zero-filled past L, never stored past L.
+//
+// K8 is K1's GF16 kernel run on both halves of the pairs in one block:
+// step 1 splits each tile word into lo = x & 0xFFFF and hi = x >> 16 on
+// its way into two register arrays (where K4 and K5 multiply), then the
+// block runs lo's transform and hi's (hi's exchange reuses the tile
+// after lo's last reads of it) and stores lo into half 0 and hi into
+// half 1 of the output, x T[k, b]. One tile read and one T row serve
+// both halves: measured against the half in the grid (a block a half, a
+// column's two blocks side by side, the second tile read from L2), it
+// took 16% less time at the wire encode's [64, 128, 16384] and 9% less
+// at [128, 256, 4096] (pass_options.py). It holds twice the elements a
+// thread (34 registers at C1 = 64, 64 at 128; 120-128 from 512 on, one
+// block an SM, where the wire gate, C1 <= 128, never goes). It moves 4 bytes a pair in and 8 out
+// (1.5 GiB at that shape); its first version (a mode of ntt_mfa.cu's
+// pass kernel, 1.63 ms there) ran three Stockham rounds.
 
 #include <cstddef>
 #include <cstdint>
@@ -106,14 +126,16 @@ struct ColArgs {
 // The kernel's modes. The numbers are template arguments that
 // sass_check.py keys the instantiations by: new modes take new numbers.
 enum Mode : int { kCol = 0, kSeam = 1, kSeamVec = 2, kColPre = 3,
-                  kColVec = 4 };
+                  kColVec = 4, kColWire16 = 5 };
 
 __host__ __device__ constexpr bool is_seam(int mode) {
   return mode == kSeam || mode == kSeamVec;
 }
 
 // A second [A] factor row: the seams' middle, K4's and K5's input.
-__host__ __device__ constexpr bool has_row(int mode) { return mode != kCol; }
+__host__ __device__ constexpr bool has_row(int mode) {
+  return mode != kCol && mode != kColWire16;
+}
 
 // Shared words of a block: the exchange (which holds the tile first), the
 // inner tables, T's row and the second factor row.
@@ -128,7 +150,8 @@ constexpr int smem_words() {
 // kCol, INV the direction. K2: kSeam, INV = 1: the first transform
 // inverse, the second forward. K6: kSeamVec, K2 with the middle row from
 // the table. K4: kColPre, K1 with the rank-1 row at the input; K5:
-// kColVec, K1 with the table row at the input.
+// kColVec, K1 with the table row at the input. K8: kColWire16, K1
+// (GF16, INV = 1) on the lo and the hi half of the pairs.
 template <int F, int LA, int INV, int MODE>
 __global__ void __launch_bounds__(RegSplit<LA>::kThreads)
     col_kernel(ColArgs p) {
@@ -165,10 +188,21 @@ __global__ void __launch_bounds__(RegSplit<LA>::kThreads)
 
   const int l = threadIdx.x % S::TL, t = threadIdx.x / S::TL;
   uint32_t r[S::A1];
-  if constexpr (MODE == kColPre || MODE == kColVec)
+  uint32_t hi[S::A1];   // K8's hi half
+  if constexpr (MODE == kColPre || MODE == kColVec) {
     fecc::reg_transform<F, INV != 0, S>(r, tile, tw1, mid, t, l);
-  else
+  } else if constexpr (MODE == kColWire16) {
+    // step 1 splits each pair word; hi's exchange follows lo's last reads
+    fecc::static_for<S::A1>([&](auto n1) {
+      const uint32_t w = tile[(decltype(n1)::value * S::A2 + t) * S::TL + l];
+      r[decltype(n1)::value] = w & 0xFFFFu;
+      hi[decltype(n1)::value] = w >> 16;
+    });
+    fecc::reg_transform_regs<F, INV != 0, S>(r, tile, tw1, t, l);
+    fecc::reg_transform_regs<F, INV != 0, S>(hi, tile, tw1, t, l);
+  } else {
     fecc::reg_transform<F, INV != 0, S>(r, tile, tw1, t, l);
+  }
   if constexpr (kSeamMode) {
     // the hand-off: y[n1] = X[t + A2 n1] * mid[t + A2 n1], with
     // n1 = j + (A1 / A2) k2 held in r[j A2 + bitrev(k2)], is step 1's
@@ -187,18 +221,23 @@ __global__ void __launch_bounds__(RegSplit<LA>::kThreads)
   }
   if (l0 + l >= p.L) return;
   // transposed: out[b, k1 + A1 k2, l] of [B, A, L], x T[k, b]
-  uint32_t* out = p.out + (size_t)b * S::A * p.L + l0 + l;
-  fecc::static_for<S::A1 / S::A2>([&](auto jc) {
-    constexpr int jj = decltype(jc)::value;
-    const int k1 = t + S::A2 * jj;
-    uint32_t* o = out + (size_t)k1 * p.L;
-    fecc::static_for<S::A2>([&](auto k2c) {
-      constexpr int k2 = decltype(k2c)::value;
-      constexpr int src = jj * S::A2 + fecc::bitrev(k2, S::LA2);
-      o[(size_t)(k2 * S::A1) * p.L] =
-          mul_full<F>(r[src], fac[k1 + k2 * S::A1]);
+  auto store = [&](const uint32_t(&v)[S::A1], uint32_t* out) {
+    fecc::static_for<S::A1 / S::A2>([&](auto jc) {
+      constexpr int jj = decltype(jc)::value;
+      const int k1 = t + S::A2 * jj;
+      uint32_t* o = out + (size_t)k1 * p.L;
+      fecc::static_for<S::A2>([&](auto k2c) {
+        constexpr int k2 = decltype(k2c)::value;
+        constexpr int src = jj * S::A2 + fecc::bitrev(k2, S::LA2);
+        o[(size_t)(k2 * S::A1) * p.L] =
+            mul_full<F>(v[src], fac[k1 + k2 * S::A1]);
+      });
     });
-  });
+  };
+  uint32_t* out = p.out + (size_t)b * S::A * p.L + l0 + l;
+  store(r, out);
+  // K8: hi into half 1 of [2, B, A, L]
+  if constexpr (MODE == kColWire16) store(hi, out + (size_t)S::A * p.B * p.L);
 }
 
 template <int F, int LA, int INV, int MODE>
@@ -217,11 +256,15 @@ cudaError_t launch(ColArgs p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The seams run their first transform inverse; K1, K4 and K5 either way.
+// The seams run their first transform inverse; K1, K4 and K5 either way;
+// K8 is GF16 and inverse only (its lanes are u16 wire words).
 template <int LA, int MODE>
 cudaError_t launch_mode(int field, bool inv, const ColArgs& p,
                         cudaStream_t s) {
-  if constexpr (is_seam(MODE)) {
+  if constexpr (MODE == kColWire16) {
+    return field == fecc::kGF16 ? launch<fecc::kGF16, LA, 1, MODE>(p, s)
+                                : cudaErrorInvalidValue;
+  } else if constexpr (is_seam(MODE)) {
     return field == fecc::kGF32 ? launch<fecc::kGF32, LA, 1, MODE>(p, s)
                                 : launch<fecc::kGF16, LA, 1, MODE>(p, s);
   } else {
@@ -245,6 +288,7 @@ cudaError_t dispatch(int la, int field, bool inv, int mode, const ColArgs& p,
       case kSeamVec: return launch_mode<LA, kSeamVec>(field, inv, p, s);
       case kColPre: return launch_mode<LA, kColPre>(field, inv, p, s);
       case kColVec: return launch_mode<LA, kColVec>(field, inv, p, s);
+      case kColWire16: return launch_mode<LA, kColWire16>(field, inv, p, s);
       default: return launch_mode<LA, kCol>(field, inv, p, s);
     }
   }
@@ -313,6 +357,16 @@ int fecc_col_vec(int field, const void* x, void* out, int A, int B, int L,
   ColArgs p = col_args(x, out, B, L, tw, seed, t0);
   p.table = (const uint32_t*)vec;
   return run(field, inverse != 0, kColVec, p, A, tr, stream);
+}
+
+// K8: [A=C1, B=R1, L=Wu] u32 pairs of LE u16 words -> [2, R1, C1, L]:
+// K1 (GF16, inverse; N^-1 folded into t0) on lo = x & 0xFFFF (half 0)
+// and on hi = x >> 16 (half 1). tw: the [A2, A1] inverse inner twiddles.
+int fecc_col_wire16(int field, const void* x, void* out, int A, int B,
+                    int L, const void* tw, const void* seed, const void* t0,
+                    int tr, void* stream) {
+  return run(field, true, kColWire16, col_args(x, out, B, L, tw, seed, t0),
+             A, tr, stream);
 }
 
 // K2: [A=R1, B=C1, L] -> [C1, R1, L]; inverse R1-point stages (inner

@@ -1,12 +1,14 @@
-// Pass B for Hopper (sm_90a): kernels K3 and K7-sel of the port, on the
-// register-stage engine of regstages.cuh, with a plain C interface loaded
-// through ctypes (kernels/_build.py builds it; kernels/ntt_mfa.py row_pass
-// and row_pass_post wrap it).
+// Pass B for Hopper (sm_90a): kernels K3, K7 and K7-sel of the port, on
+// the register-stage engine of regstages.cuh, with a plain C interface
+// loaded through ctypes (kernels/_build.py builds it; kernels/ntt_mfa.py
+// row_pass and row_pass_post wrap it).
 //
 // Replaces these Pallas TPU kernels of fastecc_tpu/kernels/ntt_mfa.py:
 //   K3 fecc_row <- _row_kernel: R-point forward or inverse stages along
 //                  axis 0 of [A = R, B = C, L] u32, natural-order output,
 //                  no scale;
+//   K7 fecc_row_post <- _row_kernel_post: K3, then out *= v[k * B + b]
+//                  at every output row k (the Forney inverse derivative);
 //   K7-sel fecc_row_post_sel <- _row_kernel_post_sel: K3, then at rows k
 //                  whose mask[k * B + b] is not 0 out *= v[k * B + b]
 //                  (the Forney inverse derivative), at the others out =
@@ -57,17 +59,23 @@
 // ~1.2 ms: below half the bytes bound (2.56 ms), but above the bound
 // itself (1.28 ms), so this kernel is issue-bound, not memory-bound.
 //
-// K7-sel is K3's schedule with an epilogue in the store loop. The
-// block's two [A] table rows, v[k * B + b] and the mask, are copied into
-// shared memory with the tile (8 KB more at A = 1024). For each group of
-// A2 outputs a thread first sets every register: erased rows (mask not
-// 0) x v[k], kept rows a read-only load of orig at the same [A, B, L]
-// index over the transform's value, so that all the group's loads are in
-// flight before its first store. The mask is a row's, so a warp splits
-// only where it holds two columns t (TL = 16). Measured against copying
-// the kept rows of orig into the freed exchange with cp.async while the
-// A2-point DIFs run, and reading them from shared memory at the store:
-// that held more registers and lost (PERF.md section 6).
+// K7 and K7-sel are K3's schedule with an epilogue in the store loop
+// (one inlined body, `row_post`, the merge a compile-time flag). K7
+// copies the block's [A] table row v[k * B + b] into shared memory with
+// the tile (4 KB more at A = 1024) and stores X[k] x v[k] at every row; a
+// table multiply is one shared load and one `mul_full` an element. Its
+// first version (a mode of ntt_mfa.cu's pass kernel, 6.24 ms at [1024,
+// 1024, 512]) ran five Stockham rounds and copied its table row after
+// them. K7-sel also copies the mask row (8 KB more at A = 1024). For
+// each group of A2 outputs a thread first sets every register: erased
+// rows (mask not 0) x v[k], kept rows a read-only load of orig at the
+// same [A, B, L] index over the transform's value, so that all the
+// group's loads are in flight before its first store. The mask is a
+// row's, so a warp splits only where it holds two columns t (TL = 16).
+// Measured against copying the kept rows of orig into the freed exchange
+// with cp.async while the A2-point DIFs run, and reading them from
+// shared memory at the store: that held more registers and lost (PERF.md
+// section 6).
 // orig may be the pass's own input: neither is written. At the decode's
 // e = n / 2 it reads half the rows of orig, 1 GiB at [1024, 1024, 512].
 
@@ -93,12 +101,12 @@ struct RowArgs {
   int B, L;             // columns (axis 1), lanes (axis 2)
   int lane_tiles;       // ceil(L / TL)
   int vec;              // x 16-byte aligned and L % 4 == 0
-  const uint32_t* post;  // K7-sel: [A * B] factors v[k * B + b]
+  const uint32_t* post;  // K7, K7-sel: [A * B] factors v[k * B + b]
   const uint32_t* mask;  // K7-sel: [A * B] erased-row mask
   const uint32_t* orig;  // K7-sel: [A, B, L] rows kept where mask is 0
 };
 
-// The schedule up to the store, K3's and K7-sel's: the block's tile and
+// The schedule up to the store, K3's, K7's and K7-sel's: the block's tile and
 // the inner table in flight with whatever `copies()` issues, one wait,
 // then the transform of lane column (t, l): r[j A2 + bitrev(k2)] holds
 // X[t + A2 j + A1 k2].
@@ -146,11 +154,11 @@ __global__ void __launch_bounds__(RegSplit<LA>::kThreads)
   });
 }
 
-// K7-sel: K3, then out = mask[k] != 0 ? X[k] * post[k] : orig at each
-// output row k, with the block's rows of post and mask in shared memory
-// behind K3's.
-template <int F, int LA, int INV>
-__device__ __forceinline__ void row_sel(const RowArgs& p) {
+// K7 (MERGE false): K3, then out = X[k] * post[k] at each output row k.
+// K7-sel (MERGE): out = mask[k] != 0 ? X[k] * post[k] : orig. The block's
+// rows of post (and mask) lie in shared memory behind K3's.
+template <int F, int LA, int INV, bool MERGE>
+__device__ __forceinline__ void row_post(const RowArgs& p) {
   using S = RegSplit<LA>;
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* post = smem + S::kSmemWords;
@@ -161,7 +169,7 @@ __device__ __forceinline__ void row_sel(const RowArgs& p) {
   uint32_t r[S::A1];
   row_transform<F, INV, S>(p, smem, r, b, l0, [&] {
     fecc::load_row_async<S>(post, p.post + b, p.B);
-    fecc::load_row_async<S>(mask, p.mask + b, p.B);
+    if constexpr (MERGE) fecc::load_row_async<S>(mask, p.mask + b, p.B);
   });
   const int l = threadIdx.x % S::TL, t = threadIdx.x / S::TL;
   if (l0 + l >= p.L) return;
@@ -178,8 +186,11 @@ __device__ __forceinline__ void row_sel(const RowArgs& p) {
       constexpr int k2 = decltype(k2c)::value;
       constexpr int src = j * S::A2 + fecc::bitrev(k2, S::LA2);
       const int k = k1 + k2 * S::A1;
-      r[src] = mask[k] != 0u ? mul_full<F>(r[src], post[k])
-                             : __ldg(orig + (size_t)(k2 * S::A1) * row);
+      if constexpr (MERGE)
+        r[src] = mask[k] != 0u ? mul_full<F>(r[src], post[k])
+                               : __ldg(orig + (size_t)(k2 * S::A1) * row);
+      else
+        r[src] = mul_full<F>(r[src], post[k]);
     });
     uint32_t* o = p.out + at + (size_t)k1 * row;
     fecc::static_for<S::A2>([&](auto k2c) {
@@ -193,32 +204,56 @@ __device__ __forceinline__ void row_sel(const RowArgs& p) {
 template <int F, int LA, int INV>
 __global__ void __launch_bounds__(RegSplit<LA>::kThreads)
     row_sel_kernel(RowArgs p) {
-  row_sel<F, LA, INV>(p);
+  row_post<F, LA, INV, true>(p);
 }
 
-// K7-sel at A >= 512 (kBoundLog), held to two blocks of 512 threads an
-// SM. Unasked, ptxas gives it 66-74 registers and one block at 1024; at
-// 512 it fits 64 unasked, yet the bound (a few bytes of spills) ran 6%
-// faster; at 256 its own choice (40-42 registers, three blocks) ran 7%
-// faster than the bound, and a bound of one block, which lets it take
-// 72-120 registers, was the slowest everywhere (k7sel_options.py).
+// K7-sel and K7 at A >= 512 (kBoundLog), held to two blocks of 512
+// threads an SM. Unasked, ptxas gives K7-sel 66-74 registers and one
+// block at 1024; at 512 it fits 64 unasked, yet the bound (a few bytes of
+// spills) ran 6% faster; at 256 its own choice (40-42 registers, three
+// blocks) ran 7% faster than the bound, and a bound of one block, which
+// lets it take 72-120 registers, was the slowest everywhere
+// (k7sel_options.py). K7 takes 56-64 registers unasked at 512 and 1024;
+// the bound (16-40 bytes of spill stores) ran 3% faster at 512 and 1%
+// at 1024, and at 256 its own choice (37-40 registers) ran 2% faster
+// than the bound (pass_options.py).
 constexpr int kBoundLog = 9;
 
 template <int F, int LA, int INV>
 __global__ void __launch_bounds__(RegSplit<LA>::kThreads, 2)
     row_sel_kernel_lb2(RowArgs p) {
-  row_sel<F, LA, INV>(p);
+  row_post<F, LA, INV, true>(p);
 }
 
-// SEL: 0 for K3, 1 for K7-sel (two more [A] rows of shared memory).
+template <int F, int LA, int INV>
+__global__ void __launch_bounds__(RegSplit<LA>::kThreads)
+    row_post_kernel(RowArgs p) {
+  row_post<F, LA, INV, false>(p);
+}
+
+template <int F, int LA, int INV>
+__global__ void __launch_bounds__(RegSplit<LA>::kThreads, 2)
+    row_post_kernel_lb2(RowArgs p) {
+  row_post<F, LA, INV, false>(p);
+}
+
+// The store's epilogue: none (K3), the table multiply (K7: one more [A]
+// row of shared memory) or the select (K7-sel: two more).
+enum Epilogue : int { kNone = 0, kSel = 1, kPost = 2 };
+
 template <int F, int LA, int INV, int SEL>
 cudaError_t launch(RowArgs p, cudaStream_t stream) {
   using S = RegSplit<LA>;
-  const size_t smem =
-      (size_t)(S::kSmemWords + (SEL ? 2 * S::A : 0)) * sizeof(uint32_t);
+  constexpr int kRows = SEL == kSel ? 2 : SEL == kPost ? 1 : 0;
+  const size_t smem = (size_t)(S::kSmemWords + kRows * S::A) *
+                      sizeof(uint32_t);
   void (*kernel)(RowArgs);
-  if constexpr (SEL == 0)
+  if constexpr (SEL == kNone)
     kernel = row_kernel<F, LA, INV>;
+  else if constexpr (SEL == kPost && LA >= kBoundLog)
+    kernel = row_post_kernel_lb2<F, LA, INV>;
+  else if constexpr (SEL == kPost)
+    kernel = row_post_kernel<F, LA, INV>;
   else if constexpr (LA >= kBoundLog)
     kernel = row_sel_kernel_lb2<F, LA, INV>;
   else
@@ -280,7 +315,17 @@ extern "C" {
 // inner twiddles of kernels/ntt_mfa.py _row_inner_twiddles.
 int fecc_row(int field, const void* x, void* out, int A, int B, int L,
              int inverse, const void* tw, void* stream) {
-  return run<0>(field, x, out, A, B, L, inverse, tw, RowArgs{}, stream);
+  return run<kNone>(field, x, out, A, B, L, inverse, tw, RowArgs{}, stream);
+}
+
+// K7: K3 (inverse != 0: inverse, unscaled), then out[k, b, :] =
+// vec[k * B + b] * X[k, b, :]; vec is [A * B] u32.
+int fecc_row_post(int field, const void* x, void* out, int A, int B, int L,
+                  int inverse, const void* tw, const void* vec,
+                  void* stream) {
+  RowArgs p{};
+  p.post = (const uint32_t*)vec;
+  return run<kPost>(field, x, out, A, B, L, inverse, tw, p, stream);
 }
 
 // K7-sel: K3 (inverse != 0: inverse, unscaled), then out[k, b, :] =
@@ -294,7 +339,7 @@ int fecc_row_post_sel(int field, const void* x, void* out, int A, int B,
   p.post = (const uint32_t*)vec;
   p.mask = (const uint32_t*)mask;
   p.orig = (const uint32_t*)orig;
-  return run<1>(field, x, out, A, B, L, inverse, tw, p, stream);
+  return run<kSel>(field, x, out, A, B, L, inverse, tw, p, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
-// Stockham NTT stages on an [A, TL] tile in shared memory, shared by the
-// pass kernels (ntt_mfa.cu) and the fused-chain microbenchmark
-// (microbench.cu). Element (a, l) of the tile is word a * TL + l: lanes
+// Stockham NTT stages on an [A, TL] tile in shared memory: the stage loop
+// of the port's first design, left in K10 (ntt_mfa.cu) and K11
+// (lanes.cu). Element (a, l) of the tile is word a * TL + l: lanes
 // are contiguous, so neighbouring threads touch neighbouring words. Each
 // stage reads one buffer and writes the other; `run_stages` ping-pongs
 // between them and returns the buffer that holds the result.

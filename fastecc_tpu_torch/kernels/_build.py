@@ -3,9 +3,10 @@
 The sources under ``fastecc_tpu_torch/csrc/`` have a plain C interface, so
 ``nvcc`` compiles them in seconds into a shared library (no PyTorch
 headers), loaded with ``ctypes``: one ``nvcc`` per source, all started
-together, then one link. The build happens on first use, into
-``build/torch_kernels/`` at the repository root, under a name that hashes
-the sources and flags, so an edited source never loads a stale library.
+together (the log ends with each one's seconds), then one link. The build
+happens on first use, into ``build/torch_kernels/`` at the repository
+root, under a name that hashes the sources and flags, so an edited source
+never loads a stale library.
 Every pointer and the stream pass as ``c_void_p``; every entry returns
 its ``cudaGetLastError()`` code, which the wrappers turn into an
 exception.
@@ -13,6 +14,7 @@ exception.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import hashlib
@@ -48,20 +50,22 @@ SIGNATURES = {
     "fecc_seam": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P],
     # row.cu: (field, x, out, A, B, L, inverse, inner twiddles, stream)
     "fecc_row": [_I, _P, _P, _I, _I, _I, _I, _P, _P],
+    # (field, x, out, A, B, L, inverse, inner twiddles, vec, stream)
+    "fecc_row_post": [_I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     # (field, x, out, A, B, L, inverse, inner twiddles, vec, mask, orig,
     # stream)
     "fecc_row_post_sel": [_I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     # col.cu: (field, x, out, A, B, L, tw_inv, tw_fwd, seed, t0, tr, vec,
     # stream)
     "fecc_seam_vec": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P],
-    # ntt_mfa.cu
-    "fecc_row_post": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
-    "fecc_col_wire16": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
-    # col.cu: (field, x, out, A, B, L, tw_inv, tw_fwd, seed, t0, tr, pcol,
-    # prow, stream), K2 on each half
+    # (field, x, out, A, B, L, inverse inner twiddles, seed, t0, tr,
+    # stream), K1 on each half
+    "fecc_col_wire16": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
+    # (field, x, out, A, B, L, tw_inv, tw_fwd, seed, t0, tr, pcol, prow,
+    # stream), K2 on each half
     "fecc_seam_wire16": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P,
                          _P],
-    # (field, lo, hi, stored, bitmap, A, B, L, tw, w3, stream)
+    # ntt_mfa.cu: (field, lo, hi, stored, bitmap, A, B, L, tw, w3, stream)
     "fecc_row_wire16": [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
     # lanes.cu: (field, x, out, k, L, tw_i, w3_i, tw_f, w3_f, mid, stream)
     "fecc_pair_lanes": [_I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
@@ -125,16 +129,21 @@ def build() -> Build:
     log = []
     try:
         objs = [tmpdir / (Path(s).stem + ".o") for s in SOURCES]
-        procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, "-c", "-o", str(o),
-                                   str(CSRC / s)], stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for s, o in zip(SOURCES, objs)]
-        outs = [p.communicate()[0] for p in procs]
-        log.extend(outs)
-        for s, p, out in zip(SOURCES, procs, outs):
-            if p.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {s} ({p.returncode}):\n"
-                                   f"{out}")
+
+        def compile_one(src: str, obj: Path):
+            t = time.perf_counter()
+            p = subprocess.run([nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                                str(CSRC / src)], stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True)
+            return p.returncode, p.stdout, time.perf_counter() - t
+        with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+            done = list(pool.map(compile_one, SOURCES, objs))
+        log.extend(out for _, out, _ in done)
+        log.append("".join(f"[nvcc] {s} {sec:.1f} s\n"
+                           for s, (_, _, sec) in zip(SOURCES, done)))
+        for s, (code, out, _) in zip(SOURCES, done):
+            if code != 0:
+                raise RuntimeError(f"nvcc failed on {s} ({code}):\n{out}")
         lib = tmpdir / "lib.so"
         proc = subprocess.run([nvcc(), *ARCH, "-shared", "-o", str(lib),
                                *map(str, objs)], capture_output=True,

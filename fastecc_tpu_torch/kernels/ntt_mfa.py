@@ -42,8 +42,8 @@ the port's own gate) on every device; both routes give the same bits.
 
 Each kernel has a wrapper and a plain PyTorch version here. The wrapper
 takes the plain version only for a CPU tensor; on a CUDA tensor it
-launches its Hopper kernel (``csrc/col.cu``: K1, K2, K4, K5, K6, K9;
-``csrc/row.cu``: K3, K7-sel; ``csrc/ntt_mfa.cu``: K7, K8, K10;
+launches its Hopper kernel (``csrc/col.cu``: K1, K2, K4, K5, K6, K8,
+K9; ``csrc/row.cu``: K3, K7, K7-sel; ``csrc/ntt_mfa.cu``: K10;
 ``csrc/lanes.cu``: K11, K12) or raises, and
 counts the launch in :data:`LAUNCHES`.
 Split, lane tile and twiddle tables are the port's own; the output bits
@@ -529,31 +529,28 @@ def row_pass_post(y: torch.Tensor, field: FieldSpec, post_vec: torch.Tensor,
                   inverse: bool = False) -> torch.Tensor:
     """K7 (pass B, then out[k] *= post_vec[k], k = k_r*C + k_c) or, with
     ``sel_mask``/``sel_orig`` ([N] u32 and [R, C, L] u32), K7-sel (then
-    out[k] where sel_mask[k] != 0, else sel_orig[k]; ``csrc/row.cu``, K3's
-    kernel with the select in its store): [R, C, L] u32 -> [R, C, L],
-    natural order."""
+    out[k] where sel_mask[k] != 0, else sel_orig[k]): [R, C, L] u32 ->
+    [R, C, L], natural order (``csrc/row.cu``: K3's schedule with the
+    table multiply, or the select, in its store)."""
     _check_sel(post_vec, sel_mask, sel_orig)
     if not _dispatch(y, "row_pass_post"):
         return row_pass_plain(y, field, inverse, post_vec, sel_mask,
                               sel_orig)
     r, c, lanes = y.shape
-    dev = str(y.device)
     vec = _cuda_operand(post_vec, y, r * c, "row_pass_post: post_vec")
     out = torch.empty_like(y)
-    head = [_field_code(field), y.data_ptr(), out.data_ptr(), r, c, lanes]
+    tw = _row_tw_on(field.name, r, inverse, str(y.device))
+    head = [_field_code(field), y.data_ptr(), out.data_ptr(), r, c, lanes,
+            int(inverse), tw.data_ptr(), vec]
     with torch.cuda.device(y.device):
         if sel_mask is None:
-            tw, w3 = _stage_tables_on(field.name, r, inverse, dev)
-            _build.call("fecc_row_post", *head, tw.data_ptr(),
-                        w3.data_ptr(), vec, _stream(y))
+            _build.call("fecc_row_post", *head, _stream(y))
             LAUNCHES["K7_row_post"] += 1
         else:
             mask = _cuda_operand(sel_mask, y, r * c, "row_pass_post: sel_mask")
             orig = _cuda_operand(sel_orig, y, y.numel(),
                                  "row_pass_post: sel_orig")
-            tw = _row_tw_on(field.name, r, inverse, dev)
-            _build.call("fecc_row_post_sel", *head, int(inverse),
-                        tw.data_ptr(), vec, mask, orig, _stream(y))
+            _build.call("fecc_row_post_sel", *head, mask, orig, _stream(y))
             LAUNCHES["K7_row_post_sel"] += 1
     return out
 
@@ -839,19 +836,20 @@ def row_pass_wire16_plain(lo2: torch.Tensor, hi2: torch.Tensor,
 
 def col_pass_wire16(x3: torch.Tensor, field: FieldSpec) -> torch.Tensor:
     """K8 (the wire pair's pass A1): [C1, R1, Wu] u32 pairs -> [2, R1, C1,
-    Wu], lo in half 0 and hi in half 1."""
+    Wu], lo in half 0 and hi in half 1 (``csrc/col.cu``: K1's GF16 kernel
+    on both halves in one block, split as step 1 reads the tile)."""
     _check_gf16(field, "col_pass_wire16")
     if not _dispatch(x3, "col_pass_wire16"):
         return col_pass_wire16_plain(x3, field)
     c, r, lanes = x3.shape
     dev = str(x3.device)
     tr = _seed_tr(r)
-    tw, w3 = _stage_tables_on(field.name, c, True, dev)
+    tw = _row_tw_on(field.name, c, True, dev)
     seed, t0 = _seeds_on(field.name, c * r, c, True, True, tr, dev)
     out = torch.empty((2, r, c, lanes), dtype=torch.uint32, device=x3.device)
     with torch.cuda.device(x3.device):
         _build.call("fecc_col_wire16", _field_code(field), x3.data_ptr(),
-                    out.data_ptr(), c, r, lanes, tw.data_ptr(), w3.data_ptr(),
+                    out.data_ptr(), c, r, lanes, tw.data_ptr(),
                     seed.data_ptr(), t0.data_ptr(), tr, _stream(x3))
         LAUNCHES["K8_col_wire16"] += 1
     return out

@@ -5,9 +5,9 @@ the card.
 
 A developer's measurement, run from the repo's root on one NVIDIA GPU; no
 entry point of the package uses it. K7-sel (``fastecc_tpu_torch/csrc/
-row.cu``: the body ``row_sel`` under ``row_sel_kernel`` below A = 512 and
-``row_sel_kernel_lb2`` from 512 on) keeps the rows whose mask is 0 from
-``orig``.
+row.cu``: the body ``row_post`` with the merge under ``row_sel_kernel``
+below A = 512 and ``row_sel_kernel_lb2`` from 512 on) keeps the rows whose
+mask is 0 from ``orig``.
 Each option is row.cu edited in a copy under ``build/k7sel_options/``
 and built alone with ``nvcc``:
 
@@ -185,21 +185,28 @@ def bound_below(blocks: int):
 
 
 def tie(src: str) -> str:
-    src = edit(src, """      r[src] = mask[k] != 0u ? mul_full<F>(r[src], post[k])
-                             : __ldg(orig + (size_t)(k2 * S::A1) * row);""",
-               """      const uint32_t mk = mask[k];
-      if (mk != 0u) r[src] = mul_full<F>(r[src], post[k]);
-      ldg_if_zero(r[src], mk, orig + (size_t)(k2 * S::A1) * row);""")
-    i = src.index("// K7-sel: K3, then out")
+    src = edit(src, """      if constexpr (MERGE)
+        r[src] = mask[k] != 0u ? mul_full<F>(r[src], post[k])
+                               : __ldg(orig + (size_t)(k2 * S::A1) * row);""",
+               """      if constexpr (MERGE) {
+        const uint32_t mk = mask[k];
+        if (mk != 0u) r[src] = mul_full<F>(r[src], post[k]);
+        ldg_if_zero(r[src], mk, orig + (size_t)(k2 * S::A1) * row);
+      }""")
+    i = src.index("// K7 (MERGE false): K3, then out")
     return src[:i] + TIED + src[i:]
 
 
 def exchange(src: str) -> str:
-    start = src.index("// K7-sel: K3, then out")
-    end = src.index("template <int F, int LA, int INV>\n__global__ void "
-                    "__launch_bounds__(RegSplit<LA>::kThreads)\n"
-                    "    row_sel_kernel(")
-    return src[:start] + OPT_B + "\n" + src[end:]
+    """K7-sel's kernels on OPT_B's body instead of row_post's (K7 keeps
+    row_post)."""
+    at = src.index("template <int F, int LA, int INV>\n__global__ void "
+                   "__launch_bounds__(RegSplit<LA>::kThreads)\n"
+                   "    row_sel_kernel(")
+    src = src[:at] + OPT_B + "\n" + src[at:]
+    assert src.count("row_post<F, LA, INV, true>(p);") == 2
+    return src.replace("row_post<F, LA, INV, true>(p);",
+                       "row_sel<F, LA, INV>(p);")
 
 
 VARIANTS = {

@@ -1,0 +1,365 @@
+"""K7's register bound, K8's layout and K10's kernel parameters, measured
+on the card.
+
+    python3 pass_options.py
+
+A developer's measurement, run from the repo's root on one NVIDIA GPU; no
+entry point of the package uses it. K7 (``fastecc_tpu_torch/csrc/row.cu``:
+the body ``row_post`` under ``row_post_kernel`` below A = 2^kBoundLog and
+``row_post_kernel_lb2``, held to two blocks an SM, from there on) is pass
+B with the decode's table multiply in its store. Each option is row.cu
+with ``kBoundLog`` edited, in a copy under ``build/pass_options/``, built
+alone with ``nvcc``:
+
+  unbounded  ptxas' own register choice at every A (kBoundLog past the
+             longest pass);
+  bounded    two blocks an SM at every A (kBoundLog = 1).
+
+At each A one of them is the package's kernel. Each is held equal to the
+package's K7 at every A = 2 .. 1024 in both fields and directions, then
+timed in turns (CUDA events, chip_smoke.event_ms) at [A, 2^20 / A, 512]
+GF32 (the decode's 2^29 elements) for A = 256, 512 and 1024, with K3 on
+the same tensor beside them. Prints ptxas' registers and spills of K7 at
+A >= 256.
+
+K8 (``csrc/col.cu``, ``col_kernel`` mode kColWire16) runs both halves of
+the pairs in one block: one tile read, step 1 splitting each word into two
+register arrays, two transforms, both halves stored. The option
+``k8_halves`` is col.cu with a kernel of one half a block added and
+launched for K8 (the half the fastest block index, so that a column's
+two blocks run side by side and the second read of its tile comes from
+L2). It is held equal to the package's K8 at every C1 = 2 .. 1024 over
+Wu = 8 and 40, then timed in turns at the GF16 wire encode's
+[64, 128, 16384] pairs and at [128, 256, 4096] (k = 2^15, the wire
+gate's largest C1), with its ptxas lines.
+
+K10 (``csrc/ntt_mfa.cu``) takes two kernel parameters, ``PassArgs`` and
+``TableArgs``. The option ``k10_args`` is ntt_mfa.cu with both structs
+as they were while K7 and K8 shared the kernel (the fields they alone
+read kept, unused, in their old places: every later field and the second
+parameter at their old offsets). It is held equal to the package's K10
+and timed in turns at the wire encode's [2, 64, 128, 16384] halves,
+there and back five times.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+import chip_smoke as cs
+from fastecc_tpu_torch.fields import GF16, GF32
+from fastecc_tpu_torch.kernels import _build
+from fastecc_tpu_torch.kernels import ntt_mfa as m
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "build" / "pass_options"
+BOUND = "constexpr int kBoundLog = "
+VARIANTS = {"unbounded": 11, "bounded": 1}
+
+# K8 with one half a block (inserted into col.cu, launched for kColWire16
+# in place of col_kernel's mode): block 2 i + h runs half h of block i
+HALVES = r"""
+template <int LA>
+__global__ void __launch_bounds__(RegSplit<LA>::kThreads)
+    col_wire16_half_kernel(ColArgs p) {
+  using S = RegSplit<LA>;
+  constexpr int F = fecc::kGF16;
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* tile = smem;
+  uint32_t* tw1 = smem + S::kExchWords;
+  uint32_t* fac = tw1 + S::A2 * S::kTwStride;
+  const int half = blockIdx.x & 1;
+  const int lt = (blockIdx.x >> 1) % p.lane_tiles;
+  const int b = (blockIdx.x >> 1) / p.lane_tiles;
+  const int l0 = lt * S::TL;
+  fecc::load_tile_async<S>(tile, p.x, p.B, p.L, b, l0, p.vec != 0);
+  fecc::load_twiddles_async<S>(tw1, p.tw1);
+  const int j = b & ((1 << p.log_tr) - 1);
+  const uint32_t* t0 = p.t0 + (size_t)(b >> p.log_tr) * S::A;
+  for (int k = threadIdx.x; k < S::A; k += S::kThreads)
+    fac[k] = mul_full<F>(p.seed[(k << p.log_tr) + j], t0[k]);
+  fecc::cp_async_wait_all();
+  __syncthreads();
+  const int l = threadIdx.x % S::TL, t = threadIdx.x / S::TL;
+  uint32_t r[S::A1];
+  fecc::static_for<S::A1>([&](auto n1) {
+    r[decltype(n1)::value] =
+        (tile[(decltype(n1)::value * S::A2 + t) * S::TL + l] >> (16 * half)) &
+        0xFFFFu;
+  });
+  fecc::reg_transform_regs<F, true, S>(r, tile, tw1, t, l);
+  if (l0 + l >= p.L) return;
+  uint32_t* out = p.out + (size_t)half * S::A * p.B * p.L +
+                  (size_t)b * S::A * p.L + l0 + l;
+  fecc::static_for<S::A1 / S::A2>([&](auto jc) {
+    constexpr int jj = decltype(jc)::value;
+    const int k1 = t + S::A2 * jj;
+    uint32_t* o = out + (size_t)k1 * p.L;
+    fecc::static_for<S::A2>([&](auto k2c) {
+      constexpr int k2 = decltype(k2c)::value;
+      constexpr int src = jj * S::A2 + fecc::bitrev(k2, S::LA2);
+      o[(size_t)(k2 * S::A1) * p.L] =
+          mul_full<F>(r[src], fac[k1 + k2 * S::A1]);
+    });
+  });
+}
+
+template <int LA>
+cudaError_t launch_halves(ColArgs p, cudaStream_t stream) {
+  using S = RegSplit<LA>;
+  const size_t smem = (size_t)smem_words<LA, kColWire16>() * sizeof(uint32_t);
+  auto kernel = col_wire16_half_kernel<LA>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  p.lane_tiles = (p.L + S::TL - 1) / S::TL;
+  kernel<<<2u * (unsigned)p.B * (unsigned)p.lane_tiles, S::kThreads, smem,
+           stream>>>(p);
+  return cudaGetLastError();
+}
+
+"""
+LAUNCH_K8 = "fecc::kGF16 ? launch<fecc::kGF16, LA, 1, MODE>(p, s)"
+
+
+def halves(src: str) -> str:
+    assert src.count(LAUNCH_K8) == 1
+    src = src.replace(LAUNCH_K8, "fecc::kGF16 ? launch_halves<LA>(p, s)")
+    at = src.index("// The seams run their first transform inverse")
+    return src[:at] + HALVES + src[at:]
+
+
+# K10's two parameters as they were beside K7 and K8 (ntt_mfa.cu)
+K10_PASS = "  const uint32_t* w31;   // packed radix-4 w^3j tables\n};"
+K10_TABLE = "struct TableArgs {\n"
+
+
+def old_args(src: str) -> str:
+    assert src.count(K10_PASS) == 1 and src.count(K10_TABLE) == 1
+    src = src.replace(K10_PASS, K10_PASS[:-3] + """
+  const uint32_t* tw2;
+  const uint32_t* w32;
+  const uint32_t* seed;
+  const uint32_t* t0;
+  int log_tr;
+  const uint32_t* pcol;
+  const uint32_t* prow;
+};""")
+    return src.replace(K10_TABLE, K10_TABLE + """  const uint32_t* vec;
+  const uint32_t* mask;
+  const uint32_t* orig;
+""")
+
+
+def bound_from(log: int):
+    def edit(src: str) -> str:
+        assert src.count(BOUND) == 1
+        i = src.index(BOUND) + len(BOUND)
+        return src[:i] + str(log) + src[src.index(";", i):]
+    return edit
+
+
+def ptxas(log: str, tag: str) -> None:
+    name = None
+    for line in log.splitlines():
+        mm = re.search(r"Compiling entry function '(\S+)'", line)
+        if mm:
+            name = mm.group(1)
+            continue
+        k8 = name and re.search(
+            r"col_wire16_half_kernelILi(\d+)E|col_kernelILi1ELi(\d+)ELi1ELi5E",
+            name)
+        if k8 and ("Used" in line or "spill" in line):
+            la = k8.group(1) or k8.group(2)
+            kind = "halves" if k8.group(1) else "one block"
+            cs.say(f"[{tag}] K8 ({kind}) LA{la}: "
+                   f"{line.split(':', 1)[-1].strip()}")
+            continue
+        km = name and re.search(
+            r"row_post_kernel(_lb2)?ILi(\d)ELi(\d+)ELi(\d)E", name)
+        if not km:
+            continue
+        lb2, f, la, inv = km.groups()
+        if int(la) >= 8 and ("Used" in line or "spill" in line):
+            cs.say(f"[{tag}] {'lb2 ' if lb2 else ''}F{f} LA{la} INV{inv}: "
+                   f"{line.split(':', 1)[-1].strip()}")
+
+
+def build_variants() -> dict:
+    """{name: library}: row.cu alone for each bound, col.cu alone with K8
+    one half a block (``k8_halves``), ntt_mfa.cu alone with K10's old
+    parameter layout (``k10_args``)."""
+    csrc = ROOT / "fastecc_tpu_torch" / "csrc"
+    jobs = {name: ("row.cu", bound_from(log), "fecc_row_post")
+            for name, log in VARIANTS.items()}
+    jobs["k8_halves"] = ("col.cu", halves, "fecc_col_wire16")
+    jobs["k10_args"] = ("ntt_mfa.cu", old_args, "fecc_row_wire16")
+    procs = {}
+    for name, (source, edit, _) in jobs.items():
+        d = OUT / name
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(csrc, d)
+        (d / source).write_text(edit((csrc / source).read_text()))
+        procs[name] = (d, subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+             str(d / "lib.so"), str(d / source)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (d, proc) in procs.items():
+        log = proc.communicate()[0]
+        cs.check(proc.returncode == 0, f"{name} build:\n{log[-4000:]}")
+        ptxas(log, name)
+        lib = ctypes.CDLL(str(d / "lib.so"))
+        entry = getattr(lib, jobs[name][2])
+        entry.argtypes = _build.SIGNATURES[jobs[name][2]]
+        entry.restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def launcher8(lib, x):
+    """The option library's K8 on [C1, R1, Wu] pairs, as col_pass_wire16
+    calls it."""
+    c, r, lanes = x.shape
+    dev = str(x.device)
+    tr = m._seed_tr(r)
+    tw = m._row_tw_on(GF16.name, c, True, dev)
+    seed, t0 = m._seeds_on(GF16.name, c * r, c, True, True, tr, dev)
+    out = torch.empty((2, r, c, lanes), dtype=torch.uint32, device=dev)
+
+    def call():
+        code = lib.fecc_col_wire16(
+            1, x.data_ptr(), out.data_ptr(), c, r, lanes, tw.data_ptr(),
+            seed.data_ptr(), t0.data_ptr(), tr,
+            torch.cuda.current_stream().cuda_stream)
+        cs.check(code == 0, f"fecc_col_wire16 returned {code}")
+        return out
+    return call
+
+
+def launcher10(lib, h):
+    """The option library's K10 on [2, R2, C2, Wu] halves, as
+    wire16_pass_b2 calls it."""
+    _, r, c, lanes = h.shape
+    tw, w3 = m._stage_tables_on(GF16.name, r, False, str(h.device))
+    stored = torch.empty((r * c, lanes), dtype=torch.uint32, device=h.device)
+    bitmap = torch.empty((r * c, lanes // 8), dtype=torch.uint32,
+                         device=h.device)
+
+    def call():
+        code = lib.fecc_row_wire16(
+            1, h[0].data_ptr(), h[1].data_ptr(), stored.data_ptr(),
+            bitmap.data_ptr(), r, c, lanes, tw.data_ptr(), w3.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        cs.check(code == 0, f"fecc_row_wire16 returned {code}")
+        return stored, bitmap
+    return call
+
+
+def in_turns(fns: dict, rounds: int = 1) -> dict:
+    """{name: [ms, ...]}: each of ``fns`` timed there and back, ``rounds``
+    times."""
+    ms = {}
+    for _ in range(rounds):
+        for k in list(fns) + list(fns)[::-1]:
+            ms.setdefault(k, []).append(cs.event_ms(fns[k]))
+    return ms
+
+
+def pairs(gen, *shape):
+    return torch.randint(-(1 << 31), 1 << 31, shape, dtype=torch.int32,
+                         device="cuda", generator=gen).view(torch.uint32)
+
+
+def launcher(lib, field, y, v, inverse=False):
+    out = torch.empty_like(y)
+    tw = m._row_tw_on(field.name, y.shape[0], inverse, str(y.device))
+
+    def call():
+        code = lib.fecc_row_post(
+            m._field_code(field), y.data_ptr(), out.data_ptr(), *y.shape,
+            int(inverse), tw.data_ptr(), v.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        cs.check(code == 0, f"fecc_row_post returned {code}")
+        return out
+    return call
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("pass_options: no CUDA device", file=sys.stderr)
+        return 2
+    cs.say(cs.card_line())
+    b = _build.build()
+    ptxas(b.log, "package")
+    libs = build_variants()
+    k8_halves, k10_args = libs.pop("k8_halves"), libs.pop("k10_args")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for la in range(1, 11):
+        for wu in (8, 40):
+            x = pairs(gen, 1 << la, 4, wu)
+            cs.check(torch.equal(launcher8(k8_halves, x)(),
+                                 m.col_pass_wire16(x, GF16)),
+                     f"k8_halves at C1 = {1 << la}, Wu = {wu}")
+    cs.say("[pass_options] k8_halves == the package's K8 at every C1, Wu = 8 "
+           "and 40")
+    for shape in ((64, 128, 16384), (128, 256, 4096)):
+        x = pairs(gen, *shape)
+        fns = {"package": lambda: m.col_pass_wire16(x, GF16),
+               "k8_halves": launcher8(k8_halves, x)}
+        cs.check(torch.equal(fns["k8_halves"](), fns["package"]()),
+                 "k8_halves")
+        cs.say(f"[pass_options] K8 {shape} pairs, ms in turns there and "
+               f"back: " + "; ".join(f"{k} {t[0]:.4f} / {t[1]:.4f}"
+                                     for k, t in in_turns(fns).items()))
+        del x, fns
+    h = cs.rand_field(GF16.p, (2, 64, 128, 16384), gen)
+    fns = {"package": launcher10(_build.library(), h),
+           "k10_args": launcher10(k10_args, h)}
+    cs.check(cs.same(fns["k10_args"](), fns["package"]()), "k10_args")
+    cs.say("[pass_options] K10 (2, 64, 128, 16384), ms in turns there and "
+           "back, five times: " + "; ".join(
+               f"{k} " + " / ".join(f"{v:.4f}" for v in t)
+               for k, t in in_turns(fns, rounds=5).items()))
+    del h, fns
+    for field in (GF32, GF16):
+        for la in range(1, 11):
+            a = 1 << la
+            for lanes in (13, 40):
+                y = cs.rand_field(field.p, (a, 3, lanes), gen)
+                v = cs.rand_field(field.p, (a * 3,), gen)
+                for inv in (False, True):
+                    want = m.row_pass_post(y, field, v, inverse=inv)
+                    for name, lib in libs.items():
+                        got = launcher(lib, field, y, v, inv)()
+                        cs.check(torch.equal(got, want),
+                                 f"{name} at {field.name} A = {a}")
+    cs.say(f"[pass_options] {sorted(libs)} == the package's K7 at every A, "
+           f"both fields and directions")
+    for a in (1024, 512, 256):
+        shape = (a, (1 << 20) // a, 512)
+        y = cs.rand_field(GF32.p, shape, gen)
+        v = cs.rand_field(GF32.p, (1 << 20,), gen)
+        fns = {"K3": lambda: m.row_pass(y, GF32),
+               "package": lambda: m.row_pass_post(y, GF32, v),
+               **{k: launcher(lib, GF32, y, v) for k, lib in libs.items()}}
+        for k in libs:
+            cs.check(torch.equal(fns[k](), fns["package"]()), k)
+        cs.say(f"[pass_options] K7 {shape} GF32, ms in turns {list(fns)} "
+               f"then back: " + "; ".join(f"{k} {t[0]:.4f} / {t[1]:.4f}"
+                                          for k, t in in_turns(fns).items()))
+        del y, v, fns
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

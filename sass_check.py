@@ -52,7 +52,8 @@ from fastecc_tpu_torch.kernels.microbench import _VARIANTS
 _BASES = ("fused_chain_kernel_lb2", "fused_chain_kernel",
           "chain_tile_kernel", "chain_kernel",
           "pass_kernel", "copy_kernel", "row_sel_kernel_lb2",
-          "row_sel_kernel", "row_kernel", "col_kernel",
+          "row_sel_kernel", "row_post_kernel_lb2", "row_post_kernel",
+          "row_kernel", "col_kernel",
           "pair_lanes_wire16_kernel", "pair_lanes_kernel")
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")

@@ -1,5 +1,5 @@
-"""K1's, K2's, K4's, K5's and K6's schedules against the reference, on
-the CPU.
+"""K1's, K2's, K4's, K5's, K6's and K8's schedules against the reference,
+on the CPU.
 
 Pass A (K1), pass A with an input multiply (K4: the rank-1 g^m; K5: a
 table row), the encode seam (K2) and the decode seam (K6) are one kernel
@@ -15,17 +15,24 @@ staged into padded rows, the exchange, the A2-point DIFs, the seam's
 register-resident hand-off into its second transform and the transposed
 store from registers, with the same index maps and butterfly order.
 
-K9 (the GF16 wire pair's seam) is K2's kernel launched once on each half
-of the [2, R1, C1, Wu] pair; its model is K2's on each half.
+K8 (the GF16 wire pair's pass A1) is K1's GF16 kernel (inverse, scaled)
+on both halves of the pairs in one block: step 1 splits each tile word
+into lo = x & 0xFFFF and hi = x >> 16 on its way into two register
+arrays, then lo's transform runs (its exchange overwriting the tile) and
+hi's after it, and both are stored. K9 (the wire pair's seam) is K2's
+kernel launched once on each half of the [2, R1, C1, Wu] pair; its model
+is K2's on each half.
 
 The model is held bit for bit against the JAX package's staged transform
 plus its four-step twiddle tables at every A = 2 .. 1024 in both fields
 (K1, K4 and K5 forward, scaled inverse and unscaled inverse, K4 and K5 on
 the input pre-multiplied in JAX; K2; K5 and K6 with GF16 tables holding
-0x10000), on ragged lanes, and chained with K3's and K7-sel's model
-(``tests/test_torch_row_schedule.py``) against the Pallas passes in
-interpret mode: the single transform after K1's and K4's model, the
-encode pair after K1's, the decode pair after K5's. The kernel itself is
+0x10000; K8 on full-range u32 pairs against the scaled inverse pass on
+each half), on ragged lanes, and chained with K3's, K7's and K7-sel's
+models (``tests/test_torch_row_schedule.py``) against the Pallas passes
+in interpret mode: the single transform after K1's and K4's model, the
+encode pair after K1's, the decode pair (with and without the merge)
+after K5's, the GF16 wire pair after K8's. The kernel itself is
 held against the plain versions on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``).
 """
@@ -42,7 +49,8 @@ from fastecc_tpu.ntt import ntt_jit as jntt
 from fastecc_tpu_torch import fields
 from fastecc_tpu_torch.kernels import ntt_mfa as m
 
-from test_torch_row_schedule import Arith, bitrev, dif_regs, sel_model
+from test_torch_row_schedule import (Arith, bitrev, dif_regs, post_model,
+                                     sel_model)
 from test_torch_row_schedule import kernel_model as row_model
 
 FIELDS = [fields.GF32, fields.GF16]
@@ -72,7 +80,7 @@ def smem_words(a, seam, row=None):
 
 
 def col_model(x, field, inverse=False, scale=True, seam_g=None,
-              seam_vec=None, pre_g=None, pre_vec=None):
+              seam_vec=None, pre_g=None, pre_vec=None, wire16=False):
     """col.cu's col_kernel on x [A, B, L] -> [B, A, L]: every block
     (column b, lane tile) and every thread (t, l) at once, with the
     kernel's shared-memory index maps. ``seam_g``: K2 with the coset
@@ -80,7 +88,9 @@ def col_model(x, field, inverse=False, scale=True, seam_g=None,
     ``seam_vec``: K6, the same with the middle factors v[k * B + b] of a
     prepared [A * B] table. ``pre_g``: K4, K1 after x[k, b] *= pre_g^(b +
     B k) from the rank-1 tables; ``pre_vec``: K5, K1 after x[k, b] *=
-    v[k * B + b]."""
+    v[k * B + b]. ``wire16``: K8, K1 on lo = x & 0xFFFF and on hi =
+    x >> 16 of the u32 pairs x, both read at step 1 and transformed in
+    turn through the one exchange -> [2, B, A, L]."""
     a, nb, lanes = x.shape
     g = geometry(a)
     a1, a2, tl = g["a1"], g["a2"], g["tl"]
@@ -100,7 +110,7 @@ def col_model(x, field, inverse=False, scale=True, seam_g=None,
     blk = np.arange(nb)[:, None, None]          # block's column b
     t = np.arange(a2)[None, :, None]            # thread = (t, l)
     l = np.arange(tl)[None, None, :]
-    out = np.zeros((nb, a, lanes), np.uint64)
+    out = np.zeros((2 if wire16 else 1, nb, a, lanes), np.uint64)
 
     def sm(idx):
         return smem[blk, idx]
@@ -152,23 +162,34 @@ def col_model(x, field, inverse=False, scale=True, seam_g=None,
         # step 1 of the first transform: column n2 = t at stride A2; K4
         # and K5 multiply each element by its row's factor on the way in
         r = [sm((n1 * a2 + t) * tl + l) for n1 in range(a1)]
+        if wire16:
+            # K8: both halves into registers before lo's exchange
+            hi = [v >> np.uint64(16) for v in r]
+            r = [v & np.uint64(0xFFFF) for v in r]
         if pre:
             r = [f.mul(r[n1], sm(mid_off + n1 * a2 + t)) for n1 in range(a1)]
         r = transform_regs(r, tw_off[0], inv1)
+        if wire16:
+            # hi's transform reuses the exchange after lo's last reads
+            hi = transform_regs(hi, tw_off[0], inv1)
         if seam:
             # the hand-off: n1 = j + (A1 / A2) k2 is in r[j A2 + bitrev(k2)]
             rho = a1 // a2
             r = [f.mul(r[n1 % rho * a2 + bitrev(n1 // rho, g["la2"])],
                        sm(mid_off + t + a2 * n1)) for n1 in range(a1)]
             r = transform_regs(r, tw_off[1], False)
+        halves = [r, hi] if wire16 else [r]
         # the store: out[b, k1 + A1 k2, l0 + l] = r[j A2 + bitrev(k2)] x T
+        # (K8: lo into half 0, hi into half 1)
         live = (l0 + l < lanes)[0, 0]
-        for j in range(a1 // a2):
-            for k2 in range(a2):
-                kk = t + a2 * j + a1 * k2
-                v = f.mul(r[j * a2 + bitrev(k2, g["la2"])], sm(fac_off + kk))
-                out[blk, kk, (l0 + l)[:, :, live]] = v[:, :, live]
-    return out.astype(np.uint32)
+        for h, regs in enumerate(halves):
+            for j in range(a1 // a2):
+                for k2 in range(a2):
+                    kk = t + a2 * j + a1 * k2
+                    v = f.mul(regs[j * a2 + bitrev(k2, g["la2"])],
+                              sm(fac_off + kk))
+                    out[h, blk, kk, (l0 + l)[:, :, live]] = v[:, :, live]
+    return (out if wire16 else out[0]).astype(np.uint32)
 
 
 def j_twiddle(y, jf, n, c, inverse, scale):
@@ -454,6 +475,70 @@ def test_wire16_pair_with_seam_model_matches_pallas_interpret(k):
     h1 = to_numpy_u32(m.col_pass_wire16(
         from_numpy_u32(pairs.reshape(c1, k // c1, 128), "cpu"), f))
     h2 = [from_numpy_u32(col_model(h, f, seam_g=g), "cpu") for h in h1]
+    got = m.wire16_pass_b2(h2[0], h2[1], f)
+    want = jmfa.ntt_coset_pair_wire16_pallas(
+        jnp.asarray(pairs), jfields.GF16, g, interpret=True, tile=(8, 128))
+    for a_, b_ in zip(got, want):
+        np.testing.assert_array_equal(to_numpy_u32(a_), np.asarray(b_))
+
+
+@pytest.mark.parametrize("la", range(1, 11))
+def test_col_wire16_schedule_matches_reference(la):
+    """K8's schedule (K1's GF16 block on both halves of the pairs, split
+    at step 1's reads, transformed in turn) on random full-range u32 pairs
+    ==
+    the JAX package's scaled inverse pass A on x & 0xFFFF (half 0) and on
+    x >> 16 (half 1), bit for bit, at C1 = 2^la over [C1, 4, 13]; and the
+    port's K8 wrapper on the CPU (its plain version) gives the same
+    [2, R1, C1, L]."""
+    from fastecc_tpu_torch.interop import from_numpy_u32, to_numpy_u32
+    a, f = 1 << la, fields.GF16
+    x = np.random.default_rng(0x8C + la).integers(
+        0, 1 << 32, size=(a, COLS, LANES), dtype=np.uint64).astype(np.uint32)
+    got = col_model(x, f, True, True, wire16=True)
+    for h, part in enumerate((x & 0xFFFF, x >> 16)):
+        np.testing.assert_array_equal(got[h], ref_col(part, f, True, True))
+    np.testing.assert_array_equal(to_numpy_u32(m.col_pass_wire16(
+        from_numpy_u32(x, "cpu"), f)), got)
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+@pytest.mark.parametrize("n", [1 << 7, 1 << 10])
+def test_chained_decode_post_models_match_pallas_interpret(field, n):
+    """The decode pair without the merge (decode_prepared(merge=False)),
+    K5's model -> K6's model -> K7's model, == ntt_pair_pallas with the
+    same tables and post_vec, no select, in interpret mode over 128
+    lanes."""
+    lanes = 128
+    x = rand_input(field, (n, lanes), 0xDED + n + field.use_mont)
+    v1, v2, v3 = (rand_table(field, n, 0x7AC + n + i) for i in range(3))
+    c1 = m._pair_split(n)
+    col1 = col_model(x.reshape(c1, n // c1, lanes), field, True, True,
+                     pre_vec=v1)
+    col2 = col_model(col1, field, seam_vec=v2)
+    got = post_model(col2, field, False, v3)
+    want = np.asarray(jmfa.ntt_pair_pallas(
+        jnp.asarray(x), jfields.FIELDS[field.name], pre_vec1=jnp.asarray(v1),
+        pre_vec2=jnp.asarray(v2), post_vec=jnp.asarray(v3), interpret=True,
+        tile=(8, 128)))
+    np.testing.assert_array_equal(got.reshape(n, lanes), want)
+
+
+@pytest.mark.parametrize("k", [1 << 7, 1 << 10])
+def test_wire16_pair_from_col_model_matches_pallas_interpret(k):
+    """The GF16 wire pair as the port runs it from K8 on, K8's model (both
+    halves) -> K9's model (K2's on each half) -> plain K10, ==
+    ntt_coset_pair_wire16_pallas in interpret mode over 128 pair lanes of
+    random wire words."""
+    from fastecc_tpu_torch.interop import from_numpy_u32, to_numpy_u32
+    f = fields.GF16
+    pairs = np.random.default_rng(0x8A + k).integers(
+        0, 1 << 32, size=(k, 128), dtype=np.uint64).astype(np.uint32)
+    g = f.root_of_order(2 * k)
+    c1 = m._pair_split(k)
+    x3 = pairs.reshape(c1, k // c1, 128)
+    h2 = [from_numpy_u32(col_model(h, f, seam_g=g), "cpu")
+          for h in col_model(x3, f, True, True, wire16=True)]
     got = m.wire16_pass_b2(h2[0], h2[1], f)
     want = jmfa.ntt_coset_pair_wire16_pallas(
         jnp.asarray(pairs), jfields.GF16, g, interpret=True, tile=(8, 128))

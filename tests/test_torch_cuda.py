@@ -213,6 +213,29 @@ def test_row_post_sel_kernel_every_length_on_card(field, inverse,
                             a, y.shape[-1], y.data_ptr() % 16, o is y)
 
 
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_row_post_kernel_every_length_on_card(field, inverse, cuda_device):
+    """K7 (row.cu, K3's kernel with the table multiply in its store) vs its
+    plain version at every A = 2 .. 1024 on [A, 3, L], over 1, 3, 13 and
+    40 lanes and on a view 4 bytes past a 16-byte boundary; GF16 tables
+    hold 0x10000."""
+    rng = np.random.default_rng(0x7057 + 2 * field.use_mont + inverse)
+    for la in range(1, 11):
+        a = 1 << la
+        v = from_numpy_u32(rand_table(field, a * 3, rng), cuda_device)
+        views = [from_numpy_u32(rand_field(field, (a, 3, lanes), rng),
+                                cuda_device) for lanes in (1, 3, 13, 40)]
+        big = from_numpy_u32(rand_field(field, a * 3 * 8 + 1, rng),
+                             cuda_device)
+        views.append(big[1:].reshape(a, 3, 8))
+        assert views[-1].data_ptr() % 16 == 4
+        for y in views:
+            assert torch.equal(m.row_pass_post(y, field, v, inverse=inverse),
+                               m.row_pass_plain(y, field, inverse, v)), (
+                                   a, y.shape[-1], y.data_ptr() % 16)
+
+
 @pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
 def test_decode_kernels_match_plain_on_card(field, cuda_device):
     """K5, K6, K7 and K7-sel vs their plain versions on the card, small
@@ -449,6 +472,29 @@ def test_seam_wire16_kernel_every_length_on_card(cuda_device):
             y = from_numpy_u32(rand_field(f, (2, a, 4, wu), rng), cuda_device)
             assert torch.equal(m.seam_pass_wire16(y, f, g),
                                m.seam_pass_wire16_plain(y, f, g)), (a, wu)
+
+
+def test_col_wire16_kernel_every_length_on_card(cuda_device):
+    """K8 (col.cu, K1's GF16 kernel on both halves in one block) vs its plain
+    version at every C1 = 2 .. 1024 on [C1, 4, Wu] random 32-bit pairs,
+    Wu = 8, 40 and 1024, and on a view 4 bytes past a 16-byte boundary
+    (the 4-byte copies)."""
+    f = fields.GF16
+    rng = np.random.default_rng(0x8)
+    for la in range(1, 11):
+        a = 1 << la
+        views = [from_numpy_u32(rng.integers(
+            0, 1 << 32, size=(a, 4, wu), dtype=np.uint64).astype(np.uint32),
+            cuda_device) for wu in (8, 40, 1024)]
+        big = from_numpy_u32(rng.integers(
+            0, 1 << 32, size=a * 4 * 8 + 1, dtype=np.uint64).astype(
+                np.uint32), cuda_device)
+        views.append(big[1:].reshape(a, 4, 8))
+        assert views[-1].data_ptr() % 16 == 4
+        for x in views:
+            assert torch.equal(m.col_pass_wire16(x, f),
+                               m.col_pass_wire16_plain(x, f)), (
+                                   a, x.shape[-1], x.data_ptr() % 16)
 
 
 def test_lanes_dispatch_on_card(cuda_device, monkeypatch):

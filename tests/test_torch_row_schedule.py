@@ -1,4 +1,4 @@
-"""K3's and K7-sel's schedule against the reference, on the CPU.
+"""K3's, K7's and K7-sel's schedule against the reference, on the CPU.
 
 The pass-B kernels (``fastecc_tpu_torch/csrc/row.cu`` on
 ``csrc/regstages.cuh``) cannot run here, so this file models their exact
@@ -7,13 +7,15 @@ A1-point in-register DIF with its compile-time constants, the inner
 twiddles from ``_row_inner_twiddles`` staged into padded rows, the
 exchange through the padded rows, the A2-point DIFs and the bit-reversed
 register reads of the store, with the same index maps and butterfly
-order; for K7-sel also the block's table and mask rows staged behind the
-inner table and the select in the store (x the table at rows whose mask
-is not 0, the original elsewhere). The model is held bit for bit against
-the JAX package's transform (and, for K7-sel, its table multiply and row
-select) at every A = 2 .. 1024 in both fields and both directions, on
-ragged lanes. The kernels themselves are held against the plain versions
-on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+order; for K7 also the block's table row staged behind the inner table
+and the table multiply at every row of the store, for K7-sel the table
+and mask rows and the select in the store (x the table at rows whose
+mask is not 0, the original elsewhere). The model is held bit for bit
+against the JAX package's transform (and, for K7 and K7-sel, its table
+multiply and row select) at every A = 2 .. 1024 in both fields and both
+directions, on ragged lanes. The kernels themselves are held against the
+plain versions on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``).
 """
 
 import numpy as np
@@ -85,11 +87,11 @@ def dif_regs(r, s, off, f, field, inverse):
 
 def kernel_model(x, field, inverse, post=None, mask=None, orig=None):
     """row.cu's row_kernel on one column b of [A, B = 1, L], every lane
-    tile, every thread, with its shared-memory index maps; with ``post``,
-    ``mask`` ([A], the column's table rows) and ``orig`` ([A, L]),
-    row_sel_kernel (K7-sel)."""
+    tile, every thread, with its shared-memory index maps; with ``post``
+    ([A], the column's table row), row_post_kernel (K7); with ``post``,
+    ``mask`` ([A]) and ``orig`` ([A, L]), row_sel_kernel (K7-sel)."""
     a = x.shape[0]
-    sel = post is not None
+    sel = mask is not None
     la = a.bit_length() - 1
     a1, a2 = m._row_split(a)
     la1, la2 = la - la // 2, la // 2
@@ -105,7 +107,8 @@ def kernel_model(x, field, inverse, post=None, mask=None, orig=None):
     t = np.arange(a2)[:, None]             # thread = (t, l), [A2, TL]
     l = np.arange(tl)[None, :]
     for l0 in range(0, lanes, tl):
-        smem = np.zeros(smem_words + (2 * a if sel else 0), np.uint64)
+        rows_after = 2 if sel else 1 if post is not None else 0
+        smem = np.zeros(smem_words + rows_after * a, np.uint64)
         # the loads: tile[a * TL + l], lanes past L zero-filled
         cols = np.arange(l0, l0 + tl)
         tile = np.zeros((a, tl), np.uint64)
@@ -113,8 +116,9 @@ def kernel_model(x, field, inverse, post=None, mask=None, orig=None):
         smem[:a * tl] = tile.reshape(-1)
         e = np.arange(a)
         smem[exch + e // a1 * (a1 + 1) + e % a1] = tw
-        if sel:
+        if post is not None:
             smem[post_off:post_off + a] = post
+        if sel:
             smem[mask_off:mask_off + a] = mask
         # step 1: column n2 = t at stride A2, all threads read, then DIF
         r = [smem[(n1 * a2 + t) * tl + l] for n1 in range(a1)]
@@ -132,7 +136,8 @@ def kernel_model(x, field, inverse, post=None, mask=None, orig=None):
                 r[j * a2 + n2] = smem[(t + a2 * j) * tl + l + n2 * row_words]
             dif_regs(r, a2, j * a2, f, field, inverse)
         # the store: out[k1 + A1 k2, l0 + l] = r[j * A2 + bitrev(k2)];
-        # K7-sel: x post[k] where mask[k] != 0, else orig[k, l0 + l]
+        # K7: x post[k]; K7-sel: x post[k] where mask[k] != 0, else
+        # orig[k, l0 + l]
         live = (l0 + l < lanes)[0]
         for j in range(a1 // a2):
             for k2 in range(a2):
@@ -144,6 +149,8 @@ def kernel_model(x, field, inverse, post=None, mask=None, orig=None):
                     kept = np.zeros_like(val)
                     kept[:, live] = orig[rows[:, None], (l0 + l)[:, live]]
                     val = np.where(keep[:, None], mul, kept)
+                elif post is not None:
+                    val = f.mul(val, smem[post_off + rows][:, None])
                 out[rows[:, None], (l0 + l)[:, live]] = val[:, live]
     return out.astype(np.uint32)
 
@@ -264,3 +271,46 @@ def test_sel_schedule_matches_reference(la, field, inverse, masks):
         got, ref_sel(y, field, inverse, vec, mask, orig))
     if masks == "none":
         np.testing.assert_array_equal(got, orig)
+
+
+def post_model(y, field, inverse, vec):
+    """K7 on [A, B, L]: row_post_kernel's blocks, column b with its table
+    row vec[k * B + b]."""
+    a, nb, _ = y.shape
+    v = vec.reshape(a, nb)
+    return np.stack([kernel_model(y[:, b], field, inverse, v[:, b])
+                     for b in range(nb)], axis=1)
+
+
+def ref_post(y, field, inverse, vec):
+    """K7 from the JAX package: the staged transform along axis 0, x the
+    table."""
+    jf = jfields.FIELDS[field.name]
+    a, nb, lanes = y.shape
+    t = jntt(jnp.asarray(y.reshape(a, nb * lanes)), field=jf,
+             inverse=inverse, scale=False).reshape(a, nb, lanes)
+    return np.asarray(jmul(jf, t, jnp.asarray(vec).reshape(a, nb, 1)))
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["fwd", "inv"])
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+@pytest.mark.parametrize("la", range(1, 11))
+def test_post_schedule_matches_reference(la, field, inverse):
+    """K7's schedule (K3's with the table row copied in beside the tile and
+    every row multiplied in the store) == the JAX package's staged
+    transform times the table, bit for bit, at A = 2^la over [A, 3, 13];
+    GF16 tables hold 0x10000 at every 7th row and the input 0x10000 at
+    about a tenth of its elements."""
+    a = 1 << la
+    rng = np.random.default_rng(0x7057 + 4 * la + 2 * field.use_mont
+                                + inverse)
+    shape = (a, COLS, LANES)
+    y = rng.integers(0, field.p, size=shape, dtype=np.uint64).astype(
+        np.uint32)
+    vec = rng.integers(0, field.p, size=a * COLS, dtype=np.uint64).astype(
+        np.uint32)
+    if not field.use_mont:
+        y[rng.random(shape) < 0.1] = 0x10000
+        vec[::7] = 0x10000
+    np.testing.assert_array_equal(post_model(y, field, inverse, vec),
+                                  ref_post(y, field, inverse, vec))
