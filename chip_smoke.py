@@ -26,8 +26,15 @@ main path on the card and fails loudly on any fault. Phases:
                over 1088 and 13 lanes in both fields, K12 at those k over
                Wu = 8, 40, 1024 and on dense escapes (the escape counts
                printed) and at every k = 4 .. 2^13 over Wu = 8, 40, 1024,
-               K9 at every R1 = 2 .. 1024 over Wu = 8, 16, 40; bit-exact
-               (``torch.equal``, tolerance 0: exact integer arithmetic);
+               K9 at every R1 = 2 .. 1024 over Wu = 8, 16, 40; K10 at
+               every A = 2 .. 1024 on [A, 2, Wu] over Wu = 8, 40 and 1032
+               (a ragged last lane tile), on views 4 bytes past a 16-byte
+               boundary and on dense escapes at A = 1024 (TL = 16) against
+               the plain version and the expected words; K11 at every
+               k = 4 .. 2^13 in both fields over 13
+               and 1088 lanes and on a view 4 bytes past a 16-byte
+               boundary; bit-exact (``torch.equal``, tolerance 0: exact
+               integer arithmetic);
   3. golden  — the JAX package's pinned SHA-256 digests (codewords of
                tests/test_rs.py, GF32 wire blob of tests/test_wire_golden.py)
                reproduced through the kernels;
@@ -93,8 +100,9 @@ main path on the card and fails loudly on any fault. Phases:
                flag off (the three-pass route) on every lane, the batch and
                k = 2^13 also on their edge lanes against the plain staged
                transforms; median of 5 calls of both routes at each shape;
-               the parent's K12 on the GF16 wire encode's pairs, as in
-               phase 4; then each route's kernels on 128 MiB at k = 2^10 .. 2^13
+               the parent's K11 on the batch's [2^10, 65536] and its K12
+               on the GF16 wire encode's pairs, as in phase 4; then each
+               route's kernels on 128 MiB at k = 2^10 .. 2^13
                (GF32 and the GF16 wire pair), held equal and timed;
  12. errors  — unknown-position error correction: correct_errors on the
                full-width GF32 codeword (n = 2^20, 1024 lanes) with 16
@@ -190,10 +198,9 @@ LANES = ("K11_pair_lanes", "K12_pair_lanes_wire16")
 PEAKS = ("K13_copy", "K14_chain", "K15_fused_chain")
 SOURCE = {k: "fastecc_tpu_torch/csrc/" + (
     "microbench.cu" if k in PEAKS else "lanes.cu" if k in LANES
-    else "row.cu" if k in ("K3_row", "K7_row_post", "K7_row_post_sel")
-    else "col.cu" if k in ("K1_col", "K2_seam", "K4_col_pre", "K5_col_vec",
-                           "K6_seam_vec", "K8_col_wire16", "K9_seam_wire16")
-    else "ntt_mfa.cu")
+    else "row.cu" if k in ("K3_row", "K7_row_post", "K7_row_post_sel",
+                           "K10_row_wire16")
+    else "col.cu")
     for k in REPLACES}
 
 
@@ -635,7 +642,7 @@ def phase_kernels(gen) -> dict:
     say("[kernels] wire16 at k = 2^13, 2^15 (16 lanes), 4 (8), 2^7 (40) "
         "and dense escapes: K8-K10 == plain")
     # the lanes pair at the gate's ends and the batch's k = 2^10; lane
-    # tiles of 32, 8 and 2
+    # tiles of 32, 16 and 4 (K11 in GF32 at 2^13: 2)
     for field in (GF32, GF16):
         for k in (32, 1 << 10, 1 << 13):
             for lanes_ in (1088, 13):
@@ -656,7 +663,7 @@ def phase_kernels(gen) -> dict:
                   for (k, wu, d), (b, sat) in escapes.items()))
     # K12 has one instantiation per length (the engine's one-exchange split
     # below 2^12, the two-exchange split at 2^12 and 2^13): every k = 4 ..
-    # 2^13 over Wu = 8, 40 and 1024 (lane tiles of 32 down to 2, ragged),
+    # 2^13 over Wu = 8, 40 and 1024 (lane tiles of 32 down to 4, ragged),
     # from a generator of its own
     gen12 = torch.Generator(device="cuda").manual_seed(12)
     for la in range(2, 14):
@@ -706,6 +713,54 @@ def phase_kernels(gen) -> dict:
     say("[kernels] K8 at every C1 = 2 .. 1024 on [C1, 4, Wu] random 32-bit "
         "pairs, Wu = 8, 40, 1024 and a view 4 bytes past a 16-byte "
         "boundary: == plain")
+    # K10 has one instantiation per length (GF16 forward; TL = 32 up to
+    # A = 512, 16 at 1024): every A = 2 .. 1024 on [A, 2, Wu] over Wu = 8,
+    # 40 and 1032
+    # (the last lane tile holds 8 lanes), and on lo and hi views 4 bytes
+    # past a 16-byte boundary (the 4-byte copies), 0x10000 at about a
+    # tenth of the elements; from a generator of its own
+    gen13 = torch.Generator(device="cuda").manual_seed(13)
+
+    def halves(*shape):
+        v = gf.widen(rand_field(GF16.p, shape, gen13))
+        esc = torch.rand(shape, device="cuda", generator=gen13) < 0.1
+        return gf.narrow(torch.where(esc, 0x10000, v))
+    for la in range(1, 11):
+        a = 1 << la
+        cases = [halves(2, a, 2, wu) for wu in (8, 40, 1032)]
+        flat = halves(2 * a * 2 * 8 + 1)[1:]
+        cases.append(flat.view(2, a, 2, 8))
+        check(cases[-1][0].data_ptr() % 16 == 4
+              and cases[-1][1].data_ptr() % 16 == 4,
+              "K10's views are 4 bytes past 16")
+        for h in cases:
+            for got, want in zip(m.wire16_pass_b2(h[0], h[1], GF16),
+                                 m.row_pass_wire16_plain(h[0], h[1], GF16)):
+                cmp("K10_row_wire16", got, want,
+                    ("every A", a, h.shape[-1], h[0].data_ptr() % 16))
+    dense_escapes(1024, 2, 64)
+    say("[kernels] K10 at every A = 2 .. 1024 on [A, 2, Wu], Wu = 8, 40, "
+        "1032 and views 4 bytes past a 16-byte boundary, and dense escapes "
+        "at A = 1024: == plain and the expected words")
+    # K11 has one instantiation per length and field (the one-exchange
+    # split below 2^11, the two-exchange split from 2^11 on): every
+    # k = 4 .. 2^13 over 13 and 1088 lanes and on a view 4 bytes past a
+    # 16-byte boundary, both fields, from a generator of its own
+    gen14 = torch.Generator(device="cuda").manual_seed(14)
+    for field in (GF32, GF16):
+        for la in range(2, 14):
+            k = 1 << la
+            g = field.root_of_order(2 * k)
+            xs = [rand_field(field.p, (k, n), gen14) for n in (13, 1088)]
+            xs.append(rand_field(field.p, (k * 8 + 1,), gen14)[1:].view(k, 8))
+            check(xs[-1].data_ptr() % 16 == 4, "K11's view is 4 bytes past 16")
+            for x in xs:
+                cmp("K11_pair_lanes", m.ntt_pair_lanes(x, field, g),
+                    m.pair_lanes_plain(x, field, g),
+                    ("every k", field.name, k, x.shape[1],
+                     x.data_ptr() % 16))
+    say("[kernels] K11 at every k = 4 .. 2^13 over 13 and 1088 lanes and a "
+        "view 4 bytes past a 16-byte boundary, GF32 and GF16: == plain")
     return worst
 
 
@@ -946,9 +1001,9 @@ def parent_library():
     """The kernel library of the earlier checkout of the package in
     build/parent (as ``sass_check.py --compare build/parent`` wants it),
     built there by its own ``_build``; None where there is none. The
-    argtypes are the parent commit's C signatures (K1-K6, K7-sel, K9, K12
-    and K15 with the inner twiddles, K7, K8 and K10 with the packed
-    Stockham tables)."""
+    argtypes are the parent commit's C signatures (K1-K9, K7-sel, K12 and
+    K15 with the inner twiddles, K10 and K11 with the packed Stockham
+    tables)."""
     import ctypes
     from pathlib import Path
     root = Path(__file__).resolve().parent / "build" / "parent"
@@ -977,15 +1032,18 @@ def parent_library():
                                      P]
     lib.fecc_pair_lanes_wire16.argtypes = [I, P, P, P, I, I, P, P, P, P, P,
                                            P]
-    # K7, K8 and K10 with the packed Stockham tables (tw, w3)
-    lib.fecc_row_post.argtypes = [I, P, P, I, I, I, P, P, P, P]
-    lib.fecc_col_wire16.argtypes = [I, P, P, I, I, I, P, P, P, P, I, P]
+    lib.fecc_row_post.argtypes = [I, P, P, I, I, I, I, P, P, P]
+    lib.fecc_col_wire16.argtypes = [I, P, P, I, I, I, P, P, P, I, P]
+    # K10 (tw, w3) and K11 (tw_i, w3_i, tw_f, w3_f, mid) with the packed
+    # Stockham tables
     lib.fecc_row_wire16.argtypes = [I, P, P, P, P, I, I, I, P, P, P]
+    lib.fecc_pair_lanes.argtypes = [I, P, P, I, I, P, P, P, P, P, P]
     for fn in (lib.fecc_row, lib.fecc_col, lib.fecc_seam, lib.fecc_seam_vec,
                lib.fecc_row_post_sel, lib.fecc_col_pre, lib.fecc_col_vec,
                lib.fecc_copy, lib.fecc_chain, lib.fecc_fused_chain,
                lib.fecc_seam_wire16, lib.fecc_pair_lanes_wire16,
-               lib.fecc_row_post, lib.fecc_col_wire16, lib.fecc_row_wire16):
+               lib.fecc_row_post, lib.fecc_col_wire16, lib.fecc_row_wire16,
+               lib.fecc_pair_lanes):
         fn.restype = I
     return lib
 
@@ -1110,13 +1168,13 @@ def parent_row_post_sel(y: torch.Tensor, vec: torch.Tensor,
 
 
 def parent_row_post(y: torch.Tensor, vec: torch.Tensor):
-    """The parent's K7 (``fecc_row_post`` with the packed Stockham
-    tables, forward) on [R, C, L]."""
+    """The parent's K7 (``fecc_row_post`` with the inner twiddles,
+    forward) on [R, C, L]."""
     from fastecc_tpu_torch.fields import GF32
     from fastecc_tpu_torch.kernels import ntt_mfa as m
-    tw, w3 = m._stage_tables_on(GF32.name, y.shape[0], False, str(y.device))
-    return parent_call("fecc_row_post", y, torch.empty_like(y),
-                       tw.data_ptr(), w3.data_ptr(), vec.data_ptr())
+    tw = m._row_tw_on(GF32.name, y.shape[0], False, str(y.device))
+    return parent_call("fecc_row_post", y, torch.empty_like(y), 0,
+                       tw.data_ptr(), vec.data_ptr())
 
 
 def parent_col_pre_vec(x3: torch.Tensor, inverse: bool, scale: bool = True,
@@ -1411,8 +1469,8 @@ def parent_peaks_ms(x: torch.Tensor, z: torch.Tensor,
 
 def parent_wire16_ms(x3: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor,
                      g: int) -> None:
-    """Where build/parent holds an earlier checkout, its K8 and K10 (with
-    the packed Stockham tables) and its K9 (with the inner twiddles)
+    """Where build/parent holds an earlier checkout, its K8 and K9 (with
+    the inner twiddles) and its K10 (with the packed Stockham tables)
     against this tree's on the wire16 phase's tensors (the pairs, then
     each pass's [2, ...] input), outputs held equal, in turns parent,
     this, this, parent (``event_ms``); printed for the record."""
@@ -1425,14 +1483,14 @@ def parent_wire16_ms(x3: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor,
     stream = torch.cuda.current_stream().cuda_stream
     c, r, lanes = x3.shape
     tr = m._seed_tr(r)
-    tw, w3 = m._stage_tables_on(GF16.name, c, True, dev)
+    tw = m._row_tw_on(GF16.name, c, True, dev)
     seed, t0 = m._seeds_on(GF16.name, c * r, c, True, True, tr, dev)
     out8 = torch.empty((2, r, c, lanes), dtype=torch.uint32, device=dev)
 
     def parent8():
         code = lib.fecc_col_wire16(
             1, x3.data_ptr(), out8.data_ptr(), c, r, lanes, tw.data_ptr(),
-            w3.data_ptr(), seed.data_ptr(), t0.data_ptr(), tr, stream)
+            seed.data_ptr(), t0.data_ptr(), tr, stream)
         check(code == 0, f"parent fecc_col_wire16 returned {code}")
         return out8
     t = turns(parent8, lambda: m.col_pass_wire16(x3, GF16), event_ms, "K8")
@@ -1494,8 +1552,8 @@ def parent_lanes_wire16_ms(words: torch.Tensor, g: int) -> None:
         return
     k, wu = words.shape
     tables = [None if t is None else t.data_ptr() for t in
-              m._lanes16_tables_on(GF16.name, k, g % GF16.p,
-                                   str(words.device))]
+              m._lanes_tables_on(GF16.name, k, g % GF16.p,
+                                 m.K12_TWO_EXCHANGE_K, str(words.device))]
     stored = torch.empty_like(words)
     bitmap = torch.empty((k, wu // 8), dtype=torch.uint32,
                          device=words.device)
@@ -1514,6 +1572,37 @@ def parent_lanes_wire16_ms(words: torch.Tensor, g: int) -> None:
     say(f"[lanes_wire16] K12 against the parent's fecc_pair_lanes_wire16 on "
         f"the same {tuple(words.shape)} pairs, parent / this / this / "
         f"parent: {t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
+
+
+def parent_lanes_ms(flat: torch.Tensor, g: int) -> None:
+    """As :func:`parent_wire16_ms`, for K11 (``fecc_pair_lanes`` with the
+    packed Stockham tables) on the lanes phase's GF32 [2^10, 65536]: the
+    outputs held equal, the parent's and this tree's calls timed in
+    turns."""
+    from fastecc_tpu_torch.fields import GF32
+    from fastecc_tpu_torch.kernels import ntt_mfa as m
+    lib = parent_library()
+    if lib is None:
+        return
+    k, lanes = flat.shape
+    dev = str(flat.device)
+    tables = [*m._stage_tables_on(GF32.name, k, True, dev),
+              *m._stage_tables_on(GF32.name, k, False, dev),
+              m._mid_on(GF32.name, k, g % GF32.p, dev)]
+    out = torch.empty_like(flat)
+
+    def parent():
+        code = lib.fecc_pair_lanes(
+            0, flat.data_ptr(), out.data_ptr(), k, lanes,
+            *(t.data_ptr() for t in tables),
+            torch.cuda.current_stream().cuda_stream)
+        check(code == 0, f"parent fecc_pair_lanes returned {code}")
+        return out
+    t = turns(parent, lambda: m.ntt_pair_lanes(flat, GF32, g), event_ms,
+              "K11")
+    say(f"[lanes] K11 against the parent's fecc_pair_lanes on the same "
+        f"{tuple(flat.shape)} tensor, parent / this / this / parent: "
+        f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
 
 
 def phase_ntt(gen, launches, times):
@@ -2010,6 +2099,7 @@ def phase_lanes(gen, launches, times, shapes):
         f"{shapes['K11_pair_lanes']} (K1 -> K2 -> K3: "
         f"{times['lanes_kernels_3pass']:.4f} ms), plain "
         f"{times['plain_K11_pair_lanes']:.1f} ms")
+    parent_lanes_ms(flat, g)
     del batch, flat
 
     # GF32 at the top of the gate
@@ -2079,7 +2169,8 @@ def phase_lanes(gen, launches, times, shapes):
     del raw4, want, blob, gen_on
 
     # where the narrow tiles start to lose: each route's kernels on 128 MiB
-    # at k = 2^10 .. 2^13 (TL = 8, 4, 2, 2), GF32 and the GF16 wire pair
+    # at k = 2^10 .. 2^13 (K11: TL = 16, 4, 4, 2; K12: 16, 8, 4, 4), GF32
+    # and the GF16 wire pair
     for kk in (1 << 10, 1 << 11, 1 << 12, 1 << 13):
         cols = (1 << 25) // kk
         g, g16 = GF32.root_of_order(2 * kk), GF16.root_of_order(2 * kk)

@@ -1,7 +1,7 @@
-// Pass B for Hopper (sm_90a): kernels K3, K7 and K7-sel of the port, on
-// the register-stage engine of regstages.cuh, with a plain C interface
-// loaded through ctypes (kernels/_build.py builds it; kernels/ntt_mfa.py
-// row_pass and row_pass_post wrap it).
+// Pass B for Hopper (sm_90a): kernels K3, K7, K7-sel and K10 of the
+// port, on the register-stage engine of regstages.cuh, with a plain C
+// interface loaded through ctypes (kernels/_build.py builds it;
+// kernels/ntt_mfa.py row_pass, row_pass_post and wire16_pass_b2 wrap it).
 //
 // Replaces these Pallas TPU kernels of fastecc_tpu/kernels/ntt_mfa.py:
 //   K3 fecc_row <- _row_kernel: R-point forward or inverse stages along
@@ -12,7 +12,10 @@
 //   K7-sel fecc_row_post_sel <- _row_kernel_post_sel: K3, then at rows k
 //                  whose mask[k * B + b] is not 0 out *= v[k * B + b]
 //                  (the Forney inverse derivative), at the others out =
-//                  orig (the erased-row merge of the decode).
+//                  orig (the erased-row merge of the decode);
+//   K10 fecc_row_wire16 <- _row_kernel_wire16: K3 (GF16, forward) on the
+//                  lo and the hi half of the GF16 wire pair, then the
+//                  stored words lo16 | hi16 << 16 and the escape bitmap.
 // The output is the same canonical residues; how it gets there is the
 // port's own.
 //
@@ -78,6 +81,29 @@
 // section 6).
 // orig may be the pass's own input: neither is written. At the decode's
 // e = n / 2 it reads half the rows of orig, 1 GiB at [1024, 1024, 512].
+//
+// K10 is K3's GF16 forward schedule run on both halves in one block (as
+// K8 in col.cu runs K1's): lo's and hi's [A, TL] tiles and the inner
+// table in flight before one wait, each half's exchange through a region
+// of its own, so that lo's result stays in registers while hi's transform
+// runs and nothing is parked in shared memory (one region, hi read into
+// registers before lo's exchange, ran the same; pass_options.py). Each
+// thread then stores (lo & 0xFFFF) | hi << 16 straight from its two
+// result registers (a u32 shift drops hi's bit 16: 0x10000 is stored as
+// 0 in either half) and ORs its escape bits into the bitmap the entry
+// zeroes, as K12 does: bit 2t for lo and 2t + 1 for hi of lane 8g + t,
+// where v >> 16 (GF16 values are <= 0x10000) is the escape flag. A value
+// is 0x10000 about once in 2^16, so the atomics are few; building every
+// word from two warp ballots a row instead (no zeroing, no atomics, but
+// ~15 more instructions a register for every thread) took 16% longer at
+// [64, 128, 16384] and 13% at [512, 64, 4096] (pass_options.py). What
+// bounds it on the H100: at the GF16 wire encode ([64, 128,
+// 16384] a half) it reads lo and hi (1 GiB) and writes the stored words
+// and the bitmap (0.56 GiB), 0.50 ms at 3.35 TB/s. Its first version (the
+// port's first design, 1.34 ms there) ran a Stockham stage loop on both
+// halves (five shared rounds each at A = 64, twiddles from device memory,
+// one 4-byte load at a time) and read both results back from shared
+// memory for the re-pack and the bitmap.
 
 #include <cstddef>
 #include <cstdint>
@@ -104,6 +130,8 @@ struct RowArgs {
   const uint32_t* post;  // K7, K7-sel: [A * B] factors v[k * B + b]
   const uint32_t* mask;  // K7-sel: [A * B] erased-row mask
   const uint32_t* orig;  // K7-sel: [A, B, L] rows kept where mask is 0
+  const uint32_t* hi;    // K10: [A, B, L] hi half (x is the lo half)
+  uint32_t* bitmap;      // K10: [A * B, L / 8] escape words
 };
 
 // The schedule up to the store, K3's, K7's and K7-sel's: the block's tile and
@@ -237,19 +265,69 @@ __global__ void __launch_bounds__(RegSplit<LA>::kThreads, 2)
   row_post<F, LA, INV, false>(p);
 }
 
+// K10: block = (column b, lane tile); lo's tile, hi's tile (each in an
+// exchange region of its own) and the inner table, then K3's GF16
+// forward transform on each half and the epilogue from the registers.
+template <int LA>
+__global__ void __launch_bounds__(RegSplit<LA>::kThreads)
+    row_wire16_kernel(RowArgs p) {
+  using S = RegSplit<LA>;
+  constexpr int F = fecc::kGF16;
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* tlo = smem;
+  uint32_t* thi = smem + S::kExchWords;
+  uint32_t* tw = thi + S::kExchWords;
+  const int lt = blockIdx.x % p.lane_tiles;
+  const int b = blockIdx.x / p.lane_tiles;
+  const int l0 = lt * S::TL;
+  fecc::load_tile_async<S>(tlo, p.x, p.B, p.L, b, l0, p.vec != 0);
+  fecc::load_tile_async<S>(thi, p.hi, p.B, p.L, b, l0, p.vec != 0);
+  fecc::load_twiddles_async<S>(tw, p.tw);
+  fecc::cp_async_wait_all();
+  __syncthreads();
+  const int l = threadIdx.x % S::TL, t = threadIdx.x / S::TL;
+  uint32_t lo[S::A1], hi[S::A1];
+  fecc::reg_transform<F, false, S>(lo, tlo, tw, t, l);
+  fecc::reg_transform<F, false, S>(hi, thi, tw, t, l);
+  if (l0 + l >= p.L) return;
+  // natural order, as K3: row k1 + A1 k2 of [A, B, L]; bitmap word
+  // (l0 + l) / 8 of row k * B + b (TL is a multiple of 8, so the lane's
+  // place in its group is l mod 8)
+  const int words = p.L >> 3;
+  const size_t row = (size_t)p.B * p.L;
+  uint32_t* out = p.out + (size_t)b * p.L + l0 + l;
+  uint32_t* bm = p.bitmap + (size_t)b * words + ((l0 + l) >> 3);
+  fecc::static_for<S::A1 / S::A2>([&](auto jc) {
+    constexpr int j = decltype(jc)::value;
+    const int k1 = t + S::A2 * j;
+    fecc::static_for<S::A2>([&](auto k2c) {
+      constexpr int k2 = decltype(k2c)::value;
+      constexpr int src = j * S::A2 + fecc::bitrev(k2, S::LA2);
+      const size_t k = (size_t)k1 + k2 * S::A1;
+      const uint32_t vl = lo[src], vh = hi[src];
+      out[k * row] = (vl & 0xFFFFu) | (vh << 16);
+      const uint32_t bits = ((vl >> 16) | (vh >> 16) << 1) << (2 * (l & 7));
+      if (bits) atomicOr(bm + k * p.B * words, bits);
+    });
+  });
+}
+
 // The store's epilogue: none (K3), the table multiply (K7: one more [A]
-// row of shared memory) or the select (K7-sel: two more).
-enum Epilogue : int { kNone = 0, kSel = 1, kPost = 2 };
+// row of shared memory), the select (K7-sel: two more) or the wire pair's
+// (K10: hi's exchange region more).
+enum Epilogue : int { kNone = 0, kSel = 1, kPost = 2, kWire16 = 3 };
 
 template <int F, int LA, int INV, int SEL>
 cudaError_t launch(RowArgs p, cudaStream_t stream) {
   using S = RegSplit<LA>;
-  constexpr int kRows = SEL == kSel ? 2 : SEL == kPost ? 1 : 0;
-  const size_t smem = (size_t)(S::kSmemWords + kRows * S::A) *
-                      sizeof(uint32_t);
+  constexpr int kMore = SEL == kSel ? 2 * S::A : SEL == kPost ? S::A
+                        : SEL == kWire16 ? S::kExchWords : 0;
+  const size_t smem = (size_t)(S::kSmemWords + kMore) * sizeof(uint32_t);
   void (*kernel)(RowArgs);
   if constexpr (SEL == kNone)
     kernel = row_kernel<F, LA, INV>;
+  else if constexpr (SEL == kWire16)
+    kernel = row_wire16_kernel<LA>;
   else if constexpr (SEL == kPost && LA >= kBoundLog)
     kernel = row_post_kernel_lb2<F, LA, INV>;
   else if constexpr (SEL == kPost)
@@ -276,6 +354,10 @@ cudaError_t dispatch(int la, int field, bool inv, const RowArgs& p,
     return cudaErrorInvalidValue;
   } else {
     if (la != LA) return dispatch<LA + 1, SEL>(la, field, inv, p, s);
+    if constexpr (SEL == kWire16)   // GF16 forward: u16 wire words
+      return field == fecc::kGF16 && !inv
+                 ? launch<fecc::kGF16, LA, 0, SEL>(p, s)
+                 : cudaErrorInvalidValue;
     if (field == fecc::kGF32)
       return inv ? launch<fecc::kGF32, LA, 1, SEL>(p, s)
                  : launch<fecc::kGF32, LA, 0, SEL>(p, s);
@@ -301,7 +383,9 @@ int run(int field, const void* x, void* out, int A, int B, int L,
   p.tw = (const uint32_t*)tw;
   p.B = B;
   p.L = L;
-  p.vec = ((uintptr_t)x % 16 == 0) && (L % 4 == 0);
+  // (K10 reads hi too; the others leave it null)
+  p.vec = ((uintptr_t)x % 16 == 0) && ((uintptr_t)p.hi % 16 == 0) &&
+          (L % 4 == 0);
   return (int)dispatch<1, SEL>(la, field, inverse != 0, p,
                                (cudaStream_t)stream);
 }
@@ -340,6 +424,28 @@ int fecc_row_post_sel(int field, const void* x, void* out, int A, int B,
   p.mask = (const uint32_t*)mask;
   p.orig = (const uint32_t*)orig;
   return run<kSel>(field, x, out, A, B, L, inverse, tw, p, stream);
+}
+
+// K10: lo, hi [A=R2, B=C2, L] -> stored [R2, C2, L] (natural order, as K3)
+// and bitmap [R2 * C2, L / 8]; GF16, forward, L % 8 == 0. tw: the [A2, A1]
+// forward inner twiddles.
+int fecc_row_wire16(int field, const void* lo, const void* hi, void* stored,
+                    void* bitmap, int A, int B, int L, const void* tw,
+                    void* stream) {
+  if (L % 8 != 0 || A < 1 || B < 1)   // whole groups
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaMemsetAsync(
+      bitmap, 0, (size_t)A * B * (L / 8) * sizeof(uint32_t),
+      (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  RowArgs p{};
+  p.hi = (const uint32_t*)hi;
+  p.bitmap = (uint32_t*)bitmap;
+  return run<kWire16>(field, lo, stored, A, B, L, 0, tw, p, stream);
+}
+
+const char* fecc_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
 }
 
 }  // extern "C"

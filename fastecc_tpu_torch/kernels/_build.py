@@ -28,8 +28,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("ntt_mfa.cu", "col.cu", "row.cu", "lanes.cu", "microbench.cu")
-HEADERS = ("gf.cuh", "stages.cuh", "regstages.cuh")
+SOURCES = ("col.cu", "row.cu", "lanes.cu", "microbench.cu")
+HEADERS = ("gf.cuh", "regstages.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v")
@@ -65,9 +65,11 @@ SIGNATURES = {
     # stream), K2 on each half
     "fecc_seam_wire16": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P,
                          _P],
-    # ntt_mfa.cu: (field, lo, hi, stored, bitmap, A, B, L, tw, w3, stream)
-    "fecc_row_wire16": [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    # lanes.cu: (field, x, out, k, L, tw_i, w3_i, tw_f, w3_f, mid, stream)
+    # row.cu: (field, lo, hi, stored, bitmap, A, B, L, inner twiddles,
+    # stream)
+    "fecc_row_wire16": [_I, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # lanes.cu: (field, x, out, k, L, lvl_i, lvl_f, tw_i, tw_f, mid,
+    # stream)
     "fecc_pair_lanes": [_I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
     # (field, x, stored, bitmap, k, L, lvl_i, lvl_f, tw_i, tw_f, mid,
     # stream)

@@ -32,8 +32,8 @@ Lo and hi are independent lane sets; between passes they are one
 
 The one-pass "lanes" pair (K11, :func:`ntt_pair_lanes`) runs the
 encode pair with whole k-point columns resident: unscaled k-point
-inverse stages, x g^m k^-1 (:func:`_pair_mid_table`), k-point forward
-stages; K12 (:func:`ntt_pair_lanes_wire16`) is K11 on lo and hi with
+inverse transform, x g^m k^-1 (:func:`_pair_mid_table`), k-point forward
+transform; K12 (:func:`ntt_pair_lanes_wire16`) is K11 on lo and hi with
 K10's epilogue. As in the reference they are opt-in
 (``FASTECC_LANES_PAIR``, read into :data:`LANES_PAIR_ENABLED`): with the
 flag set, :func:`ntt_coset_pair` and :func:`ntt_coset_pair_wire16` take
@@ -43,8 +43,8 @@ the port's own gate) on every device; both routes give the same bits.
 Each kernel has a wrapper and a plain PyTorch version here. The wrapper
 takes the plain version only for a CPU tensor; on a CUDA tensor it
 launches its Hopper kernel (``csrc/col.cu``: K1, K2, K4, K5, K6, K8,
-K9; ``csrc/row.cu``: K3, K7, K7-sel; ``csrc/ntt_mfa.cu``: K10;
-``csrc/lanes.cu``: K11, K12) or raises, and
+K9; ``csrc/row.cu``: K3, K7, K7-sel, K10; ``csrc/lanes.cu``: K11, K12)
+or raises, and
 counts the launch in :data:`LAUNCHES`.
 Split, lane tile and twiddle tables are the port's own; the output bits
 are the reference's.
@@ -238,6 +238,9 @@ def _u32_on(arr: np.ndarray, device: str) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _stage_tables_on(field_name: str, a: int, inverse: bool, device: str):
+    """The packed stage tables on ``device``, the operands of the first
+    design's K10 and K11 C entries (which chip_smoke.py still calls in an
+    earlier checkout's library)."""
     return (_u32_on(_packed_stage_twiddles(field_name, a, inverse), device),
             _u32_on(_packed_w3_twiddles(field_name, a, inverse), device))
 
@@ -652,8 +655,8 @@ def ntt_coset_pair(x: torch.Tensor, field: FieldSpec,
 # pair through the lanes kernels.
 LANES_PAIR_ENABLED = bool(os.environ.get("FASTECC_LANES_PAIR"))
 # The gate's orders: the reference's lower bound, and the order its wire
-# bench built K12 for. At 2^13 a block's [k, 2] column takes 128 KB (K11)
-# or 192 KB (K12) of shared memory.
+# bench built K12 for. At 2^13 a block's [k, 4] tile and exchange take
+# 132 KiB of shared memory (``csrc/lanes.cu``'s two-exchange split).
 MIN_LANES_K = 32
 MAX_LANES_K = 1 << 13
 
@@ -704,47 +707,43 @@ def _lanes_input(x: torch.Tensor, name: str) -> None:
                          f"{MAX_LANES_K}], got {k}")
 
 
-def _lanes_tables(field: FieldSpec, k: int, pre_seed: int, dev: str):
-    """Pointers of K11's tables: inverse and forward stage tables, then
-    the mid table."""
-    tw_i, w3_i = _stage_tables_on(field.name, k, True, dev)
-    tw_f, w3_f = _stage_tables_on(field.name, k, False, dev)
-    mid = _mid_on(field.name, k, pre_seed % field.p, dev)
-    return [t.data_ptr() for t in (tw_i, w3_i, tw_f, w3_f, mid)]
+# The lanes kernels' split of a k-point column (``csrc/lanes.cu``
+# kTwoExchangeLogK11, kTwoExchangeLog): the engine's one-exchange split
+# (RegSplit) below K11_TWO_EXCHANGE_K (K11) or K12_TWO_EXCHANGE_K (K12);
+# from there on k = B1 * A1 * A2 with two exchanges and no thread holding
+# more than 32 elements of a column.
+K11_TWO_EXCHANGE_K = 1 << 11
+K12_TWO_EXCHANGE_K = 1 << 12
 
 
-# K12's split of a k-point column (``csrc/lanes.cu`` kTwoExchangeLog):
-# the engine's one-exchange split (RegSplit) below 2^12; from there on a
-# thread would hold 64 or more elements of a column, so k = B1 * A1 * A2
-# with two exchanges and no thread holding more than 32.
-LANES16_TWO_EXCHANGE_K = 1 << 12
-
-
-def _lanes16_b1(k: int) -> int:
-    """B1 of K12's two-exchange split k = B1 * M, M = A1 * A2 with A1 =
-    B1 = 2^ceil(log2 k / 3) (2^13 = 32 * 32 * 8, 2^12 = 16 * 16 * 16);
-    0 below :data:`LANES16_TWO_EXCHANGE_K` (the one-exchange split)."""
-    return 1 << -(-_log2(k) // 3) if k >= LANES16_TWO_EXCHANGE_K else 0
+def _lanes_b1(k: int) -> int:
+    """B1 of the lanes kernels' two-exchange split k = B1 * M, M = A1 * A2
+    with A1 = B1 = 2^ceil(log2 k / 3) (2^13 = 32 * 32 * 8, 2^12 = 16 * 16
+    * 16, 2^11 = 16 * 16 * 8)."""
+    return 1 << -(-_log2(k) // 3)
 
 
 @functools.lru_cache(maxsize=None)
-def _lanes16_level_twiddles(field_name: str, k: int, inverse: bool):
-    """K12's twiddles between the outer B1-point level and the inner
-    M-point transforms: inverse [B1, M] T[k1, n] = w_k^-(n * k1)
-    (k1-major, as the inverse's first level reads them), forward [M, B1]
-    T[kk, r] = w_k^(kk * r); prepared, GF16 entries can be 0x10000."""
-    t = _split_twiddles(field_name, k, _lanes16_b1(k), inverse)
+def _lanes_level_twiddles(field_name: str, k: int, inverse: bool):
+    """The lanes kernels' twiddles between the outer B1-point level and
+    the inner M-point transforms of the two-exchange split: inverse
+    [B1, M] T[k1, n] = w_k^-(n * k1) (k1-major, as the inverse's first
+    level reads them), forward [M, B1] T[kk, r] = w_k^(kk * r); prepared,
+    GF16 entries can be 0x10000."""
+    t = _split_twiddles(field_name, k, _lanes_b1(k), inverse)
     return np.ascontiguousarray(t.T) if inverse else t
 
 
 @functools.lru_cache(maxsize=None)
-def _lanes16_tables_on(field_name: str, k: int, g: int, device: str):
-    """K12's tables on ``device``: the level twiddles inverse and forward
-    (None for the one-exchange split), the [A2, A1] inner twiddles of its
+def _lanes_tables_on(field_name: str, k: int, g: int, two_k: int,
+                     device: str):
+    """K11's or K12's tables on ``device`` for the split that takes two
+    exchanges from ``two_k`` on: the level twiddles inverse and forward
+    (None for the one-exchange split), the [A2, A1] inner twiddles of the
     (inner) register split inverse and forward, the mid table."""
-    b1 = _lanes16_b1(k)
+    b1 = _lanes_b1(k) if k >= two_k else 0
     a, a1 = (k // b1, b1) if b1 else (k, _row_split(k)[0])
-    lvl = [_u32_on(_lanes16_level_twiddles(field_name, k, inv), device)
+    lvl = [_u32_on(_lanes_level_twiddles(field_name, k, inv), device)
            if b1 else None for inv in (True, False)]
     inner = [_u32_on(_split_twiddles(field_name, a, a1, inv), device)
              for inv in (True, False)]
@@ -755,16 +754,20 @@ def ntt_pair_lanes(x: torch.Tensor, field: FieldSpec,
                    pre_seed: int) -> torch.Tensor:
     """K11 (the counterpart of ``ntt_pair_lanes_pallas``): the encode pair
     NTT_g-coset(iNTT(x)) over u32 [k, L] in one pass, each block holding
-    whole k-point columns; k a power of two in [4, 2^13]."""
+    whole k-point columns; k a power of two in [4, 2^13]
+    (``csrc/lanes.cu``: the register-stage kernel, its length and field
+    template parameters, one block per lane tile)."""
     if x.device.type == "cpu":
         return pair_lanes_plain(x, field, pre_seed)
     _lanes_input(x, "ntt_pair_lanes")
     k, lanes = x.shape
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
+        tables = _lanes_tables_on(field.name, k, pre_seed % field.p,
+                                  K11_TWO_EXCHANGE_K, str(x.device))
         _build.call("fecc_pair_lanes", _field_code(field), x.data_ptr(),
                     out.data_ptr(), k, lanes,
-                    *_lanes_tables(field, k, pre_seed, str(x.device)),
+                    *(None if t is None else t.data_ptr() for t in tables),
                     _stream(x))
         LAUNCHES["K11_pair_lanes"] += 1
     return out
@@ -887,7 +890,10 @@ def seam_pass_wire16(y: torch.Tensor, field: FieldSpec,
 def wire16_pass_b2(lo2: torch.Tensor, hi2: torch.Tensor, field: FieldSpec):
     """K10 (the wire pair's pass B2, callable on its own): lo, hi
     [R2, C2, Wu] u32 -> (stored [k, Wu], bitmap [k, Wu/8]) u32, the wire
-    parity's two parts (see :func:`row_pass_wire16_plain`); Wu % 8 == 0."""
+    parity's two parts (see :func:`row_pass_wire16_plain`); Wu % 8 == 0
+    (``csrc/row.cu``: K3's GF16 schedule on both halves in one block, the
+    stored words from the registers, the escape bits OR-ed into the
+    bitmap the entry zeroes)."""
     _check_gf16(field, "wire16_pass_b2")
     if lo2.dim() != 3 or hi2.shape != lo2.shape or lo2.shape[2] % 8:
         raise ValueError(f"wire16_pass_b2: needs lo and hi of one [R2, C2, "
@@ -897,7 +903,7 @@ def wire16_pass_b2(lo2: torch.Tensor, hi2: torch.Tensor, field: FieldSpec):
         return row_pass_wire16_plain(lo2, hi2, field)
     r, c, lanes = lo2.shape
     hi = _cuda_operand(hi2, lo2, lo2.numel(), "wire16_pass_b2: hi2")
-    tw, w3 = _stage_tables_on(field.name, r, False, str(lo2.device))
+    tw = _row_tw_on(field.name, r, False, str(lo2.device))
     stored = torch.empty((r * c, lanes), dtype=torch.uint32,
                          device=lo2.device)
     bitmap = torch.empty((r * c, lanes // 8), dtype=torch.uint32,
@@ -905,7 +911,7 @@ def wire16_pass_b2(lo2: torch.Tensor, hi2: torch.Tensor, field: FieldSpec):
     with torch.cuda.device(lo2.device):
         _build.call("fecc_row_wire16", _field_code(field), lo2.data_ptr(), hi,
                     stored.data_ptr(), bitmap.data_ptr(), r, c, lanes,
-                    tw.data_ptr(), w3.data_ptr(), _stream(lo2))
+                    tw.data_ptr(), _stream(lo2))
         LAUNCHES["K10_row_wire16"] += 1
     return stored, bitmap
 
@@ -953,8 +959,8 @@ def ntt_pair_lanes_wire16(x_pairs: torch.Tensor, field: FieldSpec,
     bitmap = torch.empty((k, wu // 8), dtype=torch.uint32,
                          device=x_pairs.device)
     with torch.cuda.device(x_pairs.device):
-        tables = _lanes16_tables_on(field.name, k, pre_seed % field.p,
-                                    str(x_pairs.device))
+        tables = _lanes_tables_on(field.name, k, pre_seed % field.p,
+                                  K12_TWO_EXCHANGE_K, str(x_pairs.device))
         _build.call("fecc_pair_lanes_wire16", _field_code(field),
                     x_pairs.data_ptr(), stored.data_ptr(), bitmap.data_ptr(),
                     k, wu, *(None if t is None else t.data_ptr()

@@ -56,7 +56,7 @@ def scope(name: str):
 
 
 # Integer instructions per primitive as the passes issue them (csrc/gf.cuh,
-# csrc/stages.cuh), as (multiplies, other ops), counted from the SASS of
+# csrc/regstages.cuh), as (multiplies, other ops), counted from the SASS of
 # K14's variants (`python3 sass_check.py --ops`: the body of each chain
 # loop holds 32 steps) and, for add and sub, which no
 # variant runs alone with two varying operands, from the source the same

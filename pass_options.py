@@ -1,7 +1,7 @@
-"""K7's register bound, K8's layout and K10's kernel parameters, measured
-on the card.
+"""K7's register bound, K8's layout and K10's layout, measured on the
+card.
 
-    python3 pass_options.py
+    python3 pass_options.py [k7] [k8] [k10]
 
 A developer's measurement, run from the repo's root on one NVIDIA GPU; no
 entry point of the package uses it. K7 (``fastecc_tpu_torch/csrc/row.cu``:
@@ -33,13 +33,27 @@ Wu = 8 and 40, then timed in turns at the GF16 wire encode's
 [64, 128, 16384] pairs and at [128, 256, 4096] (k = 2^15, the wire
 gate's largest C1), with its ptxas lines.
 
-K10 (``csrc/ntt_mfa.cu``) takes two kernel parameters, ``PassArgs`` and
-``TableArgs``. The option ``k10_args`` is ntt_mfa.cu with both structs
-as they were while K7 and K8 shared the kernel (the fields they alone
-read kept, unused, in their old places: every later field and the second
-parameter at their old offsets). It is held equal to the package's K10
-and timed in turns at the wire encode's [2, 64, 128, 16384] halves,
-there and back five times.
+K10 (``csrc/row.cu`` ``row_wire16_kernel``) runs K3's GF16 schedule on
+both halves in one block, each half's exchange through a region of its
+own (lo's result in registers while hi's transform runs), and ORs the
+escape bits into the bitmap its entry zeroes (K12's form). Options,
+row.cu edited:
+
+  k10_one_region  one exchange region: hi's tile in a plain [A, TL] area,
+                  read into registers before lo's exchange overwrites
+                  the region, then hi's exchange through it (K8's form;
+                  A2 * TL words less shared memory);
+  k10_ballots     each escape word built from two warp ballots a row and
+                  written once by the first lanes of its row segment (at
+                  TL = 16 each half-warp reads its own 16 bits): no
+                  zeroing, no atomics.
+
+Each is held equal to the package's K10 at every A = 2 .. 1024 over Wu =
+8 and 40, then timed in turns at the wire encode's [2, 64, 128, 16384]
+halves and at [2, 512, 64, 4096], there and back three times, with its
+ptxas lines.
+
+With arguments, only the named kernels' options run.
 """
 
 from __future__ import annotations
@@ -138,26 +152,76 @@ def halves(src: str) -> str:
     return src[:at] + HALVES + src[at:]
 
 
-# K10's two parameters as they were beside K7 and K8 (ntt_mfa.cu)
-K10_PASS = "  const uint32_t* w31;   // packed radix-4 w^3j tables\n};"
-K10_TABLE = "struct TableArgs {\n"
+# K10 with one exchange region (row.cu text edits)
+K10_TRANSFORMS = """  fecc::reg_transform<F, false, S>(lo, tlo, tw, t, l);
+  fecc::reg_transform<F, false, S>(hi, thi, tw, t, l);"""
+K10_ONE_REGION = """  fecc::static_for<S::A1>([&](auto n1) {
+    hi[decltype(n1)::value] =
+        thi[(decltype(n1)::value * S::A2 + t) * S::TL + l];
+  });
+  fecc::reg_transform<F, false, S>(lo, tlo, tw, t, l);
+  fecc::reg_transform_regs<F, false, S>(hi, tlo, tw, t, l);"""
+K10_TW = "  uint32_t* tw = thi + S::kExchWords;"
+K10_SMEM = "SEL == kWire16 ? S::kExchWords : 0;"
+
+# K10 with the escape words from warp ballots, no zeroing, no atomics
+K10_EPILOGUE_START = ("  if (l0 + l >= p.L) return;\n"
+                      "  // natural order, as K3: row k1 + A1 k2")
+K10_EPILOGUE_END = "      if (bits) atomicOr(bm + k * p.B * words, bits);\n"
+K10_BALLOTS = """  // natural order, as K3; the ballots take every thread of the warp,
+  // so no lane returns before them
+  const bool live = l0 + l < p.L;
+  const int words = p.L >> 3;
+  // this thread's row segment starts at bit `seg` of a ballot; the
+  // segment's first TL / 8 lanes write its groups, group l
+  const int seg = threadIdx.x & 31 & ~(S::TL - 1);
+  const bool writer = l < S::TL / 8 && l0 + 8 * l < p.L;
+  const size_t row = (size_t)p.B * p.L;
+  uint32_t* out = p.out + (size_t)b * p.L + l0 + l;
+  uint32_t* bm = p.bitmap + (size_t)b * words + (l0 >> 3) + l;
+  fecc::static_for<S::A1 / S::A2>([&](auto jc) {
+    constexpr int j = decltype(jc)::value;
+    const int k1 = t + S::A2 * j;
+    fecc::static_for<S::A2>([&](auto k2c) {
+      constexpr int k2 = decltype(k2c)::value;
+      constexpr int src = j * S::A2 + fecc::bitrev(k2, S::LA2);
+      const size_t k = (size_t)k1 + k2 * S::A1;
+      const uint32_t vl = lo[src], vh = hi[src];
+      if (live) out[k * row] = (vl & 0xFFFFu) | (vh << 16);
+      const uint32_t bl = __ballot_sync(0xFFFFFFFFu, live && (vl >> 16));
+      const uint32_t bh = __ballot_sync(0xFFFFFFFFu, live && (vh >> 16));
+      // lanes 8g .. 8g + 7 of the segment, g = l mod TL / 8: lo's 8 bits
+      // at even places, hi's at odd ones
+      const int sh = seg + 8 * (l & (S::TL / 8 - 1));
+      uint32_t x = ((bl >> sh) & 0xFFu) | ((bh >> sh) & 0xFFu) << 16;
+      x = (x | x << 4) & 0x0F0F0F0Fu;
+      x = (x | x << 2) & 0x33333333u;
+      x = (x | x << 1) & 0x55555555u;
+      if (writer) bm[k * p.B * words] = (x & 0xFFFFu) | (x >> 15);
+"""
+K10_MEMSET_START = "  const cudaError_t e = cudaMemsetAsync(\n      bitmap, 0,"
+K10_MEMSET_END = "  if (e != cudaSuccess) return (int)e;\n"
 
 
-def old_args(src: str) -> str:
-    assert src.count(K10_PASS) == 1 and src.count(K10_TABLE) == 1
-    src = src.replace(K10_PASS, K10_PASS[:-3] + """
-  const uint32_t* tw2;
-  const uint32_t* w32;
-  const uint32_t* seed;
-  const uint32_t* t0;
-  int log_tr;
-  const uint32_t* pcol;
-  const uint32_t* prow;
-};""")
-    return src.replace(K10_TABLE, K10_TABLE + """  const uint32_t* vec;
-  const uint32_t* mask;
-  const uint32_t* orig;
-""")
+def edit(src: str, old: str, new: str) -> str:
+    assert src.count(old) == 1, old
+    return src.replace(old, new)
+
+
+def one_region(src: str) -> str:
+    src = edit(src, K10_TRANSFORMS, K10_ONE_REGION)
+    src = edit(src, K10_TW, "  uint32_t* tw = thi + S::A * S::TL;")
+    return edit(src, K10_SMEM, "SEL == kWire16 ? S::A * S::TL : 0;")
+
+
+def ballots(src: str) -> str:
+    assert src.count(K10_EPILOGUE_START) == 1
+    a = src.index(K10_EPILOGUE_START)
+    b = src.index(K10_EPILOGUE_END) + len(K10_EPILOGUE_END)
+    src = src[:a] + K10_BALLOTS + src[b:]
+    a = src.index(K10_MEMSET_START)
+    b = src.index(K10_MEMSET_END, a) + len(K10_MEMSET_END)
+    return src[:a] + src[b:]
 
 
 def bound_from(log: int):
@@ -184,6 +248,11 @@ def ptxas(log: str, tag: str) -> None:
             cs.say(f"[{tag}] K8 ({kind}) LA{la}: "
                    f"{line.split(':', 1)[-1].strip()}")
             continue
+        k10 = name and re.search(r"row_wire16_kernelILi(\d+)E", name)
+        if k10 and ("Used" in line or "spill" in line):
+            cs.say(f"[{tag}] K10 LA{k10.group(1)}: "
+                   f"{line.split(':', 1)[-1].strip()}")
+            continue
         km = name and re.search(
             r"row_post_kernel(_lb2)?ILi(\d)ELi(\d+)ELi(\d)E", name)
         if not km:
@@ -194,21 +263,26 @@ def ptxas(log: str, tag: str) -> None:
                    f"{line.split(':', 1)[-1].strip()}")
 
 
-def build_variants() -> dict:
-    """{name: library}: row.cu alone for each bound, col.cu alone with K8
-    one half a block (``k8_halves``), ntt_mfa.cu alone with K10's old
-    parameter layout (``k10_args``)."""
+def build_variants(parts) -> dict:
+    """{name: library}: for ``k7`` row.cu alone for each bound, for ``k8``
+    col.cu alone with K8 one half a block (``k8_halves``), for ``k10``
+    row.cu alone with each K10 option."""
     csrc = ROOT / "fastecc_tpu_torch" / "csrc"
-    jobs = {name: ("row.cu", bound_from(log), "fecc_row_post")
-            for name, log in VARIANTS.items()}
-    jobs["k8_halves"] = ("col.cu", halves, "fecc_col_wire16")
-    jobs["k10_args"] = ("ntt_mfa.cu", old_args, "fecc_row_wire16")
+    jobs = {}
+    if "k7" in parts:
+        jobs.update({name: ("row.cu", bound_from(log), "fecc_row_post")
+                     for name, log in VARIANTS.items()})
+    if "k8" in parts:
+        jobs["k8_halves"] = ("col.cu", halves, "fecc_col_wire16")
+    if "k10" in parts:
+        jobs["k10_one_region"] = ("row.cu", one_region, "fecc_row_wire16")
+        jobs["k10_ballots"] = ("row.cu", ballots, "fecc_row_wire16")
     procs = {}
-    for name, (source, edit, _) in jobs.items():
+    for name, (source, edit_src, _) in jobs.items():
         d = OUT / name
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(csrc, d)
-        (d / source).write_text(edit((csrc / source).read_text()))
+        (d / source).write_text(edit_src((csrc / source).read_text()))
         procs[name] = (d, subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
              str(d / "lib.so"), str(d / source)], stdout=subprocess.PIPE,
@@ -250,7 +324,7 @@ def launcher10(lib, h):
     """The option library's K10 on [2, R2, C2, Wu] halves, as
     wire16_pass_b2 calls it."""
     _, r, c, lanes = h.shape
-    tw, w3 = m._stage_tables_on(GF16.name, r, False, str(h.device))
+    tw = m._row_tw_on(GF16.name, r, False, str(h.device))
     stored = torch.empty((r * c, lanes), dtype=torch.uint32, device=h.device)
     bitmap = torch.empty((r * c, lanes // 8), dtype=torch.uint32,
                          device=h.device)
@@ -258,7 +332,7 @@ def launcher10(lib, h):
     def call():
         code = lib.fecc_row_wire16(
             1, h[0].data_ptr(), h[1].data_ptr(), stored.data_ptr(),
-            bitmap.data_ptr(), r, c, lanes, tw.data_ptr(), w3.data_ptr(),
+            bitmap.data_ptr(), r, c, lanes, tw.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
         cs.check(code == 0, f"fecc_row_wire16 returned {code}")
         return stored, bitmap
@@ -298,39 +372,56 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("pass_options: no CUDA device", file=sys.stderr)
         return 2
+    parts = set(sys.argv[1:]) or {"k7", "k8", "k10"}
     cs.say(cs.card_line())
     b = _build.build()
     ptxas(b.log, "package")
-    libs = build_variants()
-    k8_halves, k10_args = libs.pop("k8_halves"), libs.pop("k10_args")
+    libs = build_variants(parts)
     gen = torch.Generator(device="cuda").manual_seed(12)
-    for la in range(1, 11):
-        for wu in (8, 40):
-            x = pairs(gen, 1 << la, 4, wu)
-            cs.check(torch.equal(launcher8(k8_halves, x)(),
-                                 m.col_pass_wire16(x, GF16)),
-                     f"k8_halves at C1 = {1 << la}, Wu = {wu}")
-    cs.say("[pass_options] k8_halves == the package's K8 at every C1, Wu = 8 "
-           "and 40")
-    for shape in ((64, 128, 16384), (128, 256, 4096)):
-        x = pairs(gen, *shape)
-        fns = {"package": lambda: m.col_pass_wire16(x, GF16),
-               "k8_halves": launcher8(k8_halves, x)}
-        cs.check(torch.equal(fns["k8_halves"](), fns["package"]()),
-                 "k8_halves")
-        cs.say(f"[pass_options] K8 {shape} pairs, ms in turns there and "
-               f"back: " + "; ".join(f"{k} {t[0]:.4f} / {t[1]:.4f}"
-                                     for k, t in in_turns(fns).items()))
-        del x, fns
-    h = cs.rand_field(GF16.p, (2, 64, 128, 16384), gen)
-    fns = {"package": launcher10(_build.library(), h),
-           "k10_args": launcher10(k10_args, h)}
-    cs.check(cs.same(fns["k10_args"](), fns["package"]()), "k10_args")
-    cs.say("[pass_options] K10 (2, 64, 128, 16384), ms in turns there and "
-           "back, five times: " + "; ".join(
-               f"{k} " + " / ".join(f"{v:.4f}" for v in t)
-               for k, t in in_turns(fns, rounds=5).items()))
-    del h, fns
+    if "k8" in parts:
+        k8_halves = libs.pop("k8_halves")
+        for la in range(1, 11):
+            for wu in (8, 40):
+                x = pairs(gen, 1 << la, 4, wu)
+                cs.check(torch.equal(launcher8(k8_halves, x)(),
+                                     m.col_pass_wire16(x, GF16)),
+                         f"k8_halves at C1 = {1 << la}, Wu = {wu}")
+        cs.say("[pass_options] k8_halves == the package's K8 at every C1, "
+               "Wu = 8 and 40")
+        for shape in ((64, 128, 16384), (128, 256, 4096)):
+            x = pairs(gen, *shape)
+            fns = {"package": lambda: m.col_pass_wire16(x, GF16),
+                   "k8_halves": launcher8(k8_halves, x)}
+            cs.check(torch.equal(fns["k8_halves"](), fns["package"]()),
+                     "k8_halves")
+            cs.say(f"[pass_options] K8 {shape} pairs, ms in turns there and "
+                   f"back: " + "; ".join(f"{k} {t[0]:.4f} / {t[1]:.4f}"
+                                         for k, t in in_turns(fns).items()))
+            del x, fns
+    if "k10" in parts:
+        k10 = {k: libs.pop(k) for k in ("k10_one_region", "k10_ballots")}
+        for la in range(1, 11):
+            for wu in (8, 40):
+                h = cs.rand_field(GF16.p, (2, 1 << la, 3, wu), gen)
+                want = m.wire16_pass_b2(h[0], h[1], GF16)
+                for name, lib in k10.items():
+                    cs.check(cs.same(launcher10(lib, h)(), want),
+                             f"{name} at A = {1 << la}, Wu = {wu}")
+        cs.say(f"[pass_options] {sorted(k10)} == the package's K10 at every "
+               f"A, Wu = 8 and 40")
+        for shape in ((2, 64, 128, 16384), (2, 512, 64, 4096)):
+            h = cs.rand_field(GF16.p, shape, gen)
+            fns = {"package": launcher10(_build.library(), h),
+                   **{k: launcher10(lib, h) for k, lib in k10.items()}}
+            for k in k10:
+                cs.check(cs.same(fns[k](), fns["package"]()), k)
+            cs.say(f"[pass_options] K10 {shape}, ms in turns there and back, "
+                   f"three times: " + "; ".join(
+                       f"{k} " + " / ".join(f"{v:.4f}" for v in t)
+                       for k, t in in_turns(fns, rounds=3).items()))
+            del h, fns
+    if "k7" not in parts:
+        return 0
     for field in (GF32, GF16):
         for la in range(1, 11):
             a = 1 << la

@@ -51,10 +51,11 @@ from fastecc_tpu_torch.kernels.microbench import _VARIANTS
 # that contain it)
 _BASES = ("fused_chain_kernel_lb2", "fused_chain_kernel",
           "chain_tile_kernel", "chain_kernel",
-          "pass_kernel", "copy_kernel", "row_sel_kernel_lb2",
+          "copy_kernel", "row_sel_kernel_lb2",
           "row_sel_kernel", "row_post_kernel_lb2", "row_post_kernel",
-          "row_kernel", "col_kernel",
-          "pair_lanes_wire16_kernel", "pair_lanes_kernel")
+          "row_wire16_kernel", "row_kernel", "col_kernel",
+          "pair_lanes_wire16_kernel", "pair_lanes_kernel_lb2",
+          "pair_lanes_kernel")
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 _BRA = re.compile(r"\bBRA\b[^`(0-9]*`?\(?(\.L_x_\d+|0x[0-9a-f]+)")
@@ -70,7 +71,7 @@ def cuobjdump() -> str:
 
 
 def _key(name: str) -> str:
-    """kernel<template args> for a mangled name, e.g. pass_kernel<0,3>."""
+    """kernel<template args> for a mangled name, e.g. col_kernel<0,9,1,0>."""
     for base in _BASES:
         i = name.find(base)
         if i >= 0:

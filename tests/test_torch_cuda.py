@@ -399,8 +399,9 @@ def test_extras_on_card_match_cpu(field, cuda_device):
 
 @pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
 def test_lanes_kernel_matches_plain_on_card(field, cuda_device):
-    """K11 vs its plain version on the card: lane tiles of 32 (k <= 256),
-    8 (k = 2^10) and 2 (k = 2^13), ragged lane counts."""
+    """K11 vs its plain version on the card: lane tiles of 32 (k <= 512),
+    16 (k = 2^10) and 4 or 2 (k = 2^13: GF16 or GF32), ragged lane
+    counts."""
     for k, lanes in ((4, 3), (32, 37), (1 << 10, 1088), (1 << 13, 13)):
         g = field.root_of_order(2 * k)
         x = from_numpy_u32(rand_field(field, (k, lanes)), cuda_device)
@@ -428,8 +429,9 @@ def dense_escape_pairs(k, wu, g, device):
 
 @pytest.mark.parametrize("k,wu", [(32, 8), (1 << 10, 40), (1 << 13, 1024)])
 def test_lanes_wire16_kernel_matches_plain_on_card(k, wu, cuda_device):
-    """K12 vs its plain version on the card at lane tiles of 32, 8 and 2
-    (four blocks OR their bits into one bitmap word), on random pairs and
+    """K12 vs its plain version on the card at lane tiles of 32, 16 and 4
+    (at 4, two lane tiles of two halves, four blocks, OR their bits into
+    one bitmap word), on random pairs and
     on pairs whose outputs are mostly 0x10000 (saturated bitmap words)."""
     f = fields.GF16
     g = f.root_of_order(2 * k)
@@ -495,6 +497,51 @@ def test_col_wire16_kernel_every_length_on_card(cuda_device):
             assert torch.equal(m.col_pass_wire16(x, f),
                                m.col_pass_wire16_plain(x, f)), (
                                    a, x.shape[-1], x.data_ptr() % 16)
+
+
+def test_row_wire16_kernel_every_length_on_card(cuda_device):
+    """K10 (row.cu, K3's GF16 schedule on both halves in one block, the
+    bitmap from warp ballots) vs its plain version at every A = 2 .. 1024
+    on [A, 2, Wu], Wu = 8, 40 and 1032 (a last lane tile of 8), 0x10000 at
+    about a tenth of the elements, and on lo and hi views 4 bytes past a
+    16-byte boundary (the 4-byte copies)."""
+    f = fields.GF16
+    rng = np.random.default_rng(0x10)
+
+    def halves(*shape):
+        v = rand_field(f, shape, rng)
+        v[rng.random(shape) < 0.1] = 0x10000
+        return from_numpy_u32(v, cuda_device)
+    for la in range(1, 11):
+        a = 1 << la
+        cases = [halves(2, a, 2, wu) for wu in (8, 40, 1032)]
+        cases.append(halves(2 * a * 2 * 8 + 1)[1:].reshape(2, a, 2, 8))
+        assert cases[-1][1].data_ptr() % 16 == 4
+        for h in cases:
+            got = m.wire16_pass_b2(h[0], h[1], f)
+            want = m.row_pass_wire16_plain(h[0], h[1], f)
+            assert torch.equal(got[0], want[0]) and torch.equal(
+                got[1], want[1]), (a, h.shape[-1], h[0].data_ptr() % 16)
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_lanes_kernel_every_length_on_card(field, cuda_device):
+    """K11 (lanes.cu, one instantiation per length and field) vs its plain
+    version at every k = 4 .. 2^13 over 13 and 1088 lanes and on a view 4
+    bytes past a 16-byte boundary."""
+    rng = np.random.default_rng(0x11 + field.use_mont)
+    for la in range(2, 14):
+        k = 1 << la
+        g = field.root_of_order(2 * k)
+        xs = [from_numpy_u32(rand_field(field, (k, n), rng), cuda_device)
+              for n in (13, 1088)]
+        xs.append(from_numpy_u32(rand_field(field, k * 8 + 1, rng),
+                                 cuda_device)[1:].reshape(k, 8))
+        assert xs[-1].data_ptr() % 16 == 4
+        for x in xs:
+            assert torch.equal(m.ntt_pair_lanes(x, field, g),
+                               m.pair_lanes_plain(x, field, g)), (
+                                   k, x.shape[1], x.data_ptr() % 16)
 
 
 def test_lanes_dispatch_on_card(cuda_device, monkeypatch):
