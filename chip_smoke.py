@@ -112,7 +112,36 @@ main path on the card and fails loudly on any fault. Phases:
                decode_blocks(check=True) at n = 2^13 (BASELINE.json:10)
                over k + 64 survivors of which 16 lie; locate_errors and
                correct_errors timed, the phase's peak device memory;
- 13. peaks   — the microbenchmark kernels against their plain versions,
+ 13. storage — the file layer on the card (storage, the native host
+               library, built and checked loaded first, and the CLI's file
+               commands), in temporary directories (TMPDIR) deleted after
+               use, data from the seeded card generator, every depth cut
+               by STORAGE_DEPTH_CUT halvings for the time limit (the cuts
+               printed; the full sizes below): a GF32 file of 1 GiB in 4
+               KB blocks (k = 2^18, n = 2^19 block files) encoded with
+               max_resident 256 MiB (several word chunks), the .par
+               files' SHA-256 against
+               rs.encode_blocks of the whole file in device memory; n - k
+               random files deleted and recover_file's SHA-256 against the
+               source; repair of the lost files; 16 blocks (8 data, 8
+               parity) changed under forged manifest CRCs: check_file
+               locates them, recover_file(repair=True, check=True)
+               restores them, check_file reads clean; GF16 at its capacity
+               (k = 2^15, 128 MiB) encoded (parity against encode_blocks'
+               wire pair) and recovered at the largest loss, with one
+               profiled encode_file_stream (the device-busy share); a
+               striped GF32 file of 2 x 2^16 + 1 blocks (stripes of 2^16,
+               the last of one block): encode, recover with stripe 1 at its
+               largest loss, a read across the stripe seam, an update of 3
+               blocks and a recover of the updated file; then python -m
+               fastecc_tpu_torch.cli encode, recover (half the files lost)
+               and check on a 64 MiB file, as subprocesses with no
+               --device. Per operation: wall, MB/s of file bytes, bytes
+               written to disk; for the encode the device stage and the
+               host emission apart; first, the microseconds to write and
+               to read one 4 KB block file there. The GF32 file is also
+               halved while the disk's free space cannot hold ~6.5x it;
+ 14. peaks   — the microbenchmark kernels against their plain versions,
                bit-exact: K13 (the copy) at ragged sizes (around a
                block's span) and unaligned, K14
                (the chains) for every variant at depth 3 and at its default
@@ -134,7 +163,7 @@ main path on the card and fails loudly on any fault. Phases:
                under the published and the measured peaks beside phase
                encode's time.
 
-Launch counts are reset to 0 before each main-path run (phases 4-13) and
+Launch counts are reset to 0 before each main-path run (phases 4-14) and
 read right after it; each run must launch every kernel of its path. Near
 the end come the launches by path, one detail line per kernel (source,
 the TPU kernel it replaces, the shape it was timed at), a JSON object
@@ -156,6 +185,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -833,12 +863,14 @@ def staged_encode_ref(x, field, n):
     return gf.narrow(torch.stack(out, dim=1).reshape(n - k, x.shape[1]))
 
 
-def profile_once(fn, name: str) -> None:
-    """One call under torch.profiler: device time per kernel name (the six
-    largest, then the port's own kernels among the rest) and the device's
-    busy share of the call's wall time."""
+def profile_once(fn, name: str, warmup: bool = True) -> float:
+    """One call under torch.profiler (after one untimed call unless
+    ``warmup`` is False): device time per kernel name (the six largest,
+    then the port's own kernels among the rest) and the device's busy
+    share of the call's wall time, which it returns."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -864,6 +896,7 @@ def profile_once(fn, name: str) -> None:
     port = [r for r in rows[6:] if "(anonymous namespace)::" in r[2]]
     for dev_us, count, key in rows[:6] + port:
         say(f"[{name}] profiler: {dev_us / 1e3:8.3f} ms x{count} {key}")
+    return busy / wall_us
 
 
 def uint32_arithmetic() -> str:
@@ -2320,6 +2353,385 @@ def phase_errors(gen, launches, times):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase storage: the file layer (storage, host, the CLI's file commands).
+# ---------------------------------------------------------------------------
+
+REPO = Path(__file__).resolve().parent
+BLOCK = 4096
+MAX_RESIDENT = 256 << 20          # what `--max-resident 256` gives
+# The run's time limit forces a cut of depth (block counts; never the 4 KB
+# block or the field): the phase is file-bound, at 0.26-0.42 ms a block
+# file written or read on the card's machine (measured on one H100's host:
+# 137.8 s to emit a 1 GiB file's 2^19 block files), so the full sizes (a 1 GiB
+# GF32 file, GF16 at its capacity of 2^15 blocks, stripes of 2^16 blocks,
+# a 64 MiB file for the CLI) take ~4 M block-file operations, ~25 min.
+# Each depth is halved this many times.
+STORAGE_DEPTH_CUT = 3
+
+
+def random_file(path: Path, size: int, gen) -> None:
+    """``size`` random bytes from the seeded card generator."""
+    with open(path, "wb") as fh:
+        left = size
+        while left:
+            m = min(left, 256 << 20)
+            fh.write(torch.randint(0, 256, (m,), dtype=torch.uint8,
+                                   device="cuda", generator=gen)
+                     .cpu().numpy().tobytes())
+            left -= m
+
+
+def sha_file(path: Path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as fh:
+        while chunk := fh.read(64 << 20):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def tree_bytes(d: Path) -> int:
+    return sum(p.stat().st_size for p in d.rglob("*") if p.is_file())
+
+
+def parity_sha(d: Path, n: int, k: int) -> str:
+    """SHA-256 over every parity file's bytes, in encode_parity row order."""
+    from fastecc_tpu_torch import rs
+    h = hashlib.sha256()
+    for q in rs.parity_positions(n, k):
+        h.update((d / f"block_{int(q):06d}.par").read_bytes())
+    return h.hexdigest()
+
+
+def encode_blocks_sha(src: Path, k: int, field) -> str:
+    """SHA-256 of rs.encode_blocks over the whole file in device memory
+    (the zero-padded [k, 4096] blocks)."""
+    from fastecc_tpu_torch import rs
+    raw = np.zeros(k * BLOCK, np.uint8)
+    data = np.fromfile(src, np.uint8)
+    raw[:data.size] = data
+    par = rs.encode_blocks(torch.from_numpy(raw.reshape(k, BLOCK)).cuda(),
+                           field).cpu().numpy()
+    return hashlib.sha256(par).hexdigest()
+
+
+def lose(d: Path, count: int, rng) -> list:
+    """Delete ``count`` random block files of one codeword directory."""
+    files = sorted(d.glob("block_*.dat")) + sorted(d.glob("block_*.par"))
+    gone = [files[i] for i in rng.choice(len(files), count, replace=False)]
+    for f in gone:
+        f.unlink()
+    return gone
+
+
+@contextlib.contextmanager
+def timed_calls(mod, names, acc: dict):
+    """Sum the wall seconds of each named function of ``mod`` into
+    ``acc`` while the context is open (the functions stay the same)."""
+    real = {nm: getattr(mod, nm) for nm in names}
+
+    def wrap(nm):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real[nm](*a, **kw)
+            finally:
+                acc[nm] = acc.get(nm, 0.0) + time.perf_counter() - t0
+        return timed
+    for nm in names:
+        setattr(mod, nm, wrap(nm))
+    try:
+        yield acc
+    finally:
+        for nm, fn in real.items():
+            setattr(mod, nm, fn)
+
+
+def storage_run(name: str, fn, launches, expect, file_bytes: int,
+                written, times) -> tuple:
+    """One storage operation through run_path (counts reset before, read
+    after; each kernel in ``expect`` must launch), timed on the host
+    clock; prints its wall, its rate in MB/s of file bytes and the bytes
+    it wrote to disk (``written()`` after the run)."""
+    t0 = time.perf_counter()
+    out = run_path(name, fn, launches, expect)
+    wall = time.perf_counter() - t0
+    wrote = written()
+    times["storage"][name] = wall
+    say(f"[storage] {name}: {wall:.3f} s, {file_bytes / wall / 1e6:.1f} "
+        f"MB/s of {file_bytes} file bytes, wrote {wrote} B to disk")
+    return out, wall
+
+
+def storage_sizes(free: int) -> tuple[dict, list]:
+    """The phase's depths after the time limit's cut (STORAGE_DEPTH_CUT)
+    and the disk's (the GF32 section holds the source, the 2x directory,
+    the [n, lanes] codeword stage and the recovered file at once, ~6.2x
+    the file: halve it until 6.5x fits 80% of the free space), with a
+    line per cut."""
+    full = {"gf32_bytes": 1 << 30, "gf16_k": 1 << 15,
+            "stripe_blocks": 1 << 16, "cli_bytes": 64 << 20}
+    sizes = {k: v >> STORAGE_DEPTH_CUT for k, v in full.items()}
+    cuts = [f"{k} {full[k]} -> {sizes[k]} (time limit)" for k in full
+            if sizes[k] != full[k]]
+    while 6.5 * sizes["gf32_bytes"] > 0.8 * free:
+        sizes["gf32_bytes"] //= 2
+        cuts.append(f"gf32_bytes -> {sizes['gf32_bytes']} (disk: "
+                    f"{free >> 20} MiB free)")
+    return sizes, cuts
+
+
+def file_op_us(work: Path, count: int = 2048) -> tuple[float, float]:
+    """Microseconds to write and to read one 4 KB block file here (the
+    unit of the phase's cost)."""
+    blob = bytes(BLOCK)
+    t0 = time.perf_counter()
+    for i in range(count):
+        (work / f"probe_{i:06d}.dat").write_bytes(blob)
+    t1 = time.perf_counter()
+    for i in range(count):
+        (work / f"probe_{i:06d}.dat").read_bytes()
+    t2 = time.perf_counter()
+    for i in range(count):
+        (work / f"probe_{i:06d}.dat").unlink()
+    return (t1 - t0) / count * 1e6, (t2 - t1) / count * 1e6
+
+
+def phase_storage(gen, launches, times) -> None:
+    import shutil
+    import tempfile
+
+    from fastecc_tpu_torch import host, rs, storage
+    from fastecc_tpu_torch.fields import GF16, GF32
+
+    check(host.build(), "the native host library builds")
+    check(host.available(), "the native host library is loaded")
+    say(f"[storage] native host library {host._target().name}")
+    enc_kernels = ("K1_col", "K2_seam", "K3_row")
+    rec_kernels = ("K5_col_vec", "K6_seam_vec", "K7_row_post_sel")
+    times["storage"] = {}
+    rng = np.random.default_rng(0x5707)
+    work = Path(tempfile.mkdtemp(prefix="fastecc_storage_"))
+    try:
+        w_us, r_us = file_op_us(work)
+        sizes, cuts = storage_sizes(shutil.disk_usage(work).free)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    say(f"[storage] work under {work.parent}: a 4 KB block file takes "
+        f"{w_us:.1f} us to write and {r_us:.1f} us to read; cuts: "
+        f"{'; '.join(cuts) or 'none'}")
+    times["storage"]["file_write_us"] = w_us
+    times["storage"]["file_read_us"] = r_us
+
+    # GF32, one codeword: 1 GiB of 4 KB blocks (k = 2^18, n = 2^19) uncut
+    work = Path(tempfile.mkdtemp(prefix="fastecc_storage_"))
+    try:
+        size = sizes["gf32_bytes"]
+        src, d, back = work / "gf32.bin", work / "coded", work / "back.bin"
+        random_file(src, size, gen)
+        want = sha_file(src)
+        k = size // BLOCK
+        n = 2 * k
+        cw = storage._plan_word_chunk(GF32, k, BLOCK // 4, MAX_RESIDENT)
+        parts = {}
+        with timed_calls(storage, ("_encode_stage", "_emit_encoded"), parts):
+            man, _ = storage_run(
+                "storage_encode", lambda: storage.encode_file(
+                    src, d, GF32, max_resident_bytes=MAX_RESIDENT),
+                launches, enc_kernels, size, lambda: tree_bytes(d), times)
+        check(man["k"] == k and man["n"] == n, "GF32 manifest k, n")
+        times["storage"]["encode_stage"] = parts["_encode_stage"]
+        times["storage"]["encode_emit"] = parts["_emit_encoded"]
+        say(f"[storage] storage_encode: k = {k}, {BLOCK // 4 // cw} word "
+            f"chunks of {cw}; device stage (_encode_stage) "
+            f"{parts['_encode_stage']:.3f} s, host emission (_emit_encoded) "
+            f"{parts['_emit_encoded']:.3f} s")
+        check(parity_sha(d, n, k) == encode_blocks_sha(src, k, GF32),
+              "streamed GF32 parity != rs.encode_blocks of the whole file")
+        say("[storage] SHA-256 of every .par file == rs.encode_blocks of the "
+            "whole file in device memory")
+        lose(d, n - k, rng)
+        storage_run("storage_recover", lambda: storage.recover_file(
+            d, back, max_resident_bytes=MAX_RESIDENT), launches,
+            rec_kernels, size, lambda: back.stat().st_size, times)
+        check(sha_file(back) == want, "GF32 recover != the source")
+        back.unlink()
+        say(f"[storage] {n - k} of {n} block files lost: the recovered "
+            f"file's SHA-256 == the source's")
+        wrote0 = tree_bytes(d)
+        storage_run("storage_repair_lost", lambda: storage.recover_file(
+            d, None, max_resident_bytes=MAX_RESIDENT, repair=True),
+            launches, rec_kernels, size,
+            lambda: tree_bytes(d) - wrote0, times)
+        check(len(list(d.glob("block_*"))) == n, "repair rewrote every file")
+
+        # audit and repair: 16 blocks (8 data, 8 parity) changed with
+        # their manifest CRCs forged
+        man = json.loads((d / "manifest.json").read_text())
+        dpos = rs.data_positions(n, k)
+        ppos = rs.parity_positions(n, k)
+        bad = sorted([int(q) for q in rng.choice(dpos, 8, replace=False)] +
+                     [int(q) for q in rng.choice(ppos, 8, replace=False)])
+        good = {}
+        for q in bad:
+            data = q % 2 == 0            # rate 1/2: data at even positions
+            f = d / f"block_{q:06d}.{'dat' if data else 'par'}"
+            blob = bytearray(f.read_bytes())
+            good[f] = bytes(blob)
+            if data:
+                blob[:] = rng.integers(0, 256, len(blob),
+                                       dtype=np.uint8).tobytes()
+            else:
+                # a stored word below 0xFF000000 changes by 256, < p
+                j = next(j for j in rng.permutation(len(blob) // 4)
+                         if blob[4 * j + 3] != 0xFF)
+                blob[4 * j + 1] ^= 0x01
+            f.write_bytes(bytes(blob))
+            man["crc32c"][str(q)] = host.crc32c(bytes(blob))
+        (d / "manifest.json").write_text(json.dumps(man))
+        (report, rc), _ = storage_run(
+            "storage_check", lambda: storage.check_file(
+                d, max_resident_bytes=MAX_RESIDENT), launches,
+            ("K1_col", "K3_row"), size, lambda: 0, times)
+        check(rc == 1 and report["status"] == "corrupt-located"
+              and report["located_corrupt"] == bad,
+              f"check located {report['located_corrupt']} != {bad}")
+        wrote = storage_run("storage_repair_located",
+                            lambda: storage.recover_file(
+                                d, None, max_resident_bytes=MAX_RESIDENT,
+                                repair=True, check=True), launches,
+                            ("K1_col", "K3_row") + rec_kernels, size,
+                            lambda: sum(map(len, good.values())), times)[0]
+        check(wrote == 16 and all(f.read_bytes() == b
+                                  for f, b in good.items()),
+              "repair did not restore the 16 changed blocks")
+        (report, rc), _ = storage_run(
+            "storage_check_clean", lambda: storage.check_file(
+                d, max_resident_bytes=MAX_RESIDENT), launches,
+            ("K1_col", "K3_row"), size, lambda: 0, times)
+        check(rc == 0 and report["status"] == "healthy",
+              "check after repair is not clean")
+        say("[storage] 16 blocks changed under forged CRCs: check located "
+            "all 16, repair restored them and re-tagged, check reads clean")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # GF16 at its capacity, k = 2^15 blocks of 4 KB (128 MiB), uncut
+    work = Path(tempfile.mkdtemp(prefix="fastecc_storage_"))
+    try:
+        k = sizes["gf16_k"]
+        check(k <= storage.stripe_capacity_blocks(GF16), "GF16 capacity")
+        n, size16 = 2 * k, k * BLOCK
+        src, d, back = work / "gf16.bin", work / "coded", work / "back.bin"
+        random_file(src, size16, gen)
+        storage_run("storage_encode_gf16", lambda: storage.encode_file(
+            src, d, GF16, max_resident_bytes=MAX_RESIDENT), launches,
+            enc_kernels, size16, lambda: tree_bytes(d), times)
+        check(parity_sha(d, n, k) == encode_blocks_sha(src, k, GF16),
+              "GF16 parity != rs.encode_blocks (the wire pair)")
+        d2 = work / "profiled"
+        times["storage"]["busy_share"] = profile_once(
+            lambda: storage.encode_file_stream(
+                src, d2, GF16, max_resident_bytes=MAX_RESIDENT),
+            "storage_encode_file_stream", warmup=False)
+        shutil.rmtree(d2)
+        lose(d, n - k, rng)
+        storage_run("storage_recover_gf16", lambda: storage.recover_file(
+            d, back, max_resident_bytes=MAX_RESIDENT), launches,
+            rec_kernels, size16, lambda: back.stat().st_size, times)
+        check(sha_file(back) == sha_file(src), "GF16 recover != the source")
+        say(f"[storage] GF16 k = {k}: parity == rs.encode_blocks (the wire "
+            f"pair), {n - k} files lost and the source recovered")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # striped: GF32, 2 x 2^16 + 1 blocks in stripes of 2^16 uncut, the
+    # last of one (partial) block
+    work = Path(tempfile.mkdtemp(prefix="fastecc_storage_"))
+    try:
+        sb = sizes["stripe_blocks"]
+        size_s = 2 * sb * BLOCK + 1
+        src, d, back = work / "striped.bin", work / "coded", work / "back.bin"
+        random_file(src, size_s, gen)
+        man, _ = storage_run("storage_encode_striped", lambda:
+                             storage.encode_file(
+                                 src, d, GF32, stripe_blocks=sb,
+                                 max_resident_bytes=MAX_RESIDENT),
+                             launches, enc_kernels, size_s,
+                             lambda: tree_bytes(d), times)
+        check([st["k"] for st in man["stripes"]] == [sb, sb, 1],
+              f"stripes {[st['k'] for st in man['stripes']]}")
+        # stripe 1 at its largest loss, its first data block among them
+        s1 = d / "stripe_0001"
+        (s1 / "block_000000.dat").unlink()
+        lose(s1, sb - 1, rng)
+        storage_run("storage_recover_striped", lambda: storage.recover_file(
+            d, back, max_resident_bytes=MAX_RESIDENT), launches,
+            rec_kernels, size_s, lambda: back.stat().st_size, times)
+        check(sha_file(back) == sha_file(src), "striped recover != source")
+        payload = bytearray(src.read_bytes())
+        off = sb * BLOCK - 1000                  # across the stripe seam
+        got = storage_run("storage_read_seam", lambda: storage.read_file(
+            d, off, 5000), launches, rec_kernels, 5000, lambda: 0,
+            times)[0]
+        check(got == bytes(payload[off:off + 5000]),
+              "degraded read across the stripe seam")
+        edit = rng.integers(0, 256, 3 * BLOCK, dtype=np.uint8).tobytes()
+        eoff = 10 * BLOCK
+        nblk = storage_run("storage_update", lambda: storage.update_file(
+            d, eoff, edit), launches, (), len(edit),
+            lambda: 3 * BLOCK, times)[0]
+        check(nblk == 3, f"update rewrote {nblk} blocks")
+        payload[eoff:eoff + len(edit)] = edit
+        storage_run("storage_recover_updated", lambda: storage.recover_file(
+            d, back, max_resident_bytes=MAX_RESIDENT), launches,
+            rec_kernels, size_s, lambda: back.stat().st_size, times)
+        check(back.read_bytes() == bytes(payload),
+              "recover after update != the updated file")
+        say(f"[storage] striped {size_s} B: stripes k = [{sb}, {sb}, 1]; "
+            f"stripe 1 at its largest loss recovered; a 5000-byte read across the "
+            f"seam; 3 blocks updated and the updated file recovered")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # the CLI on the card: encode, recover, check as subprocesses on a
+    # 64 MiB file uncut
+    work = Path(tempfile.mkdtemp(prefix="fastecc_storage_"))
+    try:
+        sizec = sizes["cli_bytes"]
+        src, d, back = work / "cli.bin", work / "coded", work / "back.bin"
+        random_file(src, sizec, gen)
+
+        def cli(*argv):
+            t0 = time.perf_counter()
+            p = subprocess.run([sys.executable, "-m", "fastecc_tpu_torch.cli",
+                                *map(str, argv)], cwd=REPO,
+                               capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            times["storage"]["cli_" + argv[0]] = wall
+            say(f"[storage] cli {argv[0]}: rc {p.returncode}, {wall:.3f} s, "
+                f"{sizec / wall / 1e6:.1f} MB/s: "
+                f"{(p.stdout.strip().splitlines() or [''])[-1][:160]}")
+            return p
+        p = cli("encode", src, "-o", d)
+        check(p.returncode == 0, f"cli encode: {p.stderr[-2000:]}")
+        man = json.loads((d / "manifest.json").read_text())
+        lose(d, man["n"] - man["k"], rng)
+        p = cli("recover", d, "-o", back)
+        check(p.returncode == 0, f"cli recover: {p.stderr[-2000:]}")
+        check(sha_file(back) == sha_file(src), "cli recover != the source")
+        p = cli("check", d)
+        rep = json.loads(p.stdout.strip().splitlines()[-1])
+        check(p.returncode == 1 and rep["status"] == "degraded"
+              and rep["device"] == torch.cuda.get_device_name(0),
+              f"cli check: rc {p.returncode} {rep.get('status')}")
+        say("[storage] cli encode -> recover (half the files lost) -> check "
+            "on the card: the recovered file == the source, check rc 1 "
+            "(degraded)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def phase_peaks(gen, launches, times, shapes, worst):
     from fastecc_tpu_torch.fields import FIELDS, GF32
     from fastecc_tpu_torch.kernels import microbench as mb
@@ -2498,6 +2910,7 @@ def main() -> int:
     phase_extras(gen, launches, times)
     phase_lanes(gen, launches, times, shapes)
     phase_errors(gen, launches, times)
+    phase_storage(gen, launches, times)
     phase_peaks(gen, launches, times, shapes, worst)
 
     total = {k: sum(p[k] for p in launches.values()) for k in REPLACES}

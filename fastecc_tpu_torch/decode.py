@@ -220,10 +220,18 @@ def locator_host(erased_idx: np.ndarray, n: int, field: FieldSpec):
     erased j (other entries are don't-care): the UNSHIFTED x*l'
     convention, which decode pairs with evaluations of x*h'(x)
     (coefficients m*h_m) so that the w^j factors cancel in the Forney
-    quotient. Bit-exact vs the device tables."""
+    quotient. Bit-exact vs the device tables. The transforms and
+    multiplies run on the native host library when it is loaded (the
+    same bits, on every core), numpy otherwise."""
+    from . import host
+
     p = np.uint64(field.p)
+    native = host.available()
+    nth = host.ntt if native else ntt_host
 
     def mm(a, b):
+        if native:
+            return host.mulmod(a, b, field)
         return (a.astype(np.uint64) * b % p).astype(np.uint32)
 
     erased_idx = np.asarray(erased_idx, dtype=np.uint64)
@@ -248,9 +256,9 @@ def locator_host(erased_idx: np.ndarray, n: int, field: FieldSpec):
         while m > 1:
             lhs, rhs = a[:, 0::2], a[:, 1::2]
             pad = np.zeros((d, m // 2), np.uint32)
-            fa = ntt_host(np.concatenate([lhs, pad], axis=0), field)
-            fb = ntt_host(np.concatenate([rhs, pad], axis=0), field)
-            prod = ntt_host(mm(fa, fb), field, inverse=True)
+            fa = nth(np.concatenate([lhs, pad], axis=0), field)
+            fb = nth(np.concatenate([rhs, pad], axis=0), field)
+            prod = nth(mm(fa, fb), field, inverse=True)
             hi = (prod[d:].astype(np.uint64) + lhs + rhs) % p
             a = np.concatenate([prod[:d].astype(np.uint64), hi],
                                axis=0).astype(np.uint32)
@@ -260,11 +268,9 @@ def locator_host(erased_idx: np.ndarray, n: int, field: FieldSpec):
     def mul_monic(a, b):
         d1, d2 = a.shape[0], b.shape[0]
         size = 1 << (d1 + d2 - 1).bit_length()
-        fa = ntt_host(np.concatenate([a, np.zeros(size - d1, np.uint32)]),
-                      field)
-        fb = ntt_host(np.concatenate([b, np.zeros(size - d2, np.uint32)]),
-                      field)
-        conv = ntt_host(mm(fa, fb), field, inverse=True)[: d1 + d2].astype(
+        fa = nth(np.concatenate([a, np.zeros(size - d1, np.uint32)]), field)
+        fb = nth(np.concatenate([b, np.zeros(size - d2, np.uint32)]), field)
+        conv = nth(mm(fa, fb), field, inverse=True)[: d1 + d2].astype(
             np.uint64)
         conv[d2: d2 + d1] = (conv[d2: d2 + d1] + a) % p
         conv[d1: d1 + d2] = (conv[d1: d1 + d2] + b) % p
@@ -281,13 +287,13 @@ def locator_host(erased_idx: np.ndarray, n: int, field: FieldSpec):
 
     lc = np.concatenate([loc_stored(neg), np.ones(1, np.uint32)])  # [e+1]
     lpad = np.concatenate([lc, np.zeros(n - e - 1, np.uint32)])
-    l_eval = ntt_host(lpad, field)                        # l(w^j)
+    l_eval = nth(lpad, field)                             # l(w^j)
     # coefficients of x*l'(x) are m*l_m (no index shift)
     deriv = lc.astype(np.uint64) * (np.arange(e + 1, dtype=np.uint64)
                                     % p) % p
     dpad = np.concatenate([deriv.astype(np.uint32),
                            np.zeros(n - e - 1, np.uint32)])
-    lp_inv = _inv_host_vec(ntt_host(dpad, field), field)  # 1/(w^j l'(w^j))
+    lp_inv = _inv_host_vec(nth(dpad, field), field)  # 1/(w^j l'(w^j))
     return l_eval, lp_inv
 
 
@@ -338,17 +344,28 @@ def decode_prepared(codeword, mask, l_eval_prep, lp_inv_prep,
 
     ``merge=False`` runs K7 instead and returns the raw Forney product:
     right ONLY at erased rows, garbage elsewhere (for callers that merge
-    from their own survivor copies)."""
+    from their own survivor copies). With the pair switch
+    (``ntt_mfa.PAIR_ENABLED``) off the same multiplies ride two staged
+    transforms, K5 -> K3 and K5 -> K7-sel (or K7)."""
     cw = as_tensor(codeword, device)
     n = cw.shape[0]
     x = cw.reshape(n, -1)
     dev = x.device
     mask, lp, ip = (as_tensor(t, dev) for t in (mask, l_eval_prep,
                                                  lp_inv_prep))
-    out = ntt_mfa.ntt_pair(
-        x, field, pre_vec1=lp, pre_vec2=_xderiv_on(field.name, n, str(dev)),
-        post_vec=ip, sel_mask=mask if merge else None,
-        sel_orig=x if merge else None)
+    dx = _xderiv_on(field.name, n, str(dev))
+    sel = (mask, x) if merge else (None, None)
+    if ntt_mfa._pair_supported(n):
+        out = ntt_mfa.ntt_pair(x, field, pre_vec1=lp, pre_vec2=dx,
+                               post_vec=ip, sel_mask=sel[0],
+                               sel_orig=sel[1])
+    else:
+        # the pair switch is off (or the order is below the kernels'
+        # split): two staged transforms, K5 -> K3 and K5 -> K7-sel (K7
+        # without the merge)
+        h_coeffs = ntt_auto(x, field, inverse=True, pre_vec=lp)
+        out = ntt_auto(h_coeffs, field, pre_vec=dx, post_vec=ip,
+                       sel_mask=sel[0], sel_orig=sel[1])
     return out.reshape(cw.shape)
 
 
@@ -652,7 +669,11 @@ def survivors_to_codeword(survivors: dict, n: int, k: int, field: FieldSpec,
                           block_bytes: int = packing.BLOCK_BYTES):
     """Parse {position: wire bytes} into a zero-filled [n, lanes] numpy
     u32 codeword plus a presence mask, checking every blob's size against
-    its kind (data or parity). Packing runs on the host."""
+    its kind (data or parity). Packing runs on the host: the native
+    library at 4 KB blocks when it is loaded, the plain packing
+    otherwise."""
+    from . import host
+
     lanes = packing.field_lanes(field, block_bytes)
     dpos = set(data_positions(n, k).tolist())
     want_parity = packing.parity_bytes(field, block_bytes)
@@ -672,12 +693,16 @@ def survivors_to_codeword(survivors: dict, n: int, k: int, field: FieldSpec,
                              f"expected {want}")
         items.append((pos, raw))
         present[pos] = True
-    for items, conv in ((d_items, packing.pack_data),
-                        (p_items, packing.deserialize_parity)):
+    native = host.available() and block_bytes == packing.BLOCK_BYTES
+    for items, conv, conv_native in (
+            (d_items, packing.pack_data, host.pack_data),
+            (p_items, packing.deserialize_parity, host.deserialize_parity)):
         if items:
-            arr = torch.from_numpy(np.stack([r for _, r in items]))
-            cw[[p for p, _ in items]] = conv(arr, field).view(
-                torch.int32).numpy().view(np.uint32)
+            arr = np.stack([r for _, r in items])
+            cw[[p for p, _ in items]] = (
+                conv_native(arr, field) if native else
+                conv(torch.from_numpy(arr), field).view(
+                    torch.int32).numpy().view(np.uint32))
     return cw, present
 
 
@@ -723,14 +748,20 @@ def decode_data_from_parity(parity, field: FieldSpec, n: int,
     rows (``encode_parity`` order, the odd codeword positions) -> [k, L]
     data rows. parity[i] = f(w_n w_k^i), so iNTT_k(parity)[m] = f_m w_n^m
     and data = NTT_k(that x w_n^-m): the encode pair with the inverse
-    coset seed (K1 -> K2 -> K3), no locator tables."""
+    coset seed (K1 -> K2 -> K3; K1 -> K3 then K4 -> K3 with the pair
+    switch off), no locator tables."""
     par = as_tensor(parity, device)
     k = par.shape[0]
     if n != 2 * k:
         raise ValueError(f"parity-only decode is the rate-1/2 path, got "
                          f"n={n} for {k} parity rows")
     w_inv = field.inv_host(field.root_of_order(n))
-    out = ntt_mfa.ntt_coset_pair(par.reshape(k, -1), field, w_inv)
+    x = par.reshape(k, -1)
+    if ntt_mfa._pair_supported(k):
+        out = ntt_mfa.ntt_coset_pair(x, field, w_inv)
+    else:
+        out = ntt_auto(ntt_auto(x, field, inverse=True), field,
+                       pre_seed=w_inv)
     return out.reshape(par.shape)
 
 

@@ -647,6 +647,23 @@ def ntt_coset_pair(x: torch.Tensor, field: FieldSpec,
     return ntt_pair(x, field, pre_seed2=pre_seed)
 
 
+# The pair switch, as in the reference: with FASTECC_NO_SEAM set (or below
+# the kernels' smallest order), the callers (rs.encode_parity,
+# rs.encode_blocks, decode.decode_prepared and
+# decode.decode_data_from_parity) run two staged transforms in place of a
+# pair: K1 -> K3 then K4 -> K3 for the encode, K5 -> K3 then K5 -> K7-sel
+# for the decode. Both routes give the same bits; the CLI's ``--seam off``
+# turns it off for one command.
+PAIR_ENABLED = not os.environ.get("FASTECC_NO_SEAM")
+
+
+def _pair_supported(n: int) -> bool:
+    """The callers' gate for the three-pass pair over order ``n``: the
+    switch, and an order the kernels split (the reference's tile
+    conditions are TPU tile facts)."""
+    return PAIR_ENABLED and n >= MIN_ORDER
+
+
 # ---------------------------------------------------------------------------
 # The one-pass "lanes" pair (K11, K12).
 # ---------------------------------------------------------------------------

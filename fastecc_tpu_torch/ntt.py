@@ -281,7 +281,13 @@ def ntt_auto(x, field: FieldSpec, inverse: bool = False, scale: bool = True,
     ``post_vec`` multiplies the output by a prepared [N] table (pass B is
     K7); with ``sel_mask``/``sel_orig`` (given together, only with
     post_vec) rows where the mask is 0 take ``sel_orig`` instead (K7-sel).
-    Tables may be tensors or numpy arrays; they go to x's device."""
+    Tables may be tensors or numpy arrays; they go to x's device.
+
+    Below order ``ntt_mfa.MIN_ORDER`` (4), the kernels' smallest split,
+    the transform runs as the Stockham :func:`ntt` in torch ops with the
+    fusions as elementwise steps, on every device: the reference's
+    ntt_auto takes that route for the shapes its kernels do not take.
+    Those are the k <= 2 codewords of tiny files and tail stripes."""
     from .interop import as_tensor
     from .kernels import ntt_mfa
 
@@ -290,6 +296,25 @@ def ntt_auto(x, field: FieldSpec, inverse: bool = False, scale: bool = True,
 
     def on_x(v, shape):
         return None if v is None else as_tensor(v, x.device).reshape(shape)
+
+    if n < ntt_mfa.MIN_ORDER:
+        if pre_seed is not None and pre_vec is not None:
+            raise ValueError("pre_seed and pre_vec are mutually exclusive")
+        ntt_mfa._check_sel(post_vec, sel_mask, sel_orig)
+        y = x.reshape(n, -1)
+        if pre_seed is not None:
+            pre_vec = _pre_powers(field.name, pre_seed % field.p, n)
+        if pre_vec is not None:
+            y = mul_prepared(field, y, on_x(pre_vec, (n, 1)))
+        y = ntt(y, field, inverse=inverse, scale=scale)
+        if post_vec is not None:
+            y = mul_prepared(field, y, on_x(post_vec, (n, 1)))
+        if sel_mask is not None:
+            keep = gf.widen(on_x(sel_mask, (n, 1))) != 0
+            y = torch.where(keep, y.view(torch.int32),
+                            on_x(sel_orig, (n, -1)).view(torch.int32)
+                            ).view(torch.uint32)
+        return y.reshape(x.shape)
 
     y = ntt_mfa.ntt_fused(
         x.reshape(n, -1), field, inverse=inverse, scale=scale,

@@ -200,3 +200,16 @@ def deserialize_parity_pairs(pairs: torch.Tensor,
     if field.use_mont:
         return pairs
     return _unescape_gf16(_split_halves(pairs))
+
+
+def data_rows_to_pairs(rows: torch.Tensor, field: FieldSpec) -> torch.Tensor:
+    """[k, field_lanes] u32 DATA-block field rows -> [k, B/4] u32 LE byte
+    image of the raw blocks (inverse of :func:`pack_data` up to the free
+    byte view; parts twin of :func:`unpack_data`)."""
+    r = gf.widen(rows)
+    if field.use_mont:
+        words_n = _words_from_lanes(r.shape[-1])
+        stored, bitmap = r[..., :words_n], r[..., words_n:]
+        esc = _unpack_bits(bitmap, 16, words_n)
+        return gf.narrow((stored + esc * field.p) & gf.MASK32)
+    return gf.narrow((r[..., 0::2] | (r[..., 1::2] << 16)) & gf.MASK32)

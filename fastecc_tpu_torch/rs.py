@@ -11,9 +11,10 @@ coeffs = iNTT_k(data).
 Entry points take u32 tensors or numpy arrays (``device``: see
 :mod:`interop`) with the transform along axis 0 and lanes trailing. On a
 CUDA tensor the transforms run on the Hopper kernels: rate 1/2 as the
-three-pass pair (K1 -> K2 -> K3), other rates as iNTT (K1 -> K3) and one
-coset NTT (K4 -> K3) per parity coset; the GF16 wire encode as the wire
-pair (K8 -> K9 -> K10). On a CPU tensor the same structure runs on the
+three-pass pair (K1 -> K2 -> K3), other rates (and rate 1/2 with the pair
+switch ``ntt_mfa.PAIR_ENABLED`` off) as iNTT (K1 -> K3) and one coset NTT
+(K4 -> K3) per parity coset; the GF16 wire encode as the wire pair (K8 ->
+K9 -> K10). On a CPU tensor the same structure runs on the
 kernels' plain versions. Beside the encode: partial-stripe parity
 updates, codeword verification, stripe batches and the out-of-core
 lane-chunk stream.
@@ -98,7 +99,7 @@ def encode_parity(data, field: FieldSpec, n: int | None = None,
     rest = tuple(data.shape[1:])
     x = data.contiguous().reshape(k, -1)
     w_n = field.root_of_order(n)
-    if c == 2:
+    if c == 2 and ntt_mfa._pair_supported(k):
         # rate 1/2: the whole iNTT -> coset NTT pair in three passes
         return ntt_mfa.ntt_coset_pair(x, field, w_n).reshape((k,) + rest)
     coeffs = ntt_auto(x, field, inverse=True)
@@ -375,13 +376,15 @@ def encode_blocks(raw_data, field: FieldSpec, n: int | None = None,
     GF16 at rate 1/2 with B % 4 == 0 and a shape the wire pair takes
     (``ntt_mfa._wire16_supported``) runs the fused wire pair
     (:func:`encode_blocks_gf16_parts`, K8 -> K9 -> K10: the unpack rides
-    pass A1 and the serialization pass B2). Every other shape runs the
-    generic pack -> encode_parity -> serialize composition. The choice
+    pass A1 and the serialization pass B2) unless the pair switch is off.
+    Every other shape runs the generic pack -> encode_parity -> serialize
+    composition. The choice
     is made from the shape alone; both give the same bytes."""
     raw = as_tensor(raw_data, device)
     k, block_bytes = raw.shape
     n2 = 2 * k if n is None else n
     if (not field.use_mont and n2 == 2 * k and block_bytes % 4 == 0
+            and ntt_mfa._pair_supported(k)
             and ntt_mfa._wire16_supported(k, block_bytes // 4)):
         return _encode_blocks_gf16_fused(raw, n2)
     fields = packing.pack_data(raw, field)

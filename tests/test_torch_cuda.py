@@ -312,7 +312,10 @@ def test_entry_points_on_card_match_cpu(field, k, n, cuda_device):
 def test_card_refuses_what_it_does_not_run(cuda_device):
     x = from_numpy_u32(rand_field(fields.GF32, (2, 4)), cuda_device)
     with pytest.raises(ValueError, match="order >= 4"):
-        ntt.ntt_auto(x, fields.GF32)
+        m.ntt_fused(x, fields.GF32)
+    # below the kernels' smallest order ntt_auto takes the torch-op route
+    assert torch.equal(ntt.ntt_auto(x, fields.GF32).cpu(),
+                       ntt.ntt_auto(x.cpu(), fields.GF32))
     words = torch.zeros((4, 16), dtype=torch.uint32, device=cuda_device)
     with pytest.raises(ValueError, match="rate-1/2"):
         rs.encode_blocks_gf16_parts(words, 16)

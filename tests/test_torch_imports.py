@@ -30,7 +30,7 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import fastecc_tpu_torch\n"
         "from fastecc_tpu_torch import decode, fields, gf, ntt, packing, rs, "
-        "interop, testing\n"
+        "interop, testing, host, storage\n"
         "from fastecc_tpu_torch import cli\n"
         "from fastecc_tpu_torch.kernels import ntt_mfa, _build, microbench\n"
         "from fastecc_tpu_torch.utils import timer, profiling\n"
@@ -71,6 +71,22 @@ def test_numpy_input_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         rs.encode_blocks(np.zeros((4, 64), np.uint8), fields.GF32)
     assert rs.encode_parity(x, fields.GF32, device="cpu").device.type == "cpu"
+
+
+def test_storage_defaults_to_the_card(tmp_path):
+    """storage.encode_file raises without a GPU (before it writes
+    anything) unless device="cpu" is given."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: the call would run there")
+    from fastecc_tpu_torch import storage
+    src = tmp_path / "in.bin"
+    src.write_bytes(bytes(range(256)) * 40)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        storage.encode_file(src, tmp_path / "coded", fields.GF32)
+    assert not (tmp_path / "coded").exists()
+    man = storage.encode_file(src, tmp_path / "coded", fields.GF32,
+                              device="cpu")
+    assert man["k"] == 4 and (tmp_path / "coded" / "manifest.json").exists()
 
 
 def _run_smoke(script: Path, cwd: Path):

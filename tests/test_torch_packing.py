@@ -172,3 +172,36 @@ def test_bit_packing_matches_reference():
     np.testing.assert_array_equal(back.numpy(), bits)
     with pytest.raises(ValueError, match="block_bytes"):
         packing.field_lanes(GF32, 4098)
+
+
+@pytest.mark.parametrize("block_bytes", [4096, 160, 36])
+@pytest.mark.parametrize("field", [GF32, GF16], ids=lambda f: f.name)
+def test_data_rows_to_pairs_matches_reference(field, block_bytes):
+    """data_rows_to_pairs on packed data rows (GF32 rows whose bitmap
+    marks escapes, words >= p) and on raw random field rows (GF16 values
+    up to 0x10000, GF32 bitmap lanes with random bits): the reference's
+    u32 image, and on packed rows the inverse of pack_data."""
+    rng = np.random.default_rng(0xD27 + block_bytes)
+    raw = rng.integers(0, 256, (6, block_bytes), dtype=np.uint16).astype(
+        np.uint8)
+    raw[0, : min(64, block_bytes)] = 0xFF          # escapes in GF32
+    jf = jfields.FIELDS[field.name]
+    rows = np.asarray(jpacking.pack_data(jnp.asarray(raw), jf))
+    lanes = rows.shape[1]
+    if field.use_mont:
+        assert rows[0, jpacking._words_from_lanes(lanes):].any()
+    hi = field.p if field.use_mont else 0x10001
+    wild = rng.integers(0, hi, (5, lanes), dtype=np.uint64).astype(np.uint32)
+    if field.use_mont:
+        words_n = jpacking._words_from_lanes(lanes)
+        wild[:, words_n:] = rng.integers(0, 1 << 16, (5, lanes - words_n),
+                                         dtype=np.uint32)
+    for x in (rows, wild):
+        got = to_numpy_u32(packing.data_rows_to_pairs(
+            from_numpy_u32(x, "cpu"), field))
+        want = np.asarray(jpacking.data_rows_to_pairs(jnp.asarray(x), jf))
+        np.testing.assert_array_equal(got, want)
+    back = to_numpy_u32(packing.data_rows_to_pairs(
+        from_numpy_u32(rows, "cpu"), field))
+    np.testing.assert_array_equal(back.view(np.uint8).reshape(raw.shape),
+                                  raw)
