@@ -141,7 +141,29 @@ main path on the card and fails loudly on any fault. Phases:
                host emission apart; first, the microseconds to write and
                to read one 4 KB block file there. The GF32 file is also
                halved while the disk's free space cannot hold ~6.5x it;
- 14. peaks   — the microbenchmark kernels against their plain versions,
+ 14. parallel — the sharded codec (fastecc_tpu_torch.parallel) on worlds
+               of ranks sharing the card over Gloo (2x1, 4x1, 2x2; NCCL
+               refuses two ranks of one communicator on one GPU) and a
+               one-rank NCCL world (the passthrough), each started by
+               parallel._worker.launch: the GF32 encode at k = 2^19, n =
+               2^20, 1024 lanes (BASELINE.json:11), the GF16 encode at
+               k = 2^15 x 1024, ntt_sharded at 2^20 x 512 forward and
+               inverse, ntt_sharded_overlap (chunks 2), output_transposed
+               and input_transposed once each at that shape, and
+               decode_sharded at n = 2^20, e = 2^19, 512 lanes; each rank
+               draws its inputs from the seeds and hashes its output
+               shard against the SHA-256 of its slice of the single-card
+               port (rs.encode_parity, ntt.ntt_auto, decode.decode_prepared
+               on the card); the exchanges per call checked (3, 4, 4, 2 at
+               each transposed end, 6 for two chunks), the median of 3
+               timed calls, rank 0's profile of one 2x1 encode, the ranks'
+               launches (K1 and K3 must launch) added to the path's;
+               PARALLEL_WORLDS sets each world's depth cut (printed); then
+               python -m fastecc_tpu_torch.cli scaling --op encode
+               --devices 4 --lg-k 19 --lanes 256 --iters 2 and scaling
+               --procs 4 --update-baseline into a temporary file, rows
+               parsed and checked;
+ 15. peaks   — the microbenchmark kernels against their plain versions,
                bit-exact: K13 (the copy) at ragged sizes (around a
                block's span) and unaligned, K14
                (the chains) for every variant at depth 3 and at its default
@@ -163,8 +185,9 @@ main path on the card and fails loudly on any fault. Phases:
                under the published and the measured peaks beside phase
                encode's time.
 
-Launch counts are reset to 0 before each main-path run (phases 4-14) and
-read right after it; each run must launch every kernel of its path. Near
+Launch counts are reset to 0 before each main-path run (phases 4-15) and
+read right after it; each run must launch every kernel of its path (in
+phase 14 each rank counts its own and the phase adds them up). Near
 the end come the launches by path, one detail line per kernel (source,
 the TPU kernel it replaces, the shape it was timed at), a JSON object
 with, per kernel, its launches, its time at the main-path shape, the
@@ -2732,6 +2755,258 @@ def phase_storage(gen, launches, times) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# The parallel phase: worlds of ranks sharing the card over Gloo (NCCL
+# refuses two ranks of one communicator on one GPU), each mesh with the
+# halvings of depth (k and n) its shapes take for the time limit, and the
+# one-rank NCCL world (the passthrough).
+PARALLEL_WORLDS = (((2, 1), 0), ((4, 1), 1), ((2, 2), 1), ((1, 1), 0))
+PARALLEL_SEED = 0x9A5A11E1
+# exchanges a call makes with a coeff axis (3 a transform, 2 at each
+# transposed end, 4 for a pair, 3 a chunk in the overlapped form)
+PARALLEL_COLLECTIVES = {"enc32": 4, "enc16": 4, "ntt": 3, "intt": 3,
+                        "ov2": 6, "out_t": 2, "in_t": 2, "dec": 4}
+
+
+def parallel_shapes(cut: int) -> dict:
+    """name -> (op, field, rows, lanes) at ``cut`` halvings of depth:
+    the GF32 encode at BASELINE.json:11's k = 2^19 (n = 2^20) x 1024, the
+    GF16 encode at its largest order (k = 2^15) x 1024, the NTT family at
+    2^20 x 512, the decode at n = 2^20, e = 2^19, 512 lanes."""
+    return {"enc32": ("encode", "GF32", 1 << (19 - cut), 1024),
+            "enc16": ("encode", "GF16", 1 << (15 - cut), 1024),
+            "ntt": ("ntt", "GF32", 1 << (20 - cut), 512),
+            "intt": ("ntt", "GF32", 1 << (20 - cut), 512),
+            "ov2": ("ntt_overlap", "GF32", 1 << (20 - cut), 512),
+            "out_t": ("ntt", "GF32", 1 << (20 - cut), 512),
+            "in_t": ("ntt", "GF32", 1 << (20 - cut), 512),
+            "dec": ("decode", "GF32", 1 << (20 - cut), 512)}
+
+
+def _inner(n: int) -> int:
+    """C of the transposed layouts ([R, C, L]) at n points, D <= 4."""
+    return 1 << ((n.bit_length() - 1) // 2)
+
+
+def shard_digests(ref: torch.Tensor, meshes, transposed_c: int = 0
+                  ) -> dict:
+    """mesh -> every rank's SHA-256 of its slice of the single-card
+    ``ref`` ([N, L]; with ``transposed_c`` viewed [N/C, C, L] and sliced
+    on the middle axis), the same bytes parallel._worker.digest hashes:
+    one copy to the host, the slices hashed in threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    v = ref.view(torch.int32).cpu().numpy()
+    if transposed_c:
+        v = v.reshape(v.shape[0] // transposed_c, transposed_c, -1)
+    ax = 1 if transposed_c else 0
+    jobs = []
+    for dc, db in meshes:
+        rows, lanes = v.shape[ax] // dc, v.shape[-1] // db
+        for r in range(dc * db):
+            ci, bi = divmod(r, db)
+            sl = [slice(None)] * v.ndim
+            sl[ax] = slice(ci * rows, (ci + 1) * rows)
+            sl[-1] = slice(bi * lanes, (bi + 1) * lanes)
+            jobs.append(((dc, db), v[tuple(sl)]))
+
+    def sha(part):
+        return hashlib.sha256(np.ascontiguousarray(part).data).hexdigest()
+    with ThreadPoolExecutor(8) as pool:
+        shas = list(pool.map(lambda j: sha(j[1]), jobs))
+    out = {}
+    for (m, _), sha in zip(jobs, shas):
+        out.setdefault(m, []).append(sha)
+    return out
+
+
+def parallel_refs(cut: int, meshes) -> dict:
+    """name -> mesh -> each rank's expected digest: the single-card port
+    (rs.encode_parity, ntt.ntt_auto, decode.decode_prepared) on the card,
+    on the inputs the ranks draw (parallel._worker.seeded_u32 and
+    garbled_codeword from the same seeds)."""
+    from fastecc_tpu_torch import decode, ntt, rs
+    from fastecc_tpu_torch.fields import GF16, GF32
+    from fastecc_tpu_torch.parallel._worker import (garbled_codeword,
+                                                    seeded_u32)
+    sh = parallel_shapes(cut)
+    refs = {}
+    for name, field, seed in (("enc32", GF32, 1), ("enc16", GF16, 2)):
+        _, _, k, lanes = sh[name]
+        data = seeded_u32(field.p, (k, lanes), PARALLEL_SEED + seed, "cuda")
+        refs[name] = shard_digests(rs.encode_parity(data, field, 2 * k),
+                                   meshes)
+        del data
+    _, _, n, lanes = sh["ntt"]
+    x = seeded_u32(GF32.p, (n, lanes), PARALLEL_SEED + 3, "cuda")
+    fwd = ntt.ntt_auto(x, GF32)
+    refs["ntt"] = refs["ov2"] = refs["in_t"] = shard_digests(fwd, meshes)
+    del fwd
+    inv = ntt.ntt_auto(x, GF32, inverse=True)
+    refs["intt"] = shard_digests(inv, meshes)
+    refs["out_t"] = shard_digests(inv, meshes, transposed_c=_inner(n))
+    del x, inv
+    _, _, n, lanes = sh["dec"]
+    cw, bad, erased = garbled_codeword(GF32, n // 2, lanes,
+                                       PARALLEL_SEED + 4, n // 2, "cuda")
+    out = decode.decode_prepared(bad, *decode.prepare_decode_tables(
+        erased, n, GF32, device=bad.device), GF32)
+    check(torch.equal(out, cw), "the single-card decode != the codeword")
+    refs["dec"] = shard_digests(cw, meshes)
+    del cw, bad, out
+    torch.cuda.synchronize()
+    return refs
+
+
+def parallel_cases(cut: int, refs: dict, m) -> list:
+    """The phase's cases for a world of mesh ``m`` (see
+    fastecc_tpu_torch/parallel/_worker.py), each rank held to its
+    digest; the median of 3 timed calls after the first."""
+    sh = parallel_shapes(cut)
+    s = PARALLEL_SEED
+    n = sh["ntt"][2]
+    x = {"seeded": [n, sh["ntt"][3]], "seed": s + 3}
+    inputs = {
+        "enc32": {"seeded": [sh["enc32"][2], 1024], "seed": s + 1},
+        "enc16": {"seeded": [sh["enc16"][2], 1024], "seed": s + 2},
+        "ntt": x, "intt": x, "ov2": x, "out_t": x,
+        "in_t": dict(x, view=n // _inner(n)),
+        "dec": {"codeword": [sh["dec"][2] // 2, sh["dec"][3]],
+                "seed": s + 4, "e": sh["dec"][2] // 2}}
+    args = {"enc32": {"n": 2 * sh["enc32"][2]},
+            "enc16": {"n": 2 * sh["enc16"][2]},
+            "intt": {"inverse": True}, "ov2": {"chunks": 2},
+            "out_t": {"inverse": True, "output_transposed": True},
+            "in_t": {"input_transposed": True}}
+    cases = []
+    for name, (op, field, _, _) in sh.items():
+        cases.append({"name": name, "op": op, "field": field,
+                      "input": inputs[name], "args": args.get(name, {}),
+                      "iters": 0 if name in ("out_t", "in_t") else 3,
+                      "expect_sha": refs[name][m],
+                      "profile": name == "enc32" and m == (2, 1)})
+    return cases
+
+
+def parallel_cli() -> None:
+    """The CLI's scaling on the card: the weak-scaling sweep of the GF32
+    encode (worlds of 1, 2 and 4 ranks, 256 lanes a rank, k = 2^19) and
+    the --procs 4 structural row with --update-baseline into a temporary
+    file; each row parsed and checked."""
+    import tempfile
+
+    def cli(*argv):
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "fastecc_tpu_torch.cli",
+                            "scaling", *argv], cwd=REPO, capture_output=True,
+                           text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        check(p.returncode == 0, f"cli scaling {argv}: rc {p.returncode} "
+              f"{p.stderr[-3000:]}")
+        rows = [json.loads(ln) for ln in p.stdout.splitlines()
+                if ln.startswith("{")]
+        for r in rows:
+            say(f"[parallel] cli scaling {' '.join(argv[:2])}: "
+                f"{json.dumps(r)}")
+        say(f"[parallel] cli scaling {' '.join(argv)}: {wall:.1f} s")
+        return rows
+    rows = cli("--op", "encode", "--devices", "4", "--lg-k", "19",
+               "--lanes", "256", "--iters", "2")
+    check([r["devices"] for r in rows] == [1, 2, 4]
+          and [r["lanes"] for r in rows] == [256, 512, 1024],
+          "cli scaling: the sweep's worlds")
+    check([r["backend"] for r in rows] == ["nccl", "gloo", "gloo"]
+          and [r["virtual"] for r in rows] == [False, True, True]
+          and all(r["gb_per_sec"] > 0 for r in rows),
+          "cli scaling: backends, virtual tags and rates")
+    with tempfile.TemporaryDirectory(prefix="fastecc_baseline_") as td:
+        path = Path(td) / "BASELINE.md"
+        (row,) = cli("--procs", "4", "--update-baseline",
+                     "--baseline-path", str(path))
+        lines = path.read_text().splitlines()
+        check(sorted(p.name for p in Path(td).iterdir()) == ["BASELINE.md"]
+              and lines[-1].startswith("- ") and "4-process 2x2 gloo" in
+              lines[-1], "cli scaling --update-baseline: one line appended "
+              "to the given path")
+    check(row["bit_exact"] is True and row["all_to_all"] == {
+        "ntt": 3, "encode": 4, "decode": 4} and row["transport"] == "gloo"
+        and row["virtual"] is True and row["mesh"] == "2x2",
+        f"cli scaling --procs 4: {row}")
+
+
+def phase_parallel(launches, times) -> None:
+    """The sharded codec (fastecc_tpu_torch.parallel) on worlds of ranks
+    sharing the card, each rank's shard held to the single-card port's
+    digest; then the CLI's scaling."""
+    from fastecc_tpu_torch.parallel import _worker
+    from fastecc_tpu_torch.utils.timer import median
+
+    free, total = torch.cuda.mem_get_info()
+    cuts = {m: c for m, c in PARALLEL_WORLDS}
+    say(f"[parallel] worlds {[f'{m[0]}x{m[1]}' for m in cuts]} on one "
+        f"card; depth cuts (halvings of k and n, time limit) "
+        f"{ {f'{m[0]}x{m[1]}': c for m, c in cuts.items()} }; "
+        f"device memory free {free / 2**30:.1f} of {total / 2**30:.1f} GiB")
+    t_refs = time.perf_counter()
+    refs = {c: parallel_refs(c, [m for m, mc in cuts.items() if mc == c])
+            for c in sorted(set(cuts.values()))}
+    say(f"[parallel] single-card references and digests: "
+        f"{time.perf_counter() - t_refs:.1f} s")
+    launches["parallel"] = {k: 0 for k in REPLACES}
+    times["parallel"] = {}
+    for m, cut in PARALLEL_WORLDS:
+        torch.cuda.empty_cache()
+        world = m[0] * m[1]
+        t0 = time.perf_counter()
+        reps = _worker.launch({"mesh": m, "device": "cuda",
+                               "cases": parallel_cases(cut, refs[cut], m)},
+                              world, timeout=600)
+        wall = time.perf_counter() - t0
+        tag = f"{m[0]}x{m[1]}"
+        backend = reps[0]["backend"]
+        check(backend == ("nccl" if world == 1 else "gloo"),
+              f"{tag}: backend {backend}")
+        parts, world_launches = [], {}
+        for name in parallel_shapes(cut):
+            for r, rep in enumerate(reps):
+                case = rep["cases"][name]
+                check(case["sha_match"], f"{tag} {name}: rank {r}'s shard "
+                      f"!= the single-card port's")
+                want = PARALLEL_COLLECTIVES[name] if m[0] > 1 else 0
+                check(case["collectives"]["all_to_all"] == want,
+                      f"{tag} {name}: {case['collectives']} exchanges, "
+                      f"want {want}")
+                for k, v in case["launches"].items():
+                    launches["parallel"][k] += v
+                    world_launches[k] = world_launches.get(k, 0) + v
+            c0 = reps[0]["cases"][name]
+            if c0["samples"]:
+                ms = median(c0["samples"]) * 1e3
+                times["parallel"][f"{tag}_{name}_ms"] = ms
+                parts.append(f"{name} {ms:.3f} ms")
+            else:
+                parts.append(f"{name} (one call)")
+        mb = reps[0]["cases"]["enc32"]["collectives"]["all_to_all_bytes"]
+        say(f"[parallel] {tag} ({backend}, {world} rank(s), cut {cut}): "
+            f"every rank's shard == the single-card port's digest; medians "
+            f"of 3 (rank 0, barriers around each call): {', '.join(parts)}; "
+            f"enc32 exchanges {mb / 2**20:.0f} MiB a rank a call; launches "
+            f"(all ranks, one call of each) {world_launches}; rank 0 "
+            f"began with {reps[0]['mem_free_total'][0] / 2**30:.1f} GiB "
+            f"free; world wall {wall:.1f} s")
+        say(f"[parallel] {tag} case walls (rank 0: input, calls, hash) "
+            + ", ".join(f"{k} {v['case_s']:.1f} s"
+                        for k, v in reps[0]["cases"].items()))
+        prof = reps[0]["cases"]["enc32"].get("profile")
+        if prof:
+            say(f"[parallel] {tag} enc32 rank 0 profile: {json.dumps(prof)}")
+    for k in ("K1_col", "K3_row"):
+        check(launches["parallel"][k] > 0,
+              f"parallel: the ranks did not launch {k}")
+    say(f"[parallel] launches "
+        f"{ {k: v for k, v in launches['parallel'].items() if v} }")
+    parallel_cli()
+
+
 def phase_peaks(gen, launches, times, shapes, worst):
     from fastecc_tpu_torch.fields import FIELDS, GF32
     from fastecc_tpu_torch.kernels import microbench as mb
@@ -2911,6 +3186,7 @@ def main() -> int:
     phase_lanes(gen, launches, times, shapes)
     phase_errors(gen, launches, times)
     phase_storage(gen, launches, times)
+    phase_parallel(launches, times)
     phase_peaks(gen, launches, times, shapes, worst)
 
     total = {k: sum(p[k] for p in launches.values()) for k in REPLACES}
@@ -2953,7 +3229,9 @@ def main() -> int:
         f"{times['lanes_wire16_3pass_s'] * 1e3:.3f} ms; correct_errors 2^20 "
         f"x 1024: {times['correct_s'] * 1e3:.1f} ms; verify 2^20 x 1024: "
         f"{times['verify_s'] * 1e3:.3f} ms; update 3 blocks: "
-        f"{times['update_s'] * 1e3:.3f} ms; copy "
+        f"{times['update_s'] * 1e3:.3f} ms; sharded GF32 encode 2^20 x 1024 "
+        f"on 2x1 ranks sharing the card (Gloo): "
+        f"{times['parallel']['2x1_enc32_ms']:.3f} ms; copy "
         f"{times['peaks']['hbm_stream_gbps']} GB/s, raw mul "
         f"{times['peaks']['raw_mul_gops']} Gops/s; "
         f"{time.perf_counter() - t_start:.0f} s total")

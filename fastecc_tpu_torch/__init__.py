@@ -32,7 +32,11 @@ Public API (module names mirror ``fastecc_tpu``):
   kernels.microbench               — the card's peaks (copy, chains, fused
                                      chains: K13-K15), measure_peaks
   utils.profiling                  — the roofline model, torch.profiler
-  cli                              — gf-bench and roofline
+  parallel                         — the sharded codec on torch.distributed:
+                                     make_mesh, ntt_sharded(_overlap),
+                                     encode_parity_sharded, decode_sharded
+                                     (one process a rank, local shards)
+  cli                              — the reference's commands, scaling too
 
 Entry points run on the card unless the caller passes CPU tensors or
 ``device="cpu"``; without a GPU they raise rather than fall back.

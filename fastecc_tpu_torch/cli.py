@@ -13,6 +13,8 @@
     python -m fastecc_tpu_torch.cli repair DIR             # re-replicate
     python -m fastecc_tpu_torch.cli read DIR --offset N --length L
     python -m fastecc_tpu_torch.cli update DIR FILE --offset N
+    python -m fastecc_tpu_torch.cli scaling --op encode --devices 4
+    python -m fastecc_tpu_torch.cli scaling --procs 4 [--update-baseline]
 
 Every command runs on the card unless ``--device cpu`` (the kernels'
 plain versions); without a GPU it raises. Output lines, JSON keys, exit
@@ -36,6 +38,13 @@ the touched column window of missing blocks; ``update`` splices new bytes
 in with incremental parity updates. Files beyond ``--max-resident`` MB
 stream through ``storage``; files beyond one codeword stripe. The
 directories are the reference's, byte for byte.
+
+``scaling`` runs the sharded codec (``parallel``) on worlds of 1, 2, 4,
+... ranks, one process each (``parallel._worker.launch``): a weak-scaling
+row per world, or with ``--procs N`` one structural row of N ranks. Its
+rows add ``backend`` (NCCL when every rank has a card of its own, else
+Gloo) and ``virtual`` (ranks sharing a card, or the CPU: not a scaling
+measurement).
 """
 
 from __future__ import annotations
@@ -686,6 +695,174 @@ def cmd_update(args, dev):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# scaling: the sharded codec over worlds of ranks
+# ---------------------------------------------------------------------------
+
+def _sig6(x: float) -> float:
+    """``x`` to 6 significant digits (a toy CPU row must not read 0.0)."""
+    return float(f"{x:.6g}")
+
+
+def _virtual(dev, ranks: int) -> bool:
+    """True when ranks share a card or run on the CPU: the row is then
+    structural, not a measurement of scaling."""
+    import torch
+    return dev.type != "cuda" or ranks > torch.cuda.device_count()
+
+
+def _append_baseline_scaling_row(path, row):
+    """Append one virtual-tagged structural row to the BASELINE.md at
+    ``path`` (the reference's format, with the port's transport and
+    device)."""
+    import datetime
+    import subprocess
+    header = "## Multihost structural proxies (virtual — NOT perf data)"
+    try:
+        commit = subprocess.run(["git", "rev-parse", "--short", "HEAD"],
+                                capture_output=True, text=True,
+                                cwd=pathlib.Path(path).resolve().parent
+                                ).stdout.strip() or "?"
+    except FileNotFoundError:       # git is not installed
+        commit = "?"
+    ph, a2a = row["phases"], row["all_to_all"]
+    who = ("Virtual: ranks sharing one device" if row["virtual"]
+           else "Ranks on devices of their own")
+    line = (f"- {datetime.date.today()} ({commit}): "
+            f"{row['process_count']}-process {row['mesh']} "
+            f"{row['transport']} mesh on {row['device']} (PyTorch port), "
+            f"{row['field']} n=2^{row['lg_n']}: all_to_all per program "
+            f"ntt/encode/decode = {a2a['ntt']}/{a2a['encode']}/"
+            f"{a2a['decode']}; phase walls ntt {ph['ntt_s']} s, "
+            f"encode {ph['encode_s']} s, decode {ph['decode_s']} s; "
+            f"bit-exact vs single-process: {row['bit_exact']}. "
+            f"{who} over {row['transport']} — "
+            f"structural readiness for [BASELINE] config :11, not a "
+            f"throughput row.\n")
+    p = pathlib.Path(path)
+    text = p.read_text() if p.exists() else "# BASELINE\n"
+    if header not in text:
+        text = text.rstrip("\n") + f"\n\n{header}\n\n"
+    else:
+        text = text.rstrip("\n") + "\n"
+    p.write_text(text + line)
+
+
+def _scaling_multiproc(args, dev):
+    """One structural row from ``--procs`` ranks over a 2x2 (4 ranks) or
+    Nx1 mesh at the reference's size (lg_n = min(lg_k + 1, 10)): the
+    phases' walls, the exchanges per program (``ntt_dist.COLLECTIVES``),
+    and every rank's shard held to the single-device port."""
+    import tempfile
+
+    from . import decode, ntt, rs
+    from .interop import as_tensor, to_numpy_u32
+    from .parallel import _worker
+    field = _field(args.field)
+    procs = args.procs
+    mesh_c, mesh_b = (2, 2) if procs == 4 else (procs, 1)
+    lg_n = min(args.lg_k + 1, 10)
+    n = 1 << lg_n
+    k = n // 2
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, field.p, (n, args.lanes), dtype=np.uint64).astype(
+        np.uint32)
+    cw = to_numpy_u32(rs.encode(as_tensor(x[:k], dev), field, n))
+    erased = np.sort(rng.choice(n, size=k, replace=False))
+    garbled = cw.copy()
+    garbled[erased] = 0
+    want = {"ntt": to_numpy_u32(ntt.ntt_auto(as_tensor(x, dev), field)),
+            "encode": to_numpy_u32(rs.encode_parity(as_tensor(x[:k], dev),
+                                                    field, n)),
+            "decode": cw}
+    with tempfile.TemporaryDirectory(prefix="fecc_scaling_") as td:
+        def npy(name, a):
+            path = str(pathlib.Path(td) / f"{name}.npy")
+            np.save(path, a)
+            return path
+        common = {"field": field.name, "iters": 2}
+        cases = [
+            {"name": "ntt", "op": "ntt", "input": {"npy": npy("x", x)},
+             "want": npy("want_ntt", want["ntt"]), **common},
+            {"name": "encode", "op": "encode",
+             "input": {"npy": npy("data", x[:k])}, "args": {"n": n},
+             "want": npy("want_encode", want["encode"]), **common},
+            {"name": "decode", "op": "decode_prepared",
+             "input": {"npy": npy("garbled", garbled)},
+             "args": {"erased": npy("erased", erased)},
+             "want": npy("want_decode", cw), **common},
+        ]
+        reports = _worker.launch({"mesh": (mesh_c, mesh_b),
+                                  "device": dev.type, "cases": cases,
+                                  "threads": 1 if dev.type == "cpu" else 0},
+                                 procs, timeout=550)
+    r0 = reports[0]["cases"]
+    row = {"phases": {f"{c}_s": round(min(r0[c]["samples"]), 4)
+                      for c in ("ntt", "encode", "decode")},
+           "all_to_all": {c: r0[c]["collectives"]["all_to_all"]
+                          for c in ("ntt", "encode", "decode")},
+           "bit_exact": all(r["cases"][c]["bit_exact"] for r in reports
+                            for c in ("ntt", "encode", "decode")),
+           "process_count": procs, "devices": procs,
+           "virtual": _virtual(dev, procs),
+           "transport": reports[0]["backend"],
+           "mesh": f"{mesh_c}x{mesh_b}", "field": field.name, "lg_n": lg_n,
+           "device": _device_name(dev)}
+    print(json.dumps(row))
+    if args.update_baseline:
+        _append_baseline_scaling_row(args.baseline_path, row)
+    return 0 if row["bit_exact"] else 1
+
+
+def cmd_scaling(args, dev):
+    """Weak-scaling sweep over worlds of d = 1, 2, 4, ... <= --devices
+    ranks (one process each, a d x 1 mesh), the data [k, lanes * d]: one
+    JSON row per world with the reference's keys plus ``backend`` and
+    ``device``. Ranks sharing one card (or the CPU) make a ``virtual``
+    row: a structural check, never a scaling measurement. ``--procs N``
+    prints the structural row of N ranks instead (``--update-baseline``
+    appends it to ``--baseline-path``)."""
+    if args.procs > 1:
+        return _scaling_multiproc(args, dev)
+    from .parallel import _worker
+    field = _field(args.field)
+    k = 1 << args.lg_k
+    op = {"encode": "encode", "decode": "decode", "ntt": "ntt",
+          "ntt-overlap": "ntt_overlap"}[args.op]
+    d, base = 1, None
+    while d <= args.devices:
+        lanes = args.lanes * d                     # weak scaling: grow work
+        case = {"name": "op", "op": op, "field": field.name,
+                "iters": args.iters,
+                "input": ({"codeword": [k, lanes], "seed": 0, "e": k}
+                          if op == "decode"
+                          else {"seeded": [k, lanes], "seed": 0})}
+        if op == "encode":
+            case["args"] = {"n": 2 * k}
+        elif op == "ntt_overlap":
+            case["args"] = {"chunks": min(args.overlap_chunks, args.lanes)}
+        rep = _worker.launch({"mesh": (d, 1), "device": dev.type,
+                              "cases": [case],
+                              "threads": 1 if dev.type == "cpu" else 0},
+                             d, timeout=1200)
+        secs = min(rep[0]["cases"]["op"]["samples"])
+        # encode emits an n = 2k codeword from [k, lanes]; decode consumes
+        # one; the NTT ops transform [k, lanes]
+        factor = 2 if op in ("encode", "decode") else 1
+        gbps = factor * k * lanes * 4 / secs / 1e9
+        eff = 1.0 if base is None else gbps / (base * d)
+        base = base or gbps
+        print(json.dumps({"devices": d, "lanes": lanes,
+                          "seconds": round(secs, 4),
+                          "gb_per_sec": _sig6(gbps),
+                          "weak_scaling_eff": round(eff, 3),
+                          "virtual": _virtual(dev, d),
+                          "backend": rep[0]["backend"],
+                          "device": _device_name(dev)}))
+        d *= 2
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="fastecc_tpu_torch",
@@ -833,6 +1010,29 @@ def main(argv=None):
                    help="measured peaks (`gf-bench --variant all` JSON) "
                         "instead of the published H100 rates")
     p.set_defaults(fn=cmd_roofline)
+
+    p = sub.add_parser("scaling", help="weak-scaling sweep over worlds "
+                                       "of ranks (the sharded codec)")
+    p.add_argument("--devices", type=int, default=8,
+                   help="largest world: d = 1, 2, 4, ... ranks")
+    p.add_argument("--lg-k", type=int, default=10)
+    p.add_argument("--lanes", type=int, default=8,
+                   help="lanes a rank (the world's data is [k, lanes * d])")
+    p.add_argument("--iters", type=int, default=2)
+    p.add_argument("--op", default="encode",
+                   choices=["encode", "decode", "ntt", "ntt-overlap"],
+                   help="pipeline under test (decode = sharded erasure "
+                        "decode at max loss; ntt-overlap = the exchanges "
+                        "overlapped with the local transforms)")
+    p.add_argument("--overlap-chunks", type=int, default=2)
+    p.add_argument("--procs", type=int, default=1,
+                   help="structural row: this many ranks over a 2x2 (4) "
+                        "or Nx1 mesh instead of the sweep")
+    p.add_argument("--update-baseline", action="store_true",
+                   help="append the --procs row to --baseline-path "
+                        "(virtual-tagged)")
+    p.add_argument("--baseline-path", default="BASELINE.md")
+    p.set_defaults(fn=cmd_scaling)
 
     args = ap.parse_args(argv)
     if getattr(args, "pair_c_dim", None) is not None:

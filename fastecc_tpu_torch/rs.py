@@ -61,6 +61,21 @@ def _coset_twiddles(field_name: str, n: int, k: int):
     return np.asarray(prepare_consts(field, rows))
 
 
+@functools.lru_cache(maxsize=None)
+def _coset_twiddles_scaled(field_name: str, n: int, k: int):
+    """Prepared [c-1, k] table w_n^(r*m) * k^-1: the iNTT's scale folded
+    into the coset multiply, for callers that run the iNTT unscaled (the
+    sharded encode, ``parallel.encode_parity_sharded``). Same residues as
+    scaling, then multiplying."""
+    field = FIELDS[field_name]
+    c = n // k
+    w = field.root_of_order(n)
+    bases = powers_host(field, w, c)[1:]
+    rows = powers_outer_host(field, bases, k).astype(np.uint64)
+    rows = rows * np.uint64(field.inv_host(k)) % np.uint64(field.p)
+    return np.asarray(prepare_consts(field, rows.astype(np.uint32)))
+
+
 def data_positions(n: int, k: int) -> np.ndarray:
     """Codeword indices holding the (unchanged) data blocks."""
     return np.arange(k) * (n // k)

@@ -375,6 +375,68 @@ def test_streamed_file_commands_match_in_core(both):
     assert both("check", "{d}/streamed", "--max-resident", "0")[0] == 1
 
 
+SCALING_KEYS = {"devices", "lanes", "seconds", "gb_per_sec",
+                "weak_scaling_eff", "virtual"}
+
+
+@pytest.mark.parametrize("op", ["encode", "decode", "ntt", "ntt-overlap"])
+def test_scaling_sweep_rows(op, capsys):
+    """scaling on worlds of 1, 2 and 4 CPU ranks (Gloo): a row per world
+    with the reference's keys plus backend and device, every row virtual,
+    the first at efficiency 1.0, every rate above 0 (6 significant
+    digits, so a toy row never reads 0.0)."""
+    assert cli.main(["--device", "cpu", "scaling", "--op", op, "--devices",
+                     "4", "--lg-k", "6", "--lanes", "8", "--iters", "1"]) == 0
+    rows = _json_lines(capsys.readouterr().out)
+    assert [r["devices"] for r in rows] == [1, 2, 4]
+    assert [r["lanes"] for r in rows] == [8, 16, 32]
+    assert all(set(r) == SCALING_KEYS | {"backend", "device"} for r in rows)
+    assert all(r["virtual"] and r["backend"] == "gloo"
+               and r["device"] == "cpu" for r in rows)
+    assert rows[0]["weak_scaling_eff"] == 1.0
+    assert all(r["gb_per_sec"] > 0 for r in rows)
+
+
+def test_scaling_keys_are_the_references(capsys):
+    assert jcli.main(["scaling", "--op", "ntt", "--devices", "2", "--lg-k",
+                      "5", "--lanes", "4", "--iters", "1"]) == 0
+    assert all(set(r) == SCALING_KEYS
+               for r in _json_lines(capsys.readouterr().out))
+
+
+def test_scaling_procs_row_and_baseline(tmp_path, capsys):
+    """--procs 4: one structural row over a 2x2 Gloo mesh, every shard
+    equal to the single-device port, 3/4/4 exchanges, the reference's
+    keys plus device; --update-baseline appends one line to the given
+    --baseline-path and writes nothing else (the repo's BASELINE.md
+    stays as it was)."""
+    import hashlib
+    import pathlib
+    repo_baseline = pathlib.Path(__file__).resolve().parent.parent / \
+        "BASELINE.md"
+    before = hashlib.sha256(repo_baseline.read_bytes()).hexdigest()
+    path = tmp_path / "BASELINE.md"
+    path.write_text("# BASELINE\n\nearlier text\n")
+    assert cli.main(["--device", "cpu", "scaling", "--procs", "4",
+                     "--update-baseline", "--baseline-path", str(path)]) == 0
+    (row,) = _json_lines(capsys.readouterr().out)
+    assert set(row) == {"phases", "all_to_all", "bit_exact",
+                        "process_count", "devices", "virtual", "transport",
+                        "mesh", "field", "lg_n", "device"}
+    assert row["bit_exact"] is True
+    assert row["all_to_all"] == {"ntt": 3, "encode": 4, "decode": 4}
+    assert (row["mesh"], row["transport"], row["process_count"],
+            row["lg_n"], row["virtual"]) == ("2x2", "gloo", 4, 10, True)
+    assert all(v > 0 for v in row["phases"].values())
+    text = path.read_text()
+    assert text.startswith("# BASELINE\n\nearlier text\n")
+    assert text.count("Multihost structural proxies") == 1
+    assert text.rstrip().splitlines()[-1].startswith("- ")
+    assert "4-process 2x2 gloo mesh on cpu" in text
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["BASELINE.md"]
+    assert hashlib.sha256(repo_baseline.read_bytes()).hexdigest() == before
+
+
 COMMANDS = {
     "verify": ["verify", "--lg-n", "4"],
     "roundtrip": ["roundtrip", "--lg-n", "4"],
@@ -389,6 +451,7 @@ COMMANDS = {
     "repair": ["repair", "{d}/coded"],
     "read": ["read", "{d}/coded", "--offset", "0", "--length", "1"],
     "update": ["update", "{d}/coded", "{d}/s.bin", "--offset", "0"],
+    "scaling": ["scaling", "--devices", "2", "--lg-k", "4"],
 }
 
 

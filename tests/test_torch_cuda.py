@@ -659,3 +659,26 @@ def test_fused_chain_every_length_on_card(field, cuda_device):
                 assert torch.equal(mb.fused_chain(y, field, depth),
                                    mb.fused_chain_plain(y, field, depth)), (
                     la, lanes, depth)
+
+
+def test_sharded_encode_on_card_matches_single_card(cuda_device, tmp_path):
+    """Two ranks share the card over Gloo (NCCL refuses two ranks of one
+    communicator on one GPU): the sharded encode of [2^12, 64] launches
+    K1 and K3 in each rank, runs 4 exchanges and gives every rank the
+    single-card encode's rows."""
+    from fastecc_tpu_torch.parallel import _worker
+    from fastecc_tpu_torch.interop import to_numpy_u32
+    k, lanes = 1 << 12, 64
+    data = _worker.seeded_u32(fields.GF32.p, (k, lanes), 7, cuda_device)
+    want = tmp_path / "want.npy"
+    np.save(want, to_numpy_u32(rs.encode_parity(data, fields.GF32)))
+    reps = _worker.launch({"mesh": (2, 1), "device": "cuda", "cases": [
+        {"name": "enc", "op": "encode", "field": "GF32",
+         "input": {"seeded": [k, lanes], "seed": 7}, "want": str(want)}]},
+        2, timeout=300)
+    for rep in reps:
+        case = rep["cases"]["enc"]
+        assert rep["backend"] == "gloo" and rep["device"] == "cuda:0"
+        assert case["bit_exact"] is True
+        assert case["collectives"]["all_to_all"] == 4
+        assert case["launches"]["K1_col"] > 0 and case["launches"]["K3_row"] > 0

@@ -34,6 +34,9 @@ def test_port_imports_no_jax():
         "from fastecc_tpu_torch import cli\n"
         "from fastecc_tpu_torch.kernels import ntt_mfa, _build, microbench\n"
         "from fastecc_tpu_torch.utils import timer, profiling\n"
+        "from fastecc_tpu_torch import parallel\n"
+        "from fastecc_tpu_torch.parallel import mesh, ntt_dist, _worker\n"
+        "parallel.ntt_sharded, parallel.make_mesh\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m == 'jaxlib' or m.startswith('jaxlib.') "
         "or m == 'fastecc_tpu' or m.startswith('fastecc_tpu.'))\n"

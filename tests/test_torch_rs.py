@@ -86,6 +86,15 @@ def test_coset_twiddles_match_reference(field):
             jrs._coset_twiddles(field.name, n, k))
 
 
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_coset_twiddles_scaled_match_reference(field):
+    """The sharded encode's table: w_n^(r*m) * k^-1, prepared."""
+    for n, k in ((16, 8), (256, 64), (1 << 10, 1 << 8), (1 << 12, 1 << 11)):
+        np.testing.assert_array_equal(
+            rs._coset_twiddles_scaled(field.name, n, k),
+            jrs._coset_twiddles_scaled(field.name, n, k))
+
+
 def test_positions_and_kn_checks():
     for n, k in ((16, 8), (64, 16)):
         np.testing.assert_array_equal(rs.data_positions(n, k),
