@@ -31,7 +31,11 @@ Public API (module names mirror ``fastecc_tpu``):
                                      (FASTECC_LANES_PAIR: K11, K12)
   kernels.microbench               — the card's peaks (copy, chains, fused
                                      chains: K13-K15), measure_peaks
-  utils.profiling                  — the roofline model, torch.profiler
+  utils.profiling                  — the roofline model, torch.profiler;
+                                     trace(log_dir) records the card's
+                                     kernels with the port's spans
+                                     (fecc.rs.*, fecc.decode.*,
+                                     fecc.pass.<key>, fecc.rs.wire_join)
   parallel                         — the sharded codec on torch.distributed:
                                      make_mesh, ntt_sharded(_overlap),
                                      encode_parity_sharded, decode_sharded

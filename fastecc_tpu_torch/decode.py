@@ -49,6 +49,7 @@ from .kernels import ntt_mfa
 from .ntt import _log2, mul_prepared, ntt_auto, ntt_host, prepare_consts
 from .rs import data_positions, parity_positions  # noqa: F401 (re-export)
 from .rs import _chunk, _upload, stream_lane_chunks, verify_codeword
+from .utils import profiling
 
 
 @functools.lru_cache(maxsize=None)
@@ -346,27 +347,29 @@ def decode_prepared(codeword, mask, l_eval_prep, lp_inv_prep,
     right ONLY at erased rows, garbage elsewhere (for callers that merge
     from their own survivor copies). With the pair switch
     (``ntt_mfa.PAIR_ENABLED``) off the same multiplies ride two staged
-    transforms, K5 -> K3 and K5 -> K7-sel (or K7)."""
-    cw = as_tensor(codeword, device)
-    n = cw.shape[0]
-    x = cw.reshape(n, -1)
-    dev = x.device
-    mask, lp, ip = (as_tensor(t, dev) for t in (mask, l_eval_prep,
-                                                 lp_inv_prep))
-    dx = _xderiv_on(field.name, n, str(dev))
-    sel = (mask, x) if merge else (None, None)
-    if ntt_mfa._pair_supported(n):
-        out = ntt_mfa.ntt_pair(x, field, pre_vec1=lp, pre_vec2=dx,
-                               post_vec=ip, sel_mask=sel[0],
-                               sel_orig=sel[1])
-    else:
-        # the pair switch is off (or the order is below the kernels'
-        # split): two staged transforms, K5 -> K3 and K5 -> K7-sel (K7
-        # without the merge)
-        h_coeffs = ntt_auto(x, field, inverse=True, pre_vec=lp)
-        out = ntt_auto(h_coeffs, field, pre_vec=dx, post_vec=ip,
-                       sel_mask=sel[0], sel_orig=sel[1])
-    return out.reshape(cw.shape)
+    transforms, K5 -> K3 and K5 -> K7-sel (or K7). Runs inside the span
+    ``fecc.decode.decode_prepared``."""
+    with profiling.scope("fecc.decode.decode_prepared"):
+        cw = as_tensor(codeword, device)
+        n = cw.shape[0]
+        x = cw.reshape(n, -1)
+        dev = x.device
+        mask, lp, ip = (as_tensor(t, dev) for t in (mask, l_eval_prep,
+                                                     lp_inv_prep))
+        dx = _xderiv_on(field.name, n, str(dev))
+        sel = (mask, x) if merge else (None, None)
+        if ntt_mfa._pair_supported(n):
+            out = ntt_mfa.ntt_pair(x, field, pre_vec1=lp, pre_vec2=dx,
+                                   post_vec=ip, sel_mask=sel[0],
+                                   sel_orig=sel[1])
+        else:
+            # the pair switch is off (or the order is below the kernels'
+            # split): two staged transforms, K5 -> K3 and K5 -> K7-sel
+            # (K7 without the merge)
+            h_coeffs = ntt_auto(x, field, inverse=True, pre_vec=lp)
+            out = ntt_auto(h_coeffs, field, pre_vec=dx, post_vec=ip,
+                           sel_mask=sel[0], sel_orig=sel[1])
+        return out.reshape(cw.shape)
 
 
 def decode_stream(codeword: np.ndarray, erased_idx, field: FieldSpec,

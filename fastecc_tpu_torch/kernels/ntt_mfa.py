@@ -45,7 +45,10 @@ takes the plain version only for a CPU tensor; on a CUDA tensor it
 launches its Hopper kernel (``csrc/col.cu``: K1, K2, K4, K5, K6, K8,
 K9; ``csrc/row.cu``: K3, K7, K7-sel, K10; ``csrc/lanes.cu``: K11, K12)
 or raises, and
-counts the launch in :data:`LAUNCHES`.
+counts the launch in :data:`LAUNCHES`. Each wrapper's host work for its pass
+(the tables, the output, the C call, or the plain version) runs inside the
+span ``fecc.pass.<key>`` (:class:`_Pass`), key the pass's :data:`LAUNCHES`
+key, which records while a torch profiler does.
 Split, lane tile and twiddle tables are the port's own; the output bits
 are the reference's.
 """
@@ -62,6 +65,7 @@ from .. import gf
 from ..fields import FieldSpec, FIELDS
 from ..ntt import (_log2, _r4_twiddles, _stage_twiddles, mul_prepared, ntt,
                    powers_host, powers_outer_host, prepare_consts)
+from ..utils import profiling
 from . import _build
 
 # Smallest transform order the kernels take: both factors of the split
@@ -72,12 +76,19 @@ MIN_ORDER = 4
 # 1024 x 1024 (single) and 512 x 1024 (pair).
 MAX_PASS_LEN = 1 << 10
 
+# The C entry of each pass, by the pass's key.
+_ENTRIES = {"K1_col": "fecc_col", "K2_seam": "fecc_seam",
+            "K3_row": "fecc_row", "K4_col_pre": "fecc_col_pre",
+            "K5_col_vec": "fecc_col_vec", "K6_seam_vec": "fecc_seam_vec",
+            "K7_row_post": "fecc_row_post",
+            "K7_row_post_sel": "fecc_row_post_sel",
+            "K8_col_wire16": "fecc_col_wire16",
+            "K9_seam_wire16": "fecc_seam_wire16",
+            "K10_row_wire16": "fecc_row_wire16",
+            "K11_pair_lanes": "fecc_pair_lanes",
+            "K12_pair_lanes_wire16": "fecc_pair_lanes_wire16"}
 # Launches per kernel, counted by the wrappers where they launch.
-LAUNCHES = {"K1_col": 0, "K2_seam": 0, "K3_row": 0, "K4_col_pre": 0,
-            "K5_col_vec": 0, "K6_seam_vec": 0, "K7_row_post": 0,
-            "K7_row_post_sel": 0, "K8_col_wire16": 0, "K9_seam_wire16": 0,
-            "K10_row_wire16": 0, "K11_pair_lanes": 0,
-            "K12_pair_lanes_wire16": 0}
+LAUNCHES = dict.fromkeys(_ENTRIES, 0)
 
 
 def reset_launches() -> None:
@@ -406,7 +417,31 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _launch_col(x3, field, inverse, scale, pre_seed=None, pre_vec=None):
+class _Pass:
+    """One pass of a wrapper: its host work inside the span
+    ``fecc.pass.<key>`` (``with _Pass(key) as p:``), and :meth:`launch`,
+    which calls the key's C entry and counts it in :data:`LAUNCHES` under
+    the same key."""
+
+    __slots__ = ("key", "_span")
+
+    def __init__(self, key: str):
+        self.key = key
+        self._span = profiling.scope("fecc.pass." + key)
+
+    def __enter__(self) -> "_Pass":
+        self._span.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._span.__exit__(*exc)
+
+    def launch(self, *args) -> None:
+        _build.call(_ENTRIES[self.key], *args)
+        LAUNCHES[self.key] += 1
+
+
+def _launch_col(p, x3, field, inverse, scale, pre_seed=None, pre_vec=None):
     c, r, lanes = x3.shape
     dev = str(x3.device)
     tr = _seed_tr(r)
@@ -418,17 +453,13 @@ def _launch_col(x3, field, inverse, scale, pre_seed=None, pre_vec=None):
     with torch.cuda.device(x3.device):
         if pre_vec is not None:
             vec = _cuda_operand(pre_vec, x3, c * r, "col_pass_vec: pre_vec")
-            _build.call("fecc_col_vec", *args, vec, _stream(x3))
-            LAUNCHES["K5_col_vec"] += 1
+            p.launch(*args, vec, _stream(x3))
         elif pre_seed is not None:
             pcol, prow = _pre_on(field.name, pre_seed % field.p, c, r, tr,
                                  dev)
-            _build.call("fecc_col_pre", *args, pcol.data_ptr(),
-                        prow.data_ptr(), _stream(x3))
-            LAUNCHES["K4_col_pre"] += 1
+            p.launch(*args, pcol.data_ptr(), prow.data_ptr(), _stream(x3))
         else:
-            _build.call("fecc_col", *args, _stream(x3))
-            LAUNCHES["K1_col"] += 1
+            p.launch(*args, _stream(x3))
     return out
 
 
@@ -436,9 +467,10 @@ def col_pass(x3: torch.Tensor, field: FieldSpec, inverse: bool = False,
              scale: bool = True) -> torch.Tensor:
     """K1 (pass A): [C, R, L] u32 -> [R, C, L] (``csrc/col.cu``: the
     register-stage kernel, its length a template parameter)."""
-    if not _dispatch(x3, "col_pass"):
-        return col_pass_plain(x3, field, inverse, scale)
-    return _launch_col(x3, field, inverse, scale)
+    with _Pass("K1_col") as p:
+        if not _dispatch(x3, "col_pass"):
+            return col_pass_plain(x3, field, inverse, scale)
+        return _launch_col(p, x3, field, inverse, scale)
 
 
 def col_pass_pre(x3: torch.Tensor, field: FieldSpec, pre_seed: int,
@@ -446,9 +478,10 @@ def col_pass_pre(x3: torch.Tensor, field: FieldSpec, pre_seed: int,
     """K4 (pass A with x[m] *= pre_seed^m, m = r + R*c): [C, R, L] ->
     [R, C, L] (``csrc/col.cu``: K1's kernel with the rank-1 row
     pcol[c] * prow[r] applied as the tile enters the registers)."""
-    if not _dispatch(x3, "col_pass_pre"):
-        return col_pass_plain(x3, field, inverse, scale, pre_seed)
-    return _launch_col(x3, field, inverse, scale, pre_seed=pre_seed)
+    with _Pass("K4_col_pre") as p:
+        if not _dispatch(x3, "col_pass_pre"):
+            return col_pass_plain(x3, field, inverse, scale, pre_seed)
+        return _launch_col(p, x3, field, inverse, scale, pre_seed=pre_seed)
 
 
 def col_pass_vec(x3: torch.Tensor, field: FieldSpec, pre_vec: torch.Tensor,
@@ -457,12 +490,13 @@ def col_pass_vec(x3: torch.Tensor, field: FieldSpec, pre_vec: torch.Tensor,
     u32 table): [C, R, L] -> [R, C, L] (``csrc/col.cu``: K1's kernel with
     the table's column copied in beside the tile and applied as the tile
     enters the registers)."""
-    if not _dispatch(x3, "col_pass_vec"):
-        return col_pass_plain(x3, field, inverse, scale, pre_vec=pre_vec)
-    return _launch_col(x3, field, inverse, scale, pre_vec=pre_vec)
+    with _Pass("K5_col_vec") as p:
+        if not _dispatch(x3, "col_pass_vec"):
+            return col_pass_plain(x3, field, inverse, scale, pre_vec=pre_vec)
+        return _launch_col(p, x3, field, inverse, scale, pre_vec=pre_vec)
 
 
-def _launch_seam(y1, field, pre_seed2=None, pre_vec2=None):
+def _launch_seam(p, y1, field, pre_seed2=None, pre_vec2=None):
     r1, c1, lanes = y1.shape
     c2, r2 = r1, c1
     dev = str(y1.device)
@@ -478,14 +512,12 @@ def _launch_seam(y1, field, pre_seed2=None, pre_vec2=None):
         if pre_vec2 is None:
             pcol, prow = _pre_on(field.name, pre_seed2 % field.p, c2, r2, tr,
                                  dev)
-            _build.call("fecc_seam", *head, *tables, pcol.data_ptr(),
-                        prow.data_ptr(), _stream(y1))
-            LAUNCHES["K2_seam"] += 1
+            p.launch(*head, *tables, pcol.data_ptr(), prow.data_ptr(),
+                     _stream(y1))
         else:
             vec = _cuda_operand(pre_vec2, y1, c2 * r2,
                                 "seam_pass_vec: pre_vec2")
-            _build.call("fecc_seam_vec", *head, *tables, vec, _stream(y1))
-            LAUNCHES["K6_seam_vec"] += 1
+            p.launch(*head, *tables, vec, _stream(y1))
     return out
 
 
@@ -493,9 +525,10 @@ def seam_pass(y1: torch.Tensor, field: FieldSpec,
               pre_seed2: int) -> torch.Tensor:
     """K2 (the encode pair's middle pass, g^m in the middle): [R1, C1, L]
     u32 -> [C1, R1, L] (``csrc/col.cu``, both transforms in registers)."""
-    if not _dispatch(y1, "seam_pass"):
-        return seam_pass_plain(y1, field, pre_seed2)
-    return _launch_seam(y1, field, pre_seed2=pre_seed2)
+    with _Pass("K2_seam") as p:
+        if not _dispatch(y1, "seam_pass"):
+            return seam_pass_plain(y1, field, pre_seed2)
+        return _launch_seam(p, y1, field, pre_seed2=pre_seed2)
 
 
 def seam_pass_vec(y1: torch.Tensor, field: FieldSpec,
@@ -503,9 +536,10 @@ def seam_pass_vec(y1: torch.Tensor, field: FieldSpec,
     """K6 (the decode pair's middle pass, a prepared [N] u32 table v[m]
     in the middle, m = c2*R2 + r2): [R1, C1, L] -> [C1, R1, L]
     (``csrc/col.cu``: K2's kernel with the middle row from the table)."""
-    if not _dispatch(y1, "seam_pass_vec"):
-        return seam_pass_plain(y1, field, pre_vec2=pre_vec2)
-    return _launch_seam(y1, field, pre_vec2=pre_vec2)
+    with _Pass("K6_seam_vec") as p:
+        if not _dispatch(y1, "seam_pass_vec"):
+            return seam_pass_plain(y1, field, pre_vec2=pre_vec2)
+        return _launch_seam(p, y1, field, pre_vec2=pre_vec2)
 
 
 def row_pass(y: torch.Tensor, field: FieldSpec,
@@ -513,17 +547,16 @@ def row_pass(y: torch.Tensor, field: FieldSpec,
     """K3 (pass B): [R, C, L] u32 -> [R, C, L], natural order
     (``csrc/row.cu``: the register-stage kernel, its length a template
     parameter)."""
-    if not _dispatch(y, "row_pass"):
-        return row_pass_plain(y, field, inverse)
-    r, c, lanes = y.shape
-    tw = _row_tw_on(field.name, r, inverse, str(y.device))
-    out = torch.empty_like(y)
-    with torch.cuda.device(y.device):
-        _build.call("fecc_row", _field_code(field), y.data_ptr(),
-                    out.data_ptr(), r, c, lanes, int(inverse),
-                    tw.data_ptr(), _stream(y))
-        LAUNCHES["K3_row"] += 1
-    return out
+    with _Pass("K3_row") as p:
+        if not _dispatch(y, "row_pass"):
+            return row_pass_plain(y, field, inverse)
+        r, c, lanes = y.shape
+        tw = _row_tw_on(field.name, r, inverse, str(y.device))
+        out = torch.empty_like(y)
+        with torch.cuda.device(y.device):
+            p.launch(_field_code(field), y.data_ptr(), out.data_ptr(), r, c,
+                     lanes, int(inverse), tw.data_ptr(), _stream(y))
+        return out
 
 
 def row_pass_post(y: torch.Tensor, field: FieldSpec, post_vec: torch.Tensor,
@@ -536,26 +569,27 @@ def row_pass_post(y: torch.Tensor, field: FieldSpec, post_vec: torch.Tensor,
     [R, C, L], natural order (``csrc/row.cu``: K3's schedule with the
     table multiply, or the select, in its store)."""
     _check_sel(post_vec, sel_mask, sel_orig)
-    if not _dispatch(y, "row_pass_post"):
-        return row_pass_plain(y, field, inverse, post_vec, sel_mask,
-                              sel_orig)
-    r, c, lanes = y.shape
-    vec = _cuda_operand(post_vec, y, r * c, "row_pass_post: post_vec")
-    out = torch.empty_like(y)
-    tw = _row_tw_on(field.name, r, inverse, str(y.device))
-    head = [_field_code(field), y.data_ptr(), out.data_ptr(), r, c, lanes,
-            int(inverse), tw.data_ptr(), vec]
-    with torch.cuda.device(y.device):
-        if sel_mask is None:
-            _build.call("fecc_row_post", *head, _stream(y))
-            LAUNCHES["K7_row_post"] += 1
-        else:
-            mask = _cuda_operand(sel_mask, y, r * c, "row_pass_post: sel_mask")
-            orig = _cuda_operand(sel_orig, y, y.numel(),
-                                 "row_pass_post: sel_orig")
-            _build.call("fecc_row_post_sel", *head, mask, orig, _stream(y))
-            LAUNCHES["K7_row_post_sel"] += 1
-    return out
+    with _Pass("K7_row_post" if sel_mask is None
+               else "K7_row_post_sel") as p:
+        if not _dispatch(y, "row_pass_post"):
+            return row_pass_plain(y, field, inverse, post_vec, sel_mask,
+                                  sel_orig)
+        r, c, lanes = y.shape
+        vec = _cuda_operand(post_vec, y, r * c, "row_pass_post: post_vec")
+        out = torch.empty_like(y)
+        tw = _row_tw_on(field.name, r, inverse, str(y.device))
+        head = [_field_code(field), y.data_ptr(), out.data_ptr(), r, c, lanes,
+                int(inverse), tw.data_ptr(), vec]
+        with torch.cuda.device(y.device):
+            if sel_mask is None:
+                p.launch(*head, _stream(y))
+            else:
+                mask = _cuda_operand(sel_mask, y, r * c,
+                                     "row_pass_post: sel_mask")
+                orig = _cuda_operand(sel_orig, y, y.numel(),
+                                     "row_pass_post: sel_orig")
+                p.launch(*head, mask, orig, _stream(y))
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -774,20 +808,19 @@ def ntt_pair_lanes(x: torch.Tensor, field: FieldSpec,
     whole k-point columns; k a power of two in [4, 2^13]
     (``csrc/lanes.cu``: the register-stage kernel, its length and field
     template parameters, one block per lane tile)."""
-    if x.device.type == "cpu":
-        return pair_lanes_plain(x, field, pre_seed)
-    _lanes_input(x, "ntt_pair_lanes")
-    k, lanes = x.shape
-    out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        tables = _lanes_tables_on(field.name, k, pre_seed % field.p,
-                                  K11_TWO_EXCHANGE_K, str(x.device))
-        _build.call("fecc_pair_lanes", _field_code(field), x.data_ptr(),
-                    out.data_ptr(), k, lanes,
-                    *(None if t is None else t.data_ptr() for t in tables),
-                    _stream(x))
-        LAUNCHES["K11_pair_lanes"] += 1
-    return out
+    with _Pass("K11_pair_lanes") as p:
+        if x.device.type == "cpu":
+            return pair_lanes_plain(x, field, pre_seed)
+        _lanes_input(x, "ntt_pair_lanes")
+        k, lanes = x.shape
+        out = torch.empty_like(x)
+        with torch.cuda.device(x.device):
+            tables = _lanes_tables_on(field.name, k, pre_seed % field.p,
+                                      K11_TWO_EXCHANGE_K, str(x.device))
+            p.launch(_field_code(field), x.data_ptr(), out.data_ptr(), k,
+                     lanes, *(None if t is None else t.data_ptr()
+                              for t in tables), _stream(x))
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -859,20 +892,21 @@ def col_pass_wire16(x3: torch.Tensor, field: FieldSpec) -> torch.Tensor:
     Wu], lo in half 0 and hi in half 1 (``csrc/col.cu``: K1's GF16 kernel
     on both halves in one block, split as step 1 reads the tile)."""
     _check_gf16(field, "col_pass_wire16")
-    if not _dispatch(x3, "col_pass_wire16"):
-        return col_pass_wire16_plain(x3, field)
-    c, r, lanes = x3.shape
-    dev = str(x3.device)
-    tr = _seed_tr(r)
-    tw = _row_tw_on(field.name, c, True, dev)
-    seed, t0 = _seeds_on(field.name, c * r, c, True, True, tr, dev)
-    out = torch.empty((2, r, c, lanes), dtype=torch.uint32, device=x3.device)
-    with torch.cuda.device(x3.device):
-        _build.call("fecc_col_wire16", _field_code(field), x3.data_ptr(),
-                    out.data_ptr(), c, r, lanes, tw.data_ptr(),
-                    seed.data_ptr(), t0.data_ptr(), tr, _stream(x3))
-        LAUNCHES["K8_col_wire16"] += 1
-    return out
+    with _Pass("K8_col_wire16") as p:
+        if not _dispatch(x3, "col_pass_wire16"):
+            return col_pass_wire16_plain(x3, field)
+        c, r, lanes = x3.shape
+        dev = str(x3.device)
+        tr = _seed_tr(r)
+        tw = _row_tw_on(field.name, c, True, dev)
+        seed, t0 = _seeds_on(field.name, c * r, c, True, True, tr, dev)
+        out = torch.empty((2, r, c, lanes), dtype=torch.uint32,
+                          device=x3.device)
+        with torch.cuda.device(x3.device):
+            p.launch(_field_code(field), x3.data_ptr(), out.data_ptr(), c, r,
+                     lanes, tw.data_ptr(), seed.data_ptr(), t0.data_ptr(), tr,
+                     _stream(x3))
+        return out
 
 
 def seam_pass_wire16(y: torch.Tensor, field: FieldSpec,
@@ -881,27 +915,28 @@ def seam_pass_wire16(y: torch.Tensor, field: FieldSpec,
     Wu] u32 -> [2, C1, R1, Wu] (``csrc/col.cu``: K2's kernel, launched
     once on each half, with K2's tables)."""
     _check_gf16(field, "seam_pass_wire16")
-    if not _dispatch(y, "seam_pass_wire16", dims=4):
-        return seam_pass_wire16_plain(y, field, pre_seed2)
-    if y.shape[0] != 2:
-        raise ValueError(f"seam_pass_wire16: needs [2, R1, C1, Wu] halves, "
-                         f"got {tuple(y.shape)}")
-    _, r1, c1, lanes = y.shape
-    c2, r2 = r1, c1
-    dev = str(y.device)
-    tr = _seed_tr(r2)
-    seed, t0 = _seeds_on(field.name, c2 * r2, c2, False, False, tr, dev)
-    pcol, prow = _pre_on(field.name, pre_seed2 % field.p, c2, r2, tr, dev)
-    tw_inv = _row_tw_on(field.name, r1, True, dev)
-    tw_fwd = _row_tw_on(field.name, c2, False, dev)
-    out = torch.empty((2, r2, c2, lanes), dtype=torch.uint32, device=y.device)
-    with torch.cuda.device(y.device):
-        _build.call("fecc_seam_wire16", _field_code(field), y.data_ptr(),
-                    out.data_ptr(), r1, c1, lanes, tw_inv.data_ptr(),
-                    tw_fwd.data_ptr(), seed.data_ptr(), t0.data_ptr(), tr,
-                    pcol.data_ptr(), prow.data_ptr(), _stream(y))
-        LAUNCHES["K9_seam_wire16"] += 1
-    return out
+    with _Pass("K9_seam_wire16") as p:
+        if not _dispatch(y, "seam_pass_wire16", dims=4):
+            return seam_pass_wire16_plain(y, field, pre_seed2)
+        if y.shape[0] != 2:
+            raise ValueError(f"seam_pass_wire16: needs [2, R1, C1, Wu] "
+                             f"halves, got {tuple(y.shape)}")
+        _, r1, c1, lanes = y.shape
+        c2, r2 = r1, c1
+        dev = str(y.device)
+        tr = _seed_tr(r2)
+        seed, t0 = _seeds_on(field.name, c2 * r2, c2, False, False, tr, dev)
+        pcol, prow = _pre_on(field.name, pre_seed2 % field.p, c2, r2, tr, dev)
+        tw_inv = _row_tw_on(field.name, r1, True, dev)
+        tw_fwd = _row_tw_on(field.name, c2, False, dev)
+        out = torch.empty((2, r2, c2, lanes), dtype=torch.uint32,
+                          device=y.device)
+        with torch.cuda.device(y.device):
+            p.launch(_field_code(field), y.data_ptr(), out.data_ptr(), r1, c1,
+                     lanes, tw_inv.data_ptr(), tw_fwd.data_ptr(),
+                     seed.data_ptr(), t0.data_ptr(), tr, pcol.data_ptr(),
+                     prow.data_ptr(), _stream(y))
+        return out
 
 
 def wire16_pass_b2(lo2: torch.Tensor, hi2: torch.Tensor, field: FieldSpec):
@@ -916,21 +951,21 @@ def wire16_pass_b2(lo2: torch.Tensor, hi2: torch.Tensor, field: FieldSpec):
         raise ValueError(f"wire16_pass_b2: needs lo and hi of one [R2, C2, "
                          f"Wu] shape with Wu % 8 == 0, got "
                          f"{tuple(lo2.shape)} and {tuple(hi2.shape)}")
-    if not _dispatch(lo2, "wire16_pass_b2"):
-        return row_pass_wire16_plain(lo2, hi2, field)
-    r, c, lanes = lo2.shape
-    hi = _cuda_operand(hi2, lo2, lo2.numel(), "wire16_pass_b2: hi2")
-    tw = _row_tw_on(field.name, r, False, str(lo2.device))
-    stored = torch.empty((r * c, lanes), dtype=torch.uint32,
-                         device=lo2.device)
-    bitmap = torch.empty((r * c, lanes // 8), dtype=torch.uint32,
-                         device=lo2.device)
-    with torch.cuda.device(lo2.device):
-        _build.call("fecc_row_wire16", _field_code(field), lo2.data_ptr(), hi,
-                    stored.data_ptr(), bitmap.data_ptr(), r, c, lanes,
-                    tw.data_ptr(), _stream(lo2))
-        LAUNCHES["K10_row_wire16"] += 1
-    return stored, bitmap
+    with _Pass("K10_row_wire16") as p:
+        if not _dispatch(lo2, "wire16_pass_b2"):
+            return row_pass_wire16_plain(lo2, hi2, field)
+        r, c, lanes = lo2.shape
+        hi = _cuda_operand(hi2, lo2, lo2.numel(), "wire16_pass_b2: hi2")
+        tw = _row_tw_on(field.name, r, False, str(lo2.device))
+        stored = torch.empty((r * c, lanes), dtype=torch.uint32,
+                             device=lo2.device)
+        bitmap = torch.empty((r * c, lanes // 8), dtype=torch.uint32,
+                             device=lo2.device)
+        with torch.cuda.device(lo2.device):
+            p.launch(_field_code(field), lo2.data_ptr(), hi, stored.data_ptr(),
+                     bitmap.data_ptr(), r, c, lanes, tw.data_ptr(),
+                     _stream(lo2))
+        return stored, bitmap
 
 
 def ntt_coset_pair_wire16(x_pairs: torch.Tensor, field: FieldSpec,
@@ -968,19 +1003,19 @@ def ntt_pair_lanes_wire16(x_pairs: torch.Tensor, field: FieldSpec,
     if x_pairs.dim() != 2 or x_pairs.shape[1] % 8:
         raise ValueError(f"ntt_pair_lanes_wire16: needs [k, Wu] pairs with "
                          f"Wu % 8 == 0, got {tuple(x_pairs.shape)}")
-    if x_pairs.device.type == "cpu":
-        return pair_lanes_wire16_plain(x_pairs, field, pre_seed)
-    _lanes_input(x_pairs, "ntt_pair_lanes_wire16")
-    k, wu = x_pairs.shape
-    stored = torch.empty_like(x_pairs)
-    bitmap = torch.empty((k, wu // 8), dtype=torch.uint32,
-                         device=x_pairs.device)
-    with torch.cuda.device(x_pairs.device):
-        tables = _lanes_tables_on(field.name, k, pre_seed % field.p,
-                                  K12_TWO_EXCHANGE_K, str(x_pairs.device))
-        _build.call("fecc_pair_lanes_wire16", _field_code(field),
-                    x_pairs.data_ptr(), stored.data_ptr(), bitmap.data_ptr(),
-                    k, wu, *(None if t is None else t.data_ptr()
-                             for t in tables), _stream(x_pairs))
-        LAUNCHES["K12_pair_lanes_wire16"] += 1
-    return stored, bitmap
+    with _Pass("K12_pair_lanes_wire16") as p:
+        if x_pairs.device.type == "cpu":
+            return pair_lanes_wire16_plain(x_pairs, field, pre_seed)
+        _lanes_input(x_pairs, "ntt_pair_lanes_wire16")
+        k, wu = x_pairs.shape
+        stored = torch.empty_like(x_pairs)
+        bitmap = torch.empty((k, wu // 8), dtype=torch.uint32,
+                             device=x_pairs.device)
+        with torch.cuda.device(x_pairs.device):
+            tables = _lanes_tables_on(field.name, k, pre_seed % field.p,
+                                      K12_TWO_EXCHANGE_K, str(x_pairs.device))
+            p.launch(_field_code(field), x_pairs.data_ptr(),
+                     stored.data_ptr(), bitmap.data_ptr(), k, wu,
+                     *(None if t is None else t.data_ptr() for t in tables),
+                     _stream(x_pairs))
+        return stored, bitmap

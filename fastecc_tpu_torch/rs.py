@@ -33,6 +33,7 @@ from .interop import as_tensor, resolve_device
 from .kernels import ntt_mfa
 from .ntt import (mul_prepared, ntt_auto, powers_host, powers_outer_host,
                   prepare_consts)
+from .utils import profiling
 
 
 def _check_kn(k: int, n: int) -> None:
@@ -98,30 +99,34 @@ def encode_parity(data, field: FieldSpec, n: int | None = None,
     Row (i*(c-1) + (r-1)) is codeword position i*c + r (the order of
     ``encode(...)[parity_positions(n, k)]``). ``lane_chunks > 1`` encodes
     the independent lanes of a 2-D input in that many sequential chunks
-    (bounds peak device memory); bit-identical to one call."""
-    data = as_tensor(data, device)
-    k = data.shape[0]
-    n = 2 * k if n is None else n
-    _check_kn(k, n)
-    if lane_chunks > 1:
-        if data.dim() != 2 or data.shape[1] % lane_chunks:
-            raise ValueError(f"lane_chunks={lane_chunks} must divide the "
-                             f"lanes of a 2-D input, got {tuple(data.shape)}")
-        lc = data.shape[1] // lane_chunks
-        return _cat_u32([encode_parity(data[:, i * lc:(i + 1) * lc], field, n)
-                         for i in range(lane_chunks)], dim=1)
-    c = n // k
-    rest = tuple(data.shape[1:])
-    x = data.contiguous().reshape(k, -1)
-    w_n = field.root_of_order(n)
-    if c == 2 and ntt_mfa._pair_supported(k):
-        # rate 1/2: the whole iNTT -> coset NTT pair in three passes
-        return ntt_mfa.ntt_coset_pair(x, field, w_n).reshape((k,) + rest)
-    coeffs = ntt_auto(x, field, inverse=True)
-    cosets = [ntt_auto(coeffs, field, pre_seed=field.pow_host(w_n, r))
-              for r in range(1, c)]
-    stacked = torch.stack([t.view(torch.int32) for t in cosets], dim=1)
-    return stacked.view(torch.uint32).reshape((n - k,) + rest)
+    (bounds peak device memory); bit-identical to one call. Runs inside
+    the span ``fecc.rs.encode_parity`` (one a chunk besides)."""
+    with profiling.scope("fecc.rs.encode_parity"):
+        data = as_tensor(data, device)
+        k = data.shape[0]
+        n = 2 * k if n is None else n
+        _check_kn(k, n)
+        if lane_chunks > 1:
+            if data.dim() != 2 or data.shape[1] % lane_chunks:
+                raise ValueError(f"lane_chunks={lane_chunks} must divide the "
+                                 f"lanes of a 2-D input, got "
+                                 f"{tuple(data.shape)}")
+            lc = data.shape[1] // lane_chunks
+            return _cat_u32([encode_parity(data[:, i * lc:(i + 1) * lc],
+                                           field, n)
+                             for i in range(lane_chunks)], dim=1)
+        c = n // k
+        rest = tuple(data.shape[1:])
+        x = data.contiguous().reshape(k, -1)
+        w_n = field.root_of_order(n)
+        if c == 2 and ntt_mfa._pair_supported(k):
+            # rate 1/2: the whole iNTT -> coset NTT pair in three passes
+            return ntt_mfa.ntt_coset_pair(x, field, w_n).reshape((k,) + rest)
+        coeffs = ntt_auto(x, field, inverse=True)
+        cosets = [ntt_auto(coeffs, field, pre_seed=field.pow_host(w_n, r))
+                  for r in range(1, c)]
+        stacked = torch.stack([t.view(torch.int32) for t in cosets], dim=1)
+        return stacked.view(torch.uint32).reshape((n - k,) + rest)
 
 
 def encode(data, field: FieldSpec, n: int | None = None,
@@ -394,16 +399,19 @@ def encode_blocks(raw_data, field: FieldSpec, n: int | None = None,
     pass A1 and the serialization pass B2) unless the pair switch is off.
     Every other shape runs the generic pack -> encode_parity -> serialize
     composition. The choice
-    is made from the shape alone; both give the same bytes."""
-    raw = as_tensor(raw_data, device)
-    k, block_bytes = raw.shape
-    n2 = 2 * k if n is None else n
-    if (not field.use_mont and n2 == 2 * k and block_bytes % 4 == 0
-            and ntt_mfa._pair_supported(k)
-            and ntt_mfa._wire16_supported(k, block_bytes // 4)):
-        return _encode_blocks_gf16_fused(raw, n2)
-    fields = packing.pack_data(raw, field)
-    return packing.serialize_parity(encode_parity(fields, field, n2), field)
+    is made from the shape alone; both give the same bytes. Runs inside
+    the span ``fecc.rs.encode_blocks``."""
+    with profiling.scope("fecc.rs.encode_blocks"):
+        raw = as_tensor(raw_data, device)
+        k, block_bytes = raw.shape
+        n2 = 2 * k if n is None else n
+        if (not field.use_mont and n2 == 2 * k and block_bytes % 4 == 0
+                and ntt_mfa._pair_supported(k)
+                and ntt_mfa._wire16_supported(k, block_bytes // 4)):
+            return _encode_blocks_gf16_fused(raw, n2)
+        fields = packing.pack_data(raw, field)
+        return packing.serialize_parity(encode_parity(fields, field, n2),
+                                        field)
 
 
 def _encode_blocks_gf16_fused(raw: torch.Tensor, n: int) -> torch.Tensor:
@@ -436,11 +444,13 @@ def wire_gf16_from_parts(stored, bitmap, device=None) -> torch.Tensor:
     """[m, parity_bytes] uint8 GF16 wire bytes from the parts of
     :func:`encode_blocks_gf16_parts`: stored's bytes, then each bitmap
     word's low 2 bytes (packing.serialize_parity's order). A uint8 tensor
-    on the parts' device (numpy parts go to ``device``); any strides."""
-    st = as_tensor(stored, device).contiguous()
-    bm = as_tensor(bitmap, st.device)
-    return torch.cat([st.view(torch.uint8), packing._u32_to_bytes(bm, 2)],
-                     dim=-1)
+    on the parts' device (numpy parts go to ``device``); any strides. Runs
+    inside the span ``fecc.rs.wire_join``."""
+    with profiling.scope("fecc.rs.wire_join"):
+        st = as_tensor(stored, device).contiguous()
+        bm = as_tensor(bitmap, st.device)
+        return torch.cat([st.view(torch.uint8),
+                          packing._u32_to_bytes(bm, 2)], dim=-1)
 
 
 def encode_blocks_parts(raw_words, field: FieldSpec, n: int | None = None,

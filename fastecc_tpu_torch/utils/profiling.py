@@ -2,7 +2,9 @@
 ``utils/profiling.py``.
 
 :func:`trace` records a ``torch.profiler`` trace of the card (a Chrome
-trace, viewable in Perfetto) and :func:`scope` names a region in it. The
+trace, viewable in Perfetto) and :func:`scope` names a region in it; the
+port's own regions are named ``fecc.*`` (its entries, passes and the GF16
+wire join) and cost nothing measurable while no profiler records. The
 roofline functions give a speed-of-light time for a pipeline config: the
 larger of its device-memory traffic over the memory rate and its integer
 operations over the card's integer rates. Signatures, byte accounting
@@ -50,9 +52,23 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+# What :func:`scope` returns while no profiler records: one shared context
+# that does nothing (a ``record_function`` costs microseconds even then).
+_OFF = contextlib.nullcontext()
+
+
 def scope(name: str):
-    """A named region in the trace: ``with profiling.scope('ntt_f'):``."""
-    return torch.profiler.record_function(name)
+    """A named region in the trace: ``with profiling.scope('ntt_f'):``.
+    It records only while a ``torch.profiler`` session does (:func:`trace`,
+    or any ``torch.profiler.profile``): a host range in the same trace as
+    the card's kernels, on the profiler's clock. The range is a plain host
+    op (``_RecordFunctionFast``), not a ``record_function`` annotation, for
+    which the profiler would also draw a span on the card's timeline over
+    the work launched directly inside it. Otherwise it is the shared null
+    context :data:`_OFF`."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 # Integer instructions per primitive as the passes issue them (csrc/gf.cuh,
