@@ -8,20 +8,22 @@ entry point of the package uses it. Each option is
 ``fastecc_tpu_torch/csrc/gf.cuh`` or ``microbench.cu`` edited in a copy
 under ``build/chain_options/`` and built alone with ``nvcc``:
 
-  pkg       the package: gf.cuh mul_solinas (REDC with the negated
-            Montgomery factor in one asm block: lo << 20 and the add as
-            one LEA whose carry rides into ~q, m >> 12 a multiply by
-            2^20, the borrow of hi - q read as d > hi, then a predicated
-            select of p and an add), K15's register hand-off, and K15 held
-            to two blocks an SM from c = 512 on;
+  pkg       the package: gf.cuh mul_solinas (the product a * b in C,
+            then REDC with the negated Montgomery factor in one asm
+            block: lo << 20 and the add as one LEA whose carry rides into
+            ~q, m >> 12 a multiply by 2^20, the borrow of hi - q read as
+            d > hi, then a predicated select of p and an add), K15's
+            register hand-off, and K15 held to two blocks an SM from
+            c = 512 on;
   mad       mul_solinas with the fix-up d + k (2^32 - p), k = -[d > hi],
             as one multiply-add on the IMAD pipe;
   shf       mul_solinas with lo << 20 and m >> 12 as funnel shifts (shf),
-            on the other pipe;
+            on the other pipe (mad and shf edit mul_solinas itself, so
+            K15's GF32 transforms, which multiply with it, change too);
   plainc    mul_solinas as plain CUDA C (the same formulas), ptxas' own
             choice of instructions;
-  gen_neg   the "generic" step (gf.cuh mul_full<kGF32>, the passes'
-            multiply) replaced by the generic REDC in the negated form:
+  gen_neg   the "generic" step (gf.cuh mul_generic, the textbook REDC)
+            replaced by the generic REDC in the negated form:
             m = lo * p^-1 and q = (m * p) >> 32 as multiplies, then the
             package's d > hi and multiply-add fix-up;
   natural   K15 with the transforms handed over through shared memory:
@@ -67,10 +69,10 @@ ROOT = Path(__file__).resolve().parent
 CSRC = ROOT / "fastecc_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "chain_options"
 
-SELECT = ('"setp.gt.u32 w, d, hi;\\n\\t"\n'
+SELECT = ('"setp.gt.u32 w, d, %2;\\n\\t"\n'
           '      "selp.u32 k, -1048575, 0, w;\\n\\t"\n'
           '      "add.u32 %0, d, k;\\n\\t"')
-SHIFTS = ('"mul.lo.u32 l, lo, 1048576;\\n\\t"',
+SHIFTS = ('"mul.lo.u32 l, %1, 1048576;\\n\\t"',
           '"mul.hi.u32 s, m, 1048576;\\n\\t"')
 
 FORMS = r'''
@@ -133,15 +135,15 @@ def edit(src: str, old: str, new: str) -> str:
 
 
 def mad(gf: str, mbs: str) -> tuple[str, str]:
-    return edit(gf, SELECT, '"set.gt.u32.u32 k, d, hi;\\n\\t"\n'
+    return edit(gf, SELECT, '"set.gt.u32.u32 k, d, %2;\\n\\t"\n'
                 '      "mad.lo.u32 %0, k, 1048575, d;\\n\\t"'), mbs
 
 
 def shf(gf: str, mbs: str) -> tuple[str, str]:
-    gf = edit(gf, ".reg .u32 lo, hi, l, m, nm, s, t, d, k;\\n\\t",
-              ".reg .u32 z, lo, hi, l, m, nm, s, t, d, k;\\n\\t"
+    gf = edit(gf, ".reg .u32 l, m, nm, s, t, d, k;\\n\\t",
+              ".reg .u32 z, l, m, nm, s, t, d, k;\\n\\t"
               '"\n      "mov.u32 z, 0;\\n\\t')
-    gf = edit(gf, SHIFTS[0], '"shf.l.clamp.b32 l, z, lo, 20;\\n\\t"')
+    gf = edit(gf, SHIFTS[0], '"shf.l.clamp.b32 l, z, %1, 20;\\n\\t"')
     return edit(gf, SHIFTS[1], '"shf.r.clamp.b32 s, m, z, 12;\\n\\t"'), mbs
 
 
@@ -156,7 +158,7 @@ def plainc(gf: str, mbs: str) -> tuple[str, str]:
 
 
 def gen_neg(gf: str, mbs: str) -> tuple[str, str]:
-    return with_forms(gf), edit(mbs, "return fecc::mul_full<kGF32>(y, z);",
+    return with_forms(gf), edit(mbs, "return fecc::mul_generic(y, z);",
                                 "return fecc::mul_gen_neg(y, z);")
 
 

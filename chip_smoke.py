@@ -1057,9 +1057,9 @@ def parent_library():
     """The kernel library of the earlier checkout of the package in
     build/parent (as ``sass_check.py --compare build/parent`` wants it),
     built there by its own ``_build``; None where there is none. The
-    argtypes are the parent commit's C signatures (K1-K9, K7-sel, K12 and
-    K15 with the inner twiddles, K10 and K11 with the packed Stockham
-    tables)."""
+    argtypes are the parent commit's C signatures (K1-K10, K7-sel and K15
+    with the inner twiddles, K11 and K12 with the level and inner tables
+    of ``_lanes_tables_on``)."""
     import ctypes
     from pathlib import Path
     root = Path(__file__).resolve().parent / "build" / "parent"
@@ -1090,9 +1090,9 @@ def parent_library():
                                            P]
     lib.fecc_row_post.argtypes = [I, P, P, I, I, I, I, P, P, P]
     lib.fecc_col_wire16.argtypes = [I, P, P, I, I, I, P, P, P, I, P]
-    # K10 (tw, w3) and K11 (tw_i, w3_i, tw_f, w3_f, mid) with the packed
-    # Stockham tables
-    lib.fecc_row_wire16.argtypes = [I, P, P, P, P, I, I, I, P, P, P]
+    # K10 (the forward inner twiddles) and K11 (lvl_i, lvl_f, tw_i, tw_f,
+    # mid)
+    lib.fecc_row_wire16.argtypes = [I, P, P, P, P, I, I, I, P, P]
     lib.fecc_pair_lanes.argtypes = [I, P, P, I, I, P, P, P, P, P, P]
     for fn in (lib.fecc_row, lib.fecc_col, lib.fecc_seam, lib.fecc_seam_vec,
                lib.fecc_row_post_sel, lib.fecc_col_pre, lib.fecc_col_vec,
@@ -1525,11 +1525,11 @@ def parent_peaks_ms(x: torch.Tensor, z: torch.Tensor,
 
 def parent_wire16_ms(x3: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor,
                      g: int) -> None:
-    """Where build/parent holds an earlier checkout, its K8 and K9 (with
-    the inner twiddles) and its K10 (with the packed Stockham tables)
-    against this tree's on the wire16 phase's tensors (the pairs, then
-    each pass's [2, ...] input), outputs held equal, in turns parent,
-    this, this, parent (``event_ms``); printed for the record."""
+    """Where build/parent holds an earlier checkout, its K8, K9 and K10
+    (each with the inner twiddles) against this tree's on the wire16
+    phase's tensors (the pairs, then each pass's [2, ...] input), outputs
+    held equal, in turns parent, this, this, parent (``event_ms``);
+    printed for the record."""
     from fastecc_tpu_torch.fields import GF16
     from fastecc_tpu_torch.kernels import ntt_mfa as m
     lib = parent_library()
@@ -1574,7 +1574,7 @@ def parent_wire16_ms(x3: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor,
         f"{tuple(h1.shape)} tensor, parent / this / this / parent: "
         f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
     _, r2, c2, _ = h2.shape
-    tw, w3 = m._stage_tables_on(GF16.name, r2, False, dev)
+    tw = m._row_tw_on(GF16.name, r2, False, dev)
     stored = torch.empty((r2 * c2, lanes), dtype=torch.uint32, device=dev)
     bitmap = torch.empty((r2 * c2, lanes // 8), dtype=torch.uint32,
                          device=dev)
@@ -1582,8 +1582,7 @@ def parent_wire16_ms(x3: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor,
     def parent10():
         code = lib.fecc_row_wire16(
             1, h2[0].data_ptr(), h2[1].data_ptr(), stored.data_ptr(),
-            bitmap.data_ptr(), r2, c2, lanes, tw.data_ptr(), w3.data_ptr(),
-            stream)
+            bitmap.data_ptr(), r2, c2, lanes, tw.data_ptr(), stream)
         check(code == 0, f"parent fecc_row_wire16 returned {code}")
         return stored, bitmap
 
@@ -1631,8 +1630,8 @@ def parent_lanes_wire16_ms(words: torch.Tensor, g: int) -> None:
 
 
 def parent_lanes_ms(flat: torch.Tensor, g: int) -> None:
-    """As :func:`parent_wire16_ms`, for K11 (``fecc_pair_lanes`` with the
-    packed Stockham tables) on the lanes phase's GF32 [2^10, 65536]: the
+    """As :func:`parent_wire16_ms`, for K11 (``fecc_pair_lanes`` with its
+    level and inner tables) on the lanes phase's GF32 [2^10, 65536]: the
     outputs held equal, the parent's and this tree's calls timed in
     turns."""
     from fastecc_tpu_torch.fields import GF32
@@ -1642,15 +1641,14 @@ def parent_lanes_ms(flat: torch.Tensor, g: int) -> None:
         return
     k, lanes = flat.shape
     dev = str(flat.device)
-    tables = [*m._stage_tables_on(GF32.name, k, True, dev),
-              *m._stage_tables_on(GF32.name, k, False, dev),
-              m._mid_on(GF32.name, k, g % GF32.p, dev)]
+    tables = [None if t is None else t.data_ptr() for t in
+              m._lanes_tables_on(GF32.name, k, g % GF32.p,
+                                 m.K11_TWO_EXCHANGE_K, dev)]
     out = torch.empty_like(flat)
 
     def parent():
         code = lib.fecc_pair_lanes(
-            0, flat.data_ptr(), out.data_ptr(), k, lanes,
-            *(t.data_ptr() for t in tables),
+            0, flat.data_ptr(), out.data_ptr(), k, lanes, *tables,
             torch.cuda.current_stream().cuda_stream)
         check(code == 0, f"parent fecc_pair_lanes returned {code}")
         return out

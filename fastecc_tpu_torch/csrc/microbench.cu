@@ -29,23 +29,24 @@
 // would measure the steps' latency, so each thread carries kIlp = 4
 // independent elements, and 16 M elements (the 64 MiB default) keep every
 // SM full. The steps are the reference's: raw u32 multiply and add,
-// GF32 addmod, the Solinas REDC (only a * b multiplies) and the generic
-// REDC (four multiplies, what the passes call), their mask-select forms,
-// the GF16 multiplies, and five composites that permute rows inside a
-// 512-row tile (the reference's _TS): one Stockham interleave plus an
-// add, and radix-2 / radix-4 stages in either field with the passes' own
-// add, sub and mul_tw. The "*-bcast" variants and the stage composites take
-// z[row, 0] of the [rows, 128] array, the reference's z[:, :1] of a
-// 128-lane tile. A composite block holds a [512, 8] tile in two shared
-// buffers (32 KB). The raw add and multiply are inline PTX, which the
-// compiler cannot fold: a plain loop of y += z becomes y + depth * z.
+// GF32 addmod, the Solinas REDC (only a * b multiplies; what the passes
+// call) and the generic REDC (four multiplies, gf.cuh mul_generic), their
+// mask-select forms, the GF16 multiplies, and five composites that
+// permute rows inside a 512-row tile (the reference's _TS): one Stockham
+// interleave plus an add, and radix-2 / radix-4 stages in either field
+// with the passes' own add, sub and mul_tw. The "*-bcast" variants and the
+// stage composites take z[row, 0] of the [rows, 128] array, the
+// reference's z[:, :1] of a 128-lane tile. A composite block holds a
+// [512, 8] tile in two shared buffers (32 KB). The raw add and multiply
+// are inline PTX, which the compiler cannot fold: a plain loop of y += z
+// becomes y + depth * z.
 // The raw add also adds a zero that only the launch knows: ptxas fuses two
 // dependent two-input adds into one three-input IADD3, and y + z + 0 keeps
-// one IADD3 per step. The Solinas steps (gf.cuh mul_solinas and its
-// masksel form) are one asm block each: REDC with the negated Montgomery
-// factor, whose one carry rides the flag from an LEA into an IADD3.X, ~8
-// SASS instructions a step against the generic REDC's 10.2
-// (`sass_check.py --ops` counts them by pipe).
+// one IADD3 per step. The Solinas steps (gf.cuh mul_solinas, its product
+// in C, and its masksel form) are one asm block each: REDC with the
+// negated Montgomery factor, whose one carry rides the flag from an LEA
+// into an IADD3.X, ~8 SASS instructions a step against the generic
+// REDC's 10.2 (`sass_check.py --ops` counts them by pipe).
 //
 // K15 is `depth` c-point transforms on the register-stage engine of the
 // passes (regstages.cuh: K1-K6 and K7-sel run on it), so it measures the
@@ -157,7 +158,7 @@ __device__ __forceinline__ uint32_t step(uint32_t y, uint32_t z,
   } else if constexpr (V == kSolinasMasksel) {
     return fecc::mul_solinas_masksel(y, z);
   } else if constexpr (V == kGeneric) {
-    return fecc::mul_full<kGF32>(y, z);
+    return fecc::mul_generic(y, z);
   } else if constexpr (V == kGf16 || V == kGf16Bcast) {
     return fecc::mul_full<kGF16>(y, z);
   } else {

@@ -248,15 +248,6 @@ def _u32_on(arr: np.ndarray, device: str) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _stage_tables_on(field_name: str, a: int, inverse: bool, device: str):
-    """The packed stage tables on ``device``, the operands of the first
-    design's K10 and K11 C entries (which chip_smoke.py still calls in an
-    earlier checkout's library)."""
-    return (_u32_on(_packed_stage_twiddles(field_name, a, inverse), device),
-            _u32_on(_packed_w3_twiddles(field_name, a, inverse), device))
-
-
-@functools.lru_cache(maxsize=None)
 def _row_tw_on(field_name: str, a: int, inverse: bool, device: str):
     return _u32_on(_row_inner_twiddles(field_name, a, inverse), device)
 

@@ -78,8 +78,8 @@ def scope(name: str):
 # variant runs alone with two varying operands, from the source the same
 # way (one instruction per add, compare or predicated fix-up; the
 # compiler's three-input IADD3 takes a + b + bias in one):
-#   mul_full<GF32> (the generic REDC the passes call): 3 mul + 7 ops
-#     (IMAD.WIDE.U32 gives both words of a*b; IMAD, IMAD.HI the REDC)
+#   mul_full<GF32> (the Solinas REDC the passes call): 1 mul + 7 ops
+#     (IMAD.WIDE.U32 gives both words of a*b; the REDC is shifts and adds)
 #   mul_tw<GF16> (stage tables)                      : 1 mul + 5 ops
 #   mul_full<GF16> (four-step, coset, decode tables) : 1 mul + 10 ops
 #   add<GF32> : 4 ops   sub<GF32> : 3 ops
@@ -91,8 +91,8 @@ def scope(name: str):
 # Hopper issues IADD3/LOP3 and IMAD-pipe adds on two pipes at once (the
 # `gf16-tw` chain runs 1.98x the published INT32 rate, PERF.md), so
 # `t_compute_bound_s` can be up to 2x the least time.
-_MULMOD_OPS = {"GF32": (3, 7), "GF16": (1, 10)}
-_TW_OPS = {"GF32": (3, 7), "GF16": (1, 5)}
+_MULMOD_OPS = {"GF32": (1, 7), "GF16": (1, 10)}
+_TW_OPS = {"GF32": (1, 7), "GF16": (1, 5)}
 _ADD_OPS = {"GF32": 4, "GF16": 3}
 _SUB_OPS = {"GF32": 3, "GF16": 3}
 _STAGE_OPS = {                      # per element-stage: (muls, other ops)

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from fastecc_tpu_torch import decode, fields, gf, ntt, rs, testing
-from fastecc_tpu_torch.interop import from_numpy_u32
+from fastecc_tpu_torch.interop import from_numpy_u32, to_numpy_u32
 from fastecc_tpu_torch.kernels import microbench as mb
 from fastecc_tpu_torch.kernels import ntt_mfa as m
 
@@ -263,6 +263,102 @@ def test_decode_kernels_match_plain_on_card(field, cuda_device):
         assert torch.equal(m.row_pass_post(x, field, v, mask, y.reshape(
             x.shape)), m.row_pass_plain(x, field, post_vec=v, sel_mask=mask,
                                         sel_orig=y.reshape(x.shape)))
+
+
+def equal_plain_by_lanes(got, fn, x, *lanes_too, chunk=128):
+    """Whether ``got`` == ``fn`` (a plain pass) on every ``chunk``-lane
+    slice of ``x`` and of each tensor in ``lanes_too`` (lanes are the last
+    axis and independent): the plain versions compute in int64 and at the
+    cells' full width would hold tens of GB at once."""
+    return all(torch.equal(got[..., l0:l0 + chunk].contiguous(), fn(*(
+        t[..., l0:l0 + chunk].contiguous() for t in (x,) + lanes_too)))
+        for l0 in range(0, x.shape[-1], chunk))
+
+
+def solinas_edge_words():
+    """``microbench.solinas_edge_inputs``' x and z as numpy: pair i's
+    a-side at x[i, 0], its b-side at z[i, 0]; every word below p."""
+    return tuple(to_numpy_u32(t) for t in mb.solinas_edge_inputs("cpu"))
+
+
+def solinas_edge_data(n, lanes, rng, device):
+    """GF32 [n, lanes] data below p holding the edge words: pair i's
+    a-side across the first half of row i's lanes, and all of x in rows
+    512 .. 1023 of the last 128 lanes."""
+    ex, _ = solinas_edge_words()
+    ts, tl = ex.shape
+    x = rand_field(fields.GF32, (n, lanes), rng)
+    x[:ts, :lanes // 2] = ex[:, :1]
+    x[ts:2 * ts, -tl:] = ex
+    return from_numpy_u32(x, device)
+
+
+def solinas_edge_table(n, rng, device):
+    """A prepared GF32 [n] table whose entry i is pair i's b-side, so a
+    pass that multiplies row m by entry m of data from
+    :func:`solinas_edge_data` multiplies the edge pairs themselves."""
+    _, ez = solinas_edge_words()
+    v = rand_field(fields.GF32, n, rng)
+    v[:len(ez)] = ez[:, 0]
+    return from_numpy_u32(v, device)
+
+
+def test_encode_pair_at_cell_shape_on_card(cuda_device):
+    """K1 -> K2 -> K3 at the GF32 encode cell's [512, 1024, 1024] (k =
+    2^19 over 1024 lanes, every pass multiplying through the Solinas REDC),
+    on data carrying the Solinas edge words: each pass, fed the kernel
+    chain's previous output, == its plain version on every lane."""
+    field, k, lanes = fields.GF32, 1 << 19, 1024
+    rng = np.random.default_rng(0xE9C0)
+    g = field.root_of_order(2 * k)
+    c1 = m._pair_split(k)
+    x3 = solinas_edge_data(k, lanes, rng, cuda_device).reshape(
+        c1, k // c1, lanes)
+    assert tuple(x3.shape) == (512, 1024, 1024)
+    col1 = m.col_pass(x3, field, inverse=True, scale=True)
+    assert equal_plain_by_lanes(
+        col1, lambda x: m.col_pass_plain(x, field, True, True), x3)
+    del x3
+    col2 = m.seam_pass(col1, field, g)
+    assert equal_plain_by_lanes(
+        col2, lambda y: m.seam_pass_plain(y, field, g), col1)
+    del col1
+    out = m.row_pass(col2, field)
+    assert equal_plain_by_lanes(
+        out, lambda y: m.row_pass_plain(y, field), col2)
+
+
+def test_decode_pair_at_cell_shape_on_card(cuda_device):
+    """K5 -> K6 -> K7-sel at the GF32 repair cell's [1024, 1024, 512] (n =
+    2^20 over 512 lanes): the three tables hold the Solinas edge words'
+    b-sides at the rows whose data holds their a-sides, and about half
+    the rows are erased, the edge rows among them. Each pass, fed the
+    kernel chain's previous output, == its plain version on every lane."""
+    field, n, lanes = fields.GF32, 1 << 20, 512
+    rng = np.random.default_rng(0xDEC0)
+    lp, dx, ip = (solinas_edge_table(n, rng, cuda_device) for _ in range(3))
+    mask = (rng.random(n) < 0.5).astype(np.uint32)
+    mask[:512] = 1
+    mask = from_numpy_u32(mask, cuda_device)
+    c1 = m._pair_split(n)
+    x3 = solinas_edge_data(n, lanes, rng, cuda_device).reshape(
+        c1, n // c1, lanes)
+    assert tuple(x3.shape) == (1024, 1024, 512)
+    col1 = m.col_pass_vec(x3, field, lp, inverse=True, scale=True)
+    assert equal_plain_by_lanes(
+        col1, lambda x: m.col_pass_plain(x, field, True, True, pre_vec=lp),
+        x3)
+    del x3
+    col2 = m.seam_pass_vec(col1, field, dx)
+    assert equal_plain_by_lanes(
+        col2, lambda y: m.seam_pass_plain(y, field, pre_vec2=dx), col1)
+    del col1
+    orig = from_numpy_u32(rand_field(field, tuple(col2.shape), rng),
+                          cuda_device)
+    out = m.row_pass_post(col2, field, ip, mask, orig)
+    assert equal_plain_by_lanes(
+        out, lambda y, o: m.row_pass_plain(y, field, False, ip, mask, o),
+        col2, orig)
 
 
 @pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)

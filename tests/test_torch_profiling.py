@@ -63,13 +63,13 @@ def test_roofline_memory_terms_match_reference(name, args, kw, peaks):
 
 def test_compute_terms_are_the_port_op_table():
     """The GF32 rate-1/2 encode at 2^20 x 1024 under the published peaks,
-    priced by hand: per element-stage 4 mulmods (3 IMADs, 7 other ops) +
-    4 adds (4) + 4 subs (3) per 8 element-stages, 2 x 19 stages, plus 3
-    extra mulmods per element."""
+    priced by hand: per element-stage 4 mulmods (the Solinas REDC: 1
+    IMAD.WIDE, 7 other ops) + 4 adds (4) + 4 subs (3) per 8
+    element-stages, 2 x 19 stages, plus 3 extra mulmods per element."""
     r = prof.encode_roofline(1 << 20, 1024)
     elems, rate = (1 << 19) * 1024, 132 * 64 * 1.98e9
-    stage = elems * 2 * 19 * ((4 * 3) / 8 + (4 * 7 + 4 * 4 + 4 * 3) / 8)
-    extra = elems * 3 * (3 + 7)
+    stage = elems * 2 * 19 * ((4 * 1) / 8 + (4 * 7 + 4 * 4 + 4 * 3) / 8)
+    extra = elems * 3 * (1 + 7)
     assert math.isclose(r["t_stage_compute_s"], stage / rate, rel_tol=1e-12)
     assert math.isclose(r["t_extra_mulmod_s"], extra / rate, rel_tol=1e-12)
     assert r["bound"] == "compute"

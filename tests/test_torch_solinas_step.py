@@ -1,11 +1,14 @@
 """K14's Solinas steps against the reference, on the CPU, one PTX line at a
 time.
 
-``fastecc_tpu_torch/csrc/gf.cuh`` writes ``mul_solinas`` and
+``fastecc_tpu_torch/csrc/gf.cuh`` writes the REDC of ``mul_solinas`` and
 ``mul_solinas_masksel`` as one inline-PTX block each (the carry flag
-carries the REDC's borrows), and no card is here to run them. So this file
-reads the asm text of both functions out of ``gf.cuh`` and runs it, line
-by line, on a numpy model of each PTX instruction it uses: 32-bit wraps,
+carries the REDC's borrows; ``mul_solinas`` takes the product's two words
+from one line of C before it, ``lo = a * b, hi = __umulhi(a, b)``, which
+the model computes as exact 64-bit products), and no card is here to run
+them. So this file reads the asm text of both functions out of ``gf.cuh``
+and runs it, line by line, on a numpy model of each PTX instruction it
+uses: 32-bit wraps,
 the carry flag that ``add.cc`` writes and ``addc`` reads, ``set``'s
 all-ones mask, ``setp``'s predicate and ``selp``. An instruction the model
 does not know fails the test, so a new sequence in the source needs its
@@ -16,6 +19,13 @@ branch) and the masksel form against the reference microbenchmark's
 zero low words, both sides of every conditional step) and on 2^16 seeded
 random pairs. The kernels themselves are held against the plain versions
 on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+
+Every GF32 pass multiplies through ``mul_full<kGF32>`` and ``mul_tw<kGF32>``.
+Their bodies are followed here to the function they forward to, which must
+be the ``mul_solinas`` asm block, and that block is run as above under
+their names. K14's "generic" step must still call ``mul_generic``, the
+textbook REDC (modelled here line for line from its C), and
+``chain_options.py``'s text edits must still find what they replace.
 """
 
 import re
@@ -25,6 +35,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import chain_options
+
 from fastecc_tpu import fields as jfields
 from fastecc_tpu import gf as jgf
 from fastecc_tpu.kernels import microbench as ref
@@ -32,13 +44,22 @@ from fastecc_tpu_torch.fields import GF32
 from fastecc_tpu_torch.interop import to_numpy_u32
 from fastecc_tpu_torch.kernels import microbench as mb
 
-GF_CUH = (Path(__file__).resolve().parents[1] / "fastecc_tpu_torch" / "csrc"
-          / "gf.cuh")
+CSRC = Path(__file__).resolve().parents[1] / "fastecc_tpu_torch" / "csrc"
+GF_CUH = CSRC / "gf.cuh"
 M32 = np.uint64(0xFFFFFFFF)
-STEPS = {"mul_solinas": lambda a, b: jgf.mont_mul(
-             jfields.GF32, jnp.asarray(a), jnp.asarray(b)),
+
+
+def _mont_mul(a, b):
+    return jgf.mont_mul(jfields.GF32, jnp.asarray(a), jnp.asarray(b))
+
+
+# gf.cuh function -> the reference it must equal; mul_full<kGF32> and
+# mul_tw<kGF32> (every GF32 pass's multiply) run the asm they forward to
+STEPS = {"mul_solinas": _mont_mul,
          "mul_solinas_masksel": lambda a, b: ref._mont_mul_masksel(
-             jnp.asarray(a), jnp.asarray(b))}
+             jnp.asarray(a), jnp.asarray(b)),
+         "mul_full<kGF32>": _mont_mul,
+         "mul_tw<kGF32>": _mont_mul}
 
 
 # One function a PTX instruction: (sources..., carry flag in) -> (result,
@@ -105,12 +126,32 @@ PTX = {"mul.lo.u32": _mul_lo, "mul.hi.u32": _mul_hi, "mad.lo.u32": _mad_lo,
        "setp.gt.u32": _setp_gt, "selp.u32": _selp}
 
 
+def body(fn: str, path: Path = GF_CUH) -> str:
+    """The text between the braces of the definition of ``fn`` (a name,
+    with its template arguments for a specialisation) in ``path``."""
+    text = path.read_text()
+    head = f"uint32_t {fn}(uint32_t a, uint32_t b) {{"
+    assert text.count(head) == 1, fn
+    start = text.index(head) + len(head)
+    return text[start:text.index("\n}\n", start)]
+
+
+def forwards(fn: str) -> list[str]:
+    """``fn`` and each function its body forwards to (a body that is only
+    ``return g(a, b);``), down to one that computes."""
+    chain = [fn]
+    while m := re.fullmatch(r"\s*return (\w+(?:<\w+>)?)\(a, b\);\s*",
+                            body(chain[-1])):
+        chain.append(m.group(1))
+    return chain
+
+
 def asm_lines(fn: str) -> list[tuple[str, list[str]]]:
-    """The instructions of function ``fn``'s asm block in gf.cuh:
+    """The instructions of the asm block that function ``fn`` of gf.cuh
+    runs, itself or through the functions it forwards to:
     [(mnemonic, [destination, sources...])]."""
-    text = GF_CUH.read_text()
-    body = text[text.index(f"uint32_t {fn}(uint32_t a, uint32_t b) {{"):]
-    block = body[body.index("asm("):body.index('\n      : "=r"')]
+    block = body(forwards(fn)[-1])
+    block = block[block.index("asm("):block.index('\n      : "=r"')]
     out = []
     for line in re.findall(r'"([^"]*)"', block):
         line = line.replace("\\n", "").replace("\\t", "").strip()
@@ -121,9 +162,27 @@ def asm_lines(fn: str) -> list[tuple[str, list[str]]]:
     return out
 
 
+# The one line of C a step may run before its asm block: the product's
+# low and high words, which the block then takes as its inputs.
+PRODUCT = "const uint32_t lo = a * b, hi = __umulhi(a, b);"
+
+
+def asm_inputs(fn: str) -> list[str]:
+    """The C names bound to the asm block's inputs %1, %2, ... of the
+    function ``fn`` runs (``a``, ``b``, or ``lo``, ``hi`` after PRODUCT)."""
+    src = body(forwards(fn)[-1])
+    names = re.findall(r'"r"\((\w+)\)', src[src.index(': "=r"(r) :'):])
+    assert names in (["a", "b"], ["lo", "hi"]), (fn, names)
+    assert (names == ["lo", "hi"]) == (PRODUCT in src), fn
+    return names
+
+
 def run_asm(fn: str, a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """gf.cuh's ``fn`` on u32 arrays a, b, one PTX line at a time."""
-    regs = {"%1": a.astype(np.uint64), "%2": b.astype(np.uint64)}
+    a, b = a.astype(np.uint64), b.astype(np.uint64)
+    words = {"a": a, "b": b, "lo": (a * b) & M32,
+             "hi": (a * b) >> np.uint64(32)}
+    regs = {f"%{i}": words[x] for i, x in enumerate(asm_inputs(fn), 1)}
     cf = np.zeros(a.shape, bool)
 
     def value(x):
@@ -144,6 +203,7 @@ def test_asm_is_what_the_model_runs():
     between."""
     for fn in STEPS:
         lines = asm_lines(fn)
+        asm_inputs(fn)
         assert lines and lines[-1][1][0] == "%0", fn
         written = False
         for op, _ in lines:
@@ -217,3 +277,85 @@ def test_edge_inputs_place_the_pairs():
     np.testing.assert_array_equal(z[:len(b)], np.repeat(b[:, None], mb._TL,
                                                         axis=1))
     assert int(x.max()) < GF32.p and int(z.max()) < GF32.p
+
+
+@pytest.mark.parametrize("fn,chain", [
+    ("mul_full<kGF32>", ["mul_full<kGF32>", "mul_solinas"]),
+    ("mul_tw<kGF32>", ["mul_tw<kGF32>", "mul_full<kGF32>", "mul_solinas"]),
+])
+def test_passes_multiply_with_the_solinas_asm(fn, chain):
+    """The GF32 passes' multiplies forward to mul_solinas, whose body is
+    the asm block the other tests run; GF16 keeps bodies of its own."""
+    assert forwards(fn) == chain
+    assert "asm(" in body("mul_solinas")
+    for f16 in ("mul_full<kGF16>", "mul_tw<kGF16>"):
+        assert forwards(f16) == [f16] and "asm(" not in body(f16)
+
+
+def generic_model(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """gf.cuh ``mul_generic``, line for line: lo, hi of a * b; m = lo * n';
+    mp_hi = (m * p) >> 32; u = hi + mp_hi + [lo != 0]; u - p where u >= p."""
+    a, b = a.astype(np.uint64), b.astype(np.uint64)
+    lo, hi = (a * b) & M32, (a * b) >> np.uint64(32)
+    m = (lo * np.uint64(0xFFEFFFFF)) & M32
+    mp_hi = (m * np.uint64(GF32.p)) >> np.uint64(32)
+    u = hi + mp_hi + (lo != 0)
+    return np.where(u >= GF32.p, u - np.uint64(GF32.p), u).astype(np.uint32)
+
+
+def test_generic_step_is_the_textbook_redc():
+    """mul_generic is the four-multiply REDC in plain C (the lines
+    generic_model repeats), and it equals the reference's
+    mont_mul(generic=True) on the edge pairs."""
+    src = body("mul_generic")
+    assert "asm(" not in src and "mul_solinas" not in src
+    for line in ("uint32_t m = lo * kNPrime32;",
+                 "uint32_t mp_hi = __umulhi(m, kP32);",
+                 "uint64_t u = (uint64_t)hi + mp_hi + (lo != 0u);"):
+        assert line in src, line
+    a, b = mb.solinas_edge_pairs()
+    want = jgf.mont_mul(jfields.GF32, jnp.asarray(a), jnp.asarray(b),
+                        generic=True)
+    np.testing.assert_array_equal(generic_model(a, b), np.asarray(want))
+
+
+def test_solinas_equals_generic_with_one_operand_below_p():
+    """Bit for bit the same residue as the REDC the passes called before,
+    also where the first operand is any u32 word (2^16 seeded pairs, the
+    words above p among them, and the edge pairs): both are
+    a * b * 2^-32 mod p whenever a * b < p * 2^32."""
+    rng = np.random.default_rng(0x6E4)
+    a = rng.integers(0, 1 << 32, 1 << 16, dtype=np.uint64).astype(np.uint32)
+    a[:64] = np.arange(GF32.p, GF32.p + 64, dtype=np.uint64) % (1 << 32)
+    a[64:128] = 0xFFFFFFFF - np.arange(64, dtype=np.uint32)
+    b = rng.integers(0, GF32.p, 1 << 16, dtype=np.uint64).astype(np.uint32)
+    ea, eb = mb.solinas_edge_pairs()
+    a, b = np.concatenate([a, ea]), np.concatenate([b, eb])
+    assert (a >= GF32.p).sum() > 128
+    np.testing.assert_array_equal(run_asm("mul_full<kGF32>", a, b),
+                                  generic_model(a, b))
+
+
+@pytest.mark.parametrize("variant,fn", [("kSolinas", "mul_solinas"),
+                                        ("kSolinasMasksel",
+                                         "mul_solinas_masksel"),
+                                        ("kGeneric", "mul_generic")])
+def test_chain_variant_calls(variant, fn):
+    """K14's steps (microbench.cu ``step``): "generic" still measures the
+    textbook REDC, not the Solinas one the passes now call."""
+    text = (CSRC / "microbench.cu").read_text()
+    step = text[text.index("__device__ __forceinline__ uint32_t step("):]
+    branch = re.search(rf"V == {variant}\b[^{{]*\{{\s*return fecc::(\w+)\(y, z\);",
+                       step)
+    assert branch and branch.group(1) == fn, variant
+
+
+@pytest.mark.parametrize("option", list(chain_options.VARIANTS))
+def test_chain_options_edits_apply(option):
+    """Each of chain_options.py's builds is a text edit of gf.cuh and
+    microbench.cu that must find what it replaces (``edit`` asserts it);
+    every option but the package itself changes one of the two."""
+    gf0 = GF_CUH.read_text()
+    mb0 = (CSRC / "microbench.cu").read_text()
+    gf, mbs = chain_options.VARIANTS[option](gf0, mb0)
+    assert (gf, mbs) != (gf0, mb0) or option == "pkg"
