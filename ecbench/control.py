@@ -15,8 +15,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
+import os
 import sys
+import traceback
 
 import torch
 
@@ -38,6 +41,18 @@ def in_place(op: str):
             setattr(mod, name, fn)
 
 
+def run_cell(cell: bench.Cell, seed: int, seconds: float, rank_init=None,
+             **kwargs) -> dict:
+    """One untraced run of ``cell`` (``run.run_cell``) with the control in
+    the program's place in every rank; ``rank_init`` runs first in each
+    rank but 0."""
+    op = cell.traffic["op"]
+    with in_place(op):
+        return run.run_cell(cell, seed, seconds, False, rank_init=(
+            functools.partial(ops.control_for_good, op, rank_init)),
+            **kwargs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
@@ -49,8 +64,13 @@ def main(argv=None) -> int:
         run.say("error: the control is measured on the card")
         return 2
     for seed in args.seeds:
-        with in_place(cell.traffic["op"]):
-            line = run.run_cell(cell, seed, args.seconds, False)
+        try:
+            line = run_cell(cell, seed, args.seconds)
+        except Exception:
+            # a control that crashes has failed; exit as ecbench.run does
+            traceback.print_exc()
+            sys.stderr.flush()
+            os._exit(1)
         print(json.dumps({"workload": args.workload, "seed": seed,
                           "correct": line["correct"],
                           "checks": line["checks"]}), flush=True)

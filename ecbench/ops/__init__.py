@@ -15,6 +15,10 @@ whose class ``Op`` (an :class:`Operation`):
   ``operation_multiplies``), which the roofline readers hold against
   the card's peaks (``least_s``).
 
+On a cell of more than one chip every rank makes its own ``Op``, told of
+its world (``world``: :class:`ecbench.world.World`), and all the above is
+that rank's share: its inputs, its calls, its outputs and its work.
+
 The module also names the program's entries it drives and the control
 to put in their place (``CONTROL``, read by :mod:`ecbench.control`). So
 an operation is added as a new file, and no file here changes.
@@ -123,14 +127,30 @@ def module(op: str):
     return importlib.import_module(f"{__name__}.{op}")
 
 
-def make(config: dict, traffic: dict, seed: int, device) -> "Operation":
-    return module(traffic["op"]).Op(config, traffic, seed, device)
+def control_for_good(op: str, then, rank: int) -> None:
+    """A rank's ``rank_init`` in a run of the control (``ecbench.control``):
+    ``then(rank)`` unless it is None, then the control in the program's
+    place for the rest of the rank's process. Here, not in the control's
+    own module, which may run as ``__main__``: a rank finds it by name."""
+    if then is not None:
+        then(rank)
+    for mod, name, fn in module(op).CONTROL:
+        setattr(mod, name, fn)
+
+
+def make(config: dict, traffic: dict, seed: int, device,
+         world=None) -> "Operation":
+    """The operation of a cell on ``device``; ``world``
+    (:class:`ecbench.world.World`) for a cell of more than one chip."""
+    return module(traffic["op"]).Op(config, traffic, seed, device, world)
 
 
 class Operation:
     """One cell's calls; see the module docstring."""
 
-    def __init__(self, config: dict, traffic: dict, seed: int, device):
+    def __init__(self, config: dict, traffic: dict, seed: int, device,
+                 world=None):
+        self.world = world       # None on one chip
         self.name = config["field"]
         self.field = FIELDS[self.name]
         self.ref = ref.Field(self.name)

@@ -5,12 +5,15 @@
 Set-up makes the cell's inputs on the card from the seed and warms every
 shape the cell uses. The window is a closed loop with one client: a call
 into the program, a fence (``torch.cuda.synchronize``), and the next call
-right after, for ``--seconds``. After the window the program's state is
-freed and the plain reference judges the outputs of calls sampled from
-the seed. The last line of standard output is one JSON object: with
-``--trace 0`` the cell's end-to-end metrics, with ``--trace 1`` its
-per-layer metrics, read from the profiler's trace of the window's last
-part and from the harness's own clock around each program entry.
+right after, for ``--seconds``. A cell of C > 1 chips runs as C ranks,
+one process a card (:mod:`ecbench.world`): each call runs on every rank
+and ends when the last rank has fenced its card. After the window the
+program's state is freed and the plain reference judges the outputs of
+calls sampled from the seed. The last line of standard output is one
+JSON object: with ``--trace 0`` the cell's end-to-end metrics, with
+``--trace 1`` its per-layer metrics, read from the profiler's trace of
+the window's last part and from the harness's own clock around each
+program entry.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import os  # noqa: E402
 import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
+import traceback  # noqa: E402
 
 import numpy as np  # noqa: E402
 
@@ -42,6 +46,17 @@ TRACER_WARMUP_S = 0.25
 
 def say(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
+
+
+def forbidden_loaded() -> list:
+    """The forbidden packages in this process, by top-level name."""
+    return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
+
+
+def call_busy_s(trace) -> float:
+    """Mean device-busy seconds a profiled call of ``trace``."""
+    calls = trace.calls()
+    return sum(trace.busy_ns(s, e) for s, e in calls) / len(calls) / 1e9
 
 
 @dataclasses.dataclass
@@ -86,11 +101,7 @@ class Run:
 
     def call_busy_s(self):
         """Mean device-busy seconds a profiled call."""
-        if self.trace is None:
-            return None
-        calls = self.trace.calls()
-        return sum(self.trace.busy_ns(s, e) for s, e in calls) / len(
-            calls) / 1e9
+        return None if self.trace is None else call_busy_s(self.trace)
 
     def roofline_pct(self):
         """The least time a call takes on the card, by the larger of its
@@ -101,9 +112,10 @@ class Run:
             return None
         least = self.op.least_s()
         binds = max(least, key=least.get)
-        say(f"roofline: bytes {1e3 * least['bytes']:.4f} ms, operations "
-            f"{1e3 * least['operations']:.4f} ms a call, {binds} bind; "
-            f"device busy {1e3 * busy:.4f} ms a call")
+        say("roofline: " + ", ".join(f"{k} {1e3 * v:.4f} ms"
+                                     for k, v in least.items())
+            + f" a call, {binds} bind; device busy {1e3 * busy:.4f} ms a "
+            f"call")
         return 100.0 * least[binds] / busy
 
     def idle_pct(self):
@@ -155,14 +167,21 @@ def card_info() -> None:
 
 def run_cell(cell: bench.Cell, seed: int, seconds: float, traced: bool,
              device: str = "cuda", t_start: float = T_START,
-             marks: tuple = ()) -> dict:
+             marks: tuple = (), rank_init=None) -> dict:
     """One run of ``cell``; returns the result line's object. ``marks``
-    are the (phase, time) ends of set-up's phases before the call."""
+    are the (phase, time) ends of set-up's phases before the call.
+
+    A cell of C > 1 chips runs as a world of C ranks (:mod:`ecbench.world`),
+    this process rank 0: every rank makes its shard of the inputs and runs
+    each call, and a call ends when the last rank has fenced its card.
+    ``rank_init(rank)``, a function that pickles, runs first in each other
+    rank's process (the control puts itself in the program's place there);
+    the caller's own patches cover rank 0."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
 
     from . import ops
     from . import trace as tr
+    from .world import SETUP_LIMIT_S, Ranks
 
     cuda = torch.device(device).type == "cuda"
     phases: list = list(marks)
@@ -179,110 +198,100 @@ def run_cell(cell: bench.Cell, seed: int, seconds: float, traced: bool,
     mark("program", fence=False)
     torch.zeros(1, device=device)
     mark("card")
-    op = ops.make(cell.config, cell.traffic, seed, device)
-    op.prepare()
-    mark("inputs")
-    entry = Entry(sync, traced)
-    warm = max(2, cell.traffic.get("pool", 1))
-    for i in range(warm):
-        op.before(i)
-        op.call(i, entry)
-        sync()
-    mark("warm-up")
-    activities = [ProfilerActivity.CPU] + (
-        [ProfilerActivity.CUDA] if cuda else [])
-    if traced:
-        # the tracer's first session can drop kernels: spend it here
-        with profile(activities=activities):
-            op.before(warm)
-            op.call(warm, entry)
-            sync()
-        mark("profiler")
-
-    setup_s = time.perf_counter() - t_start
-    last = t_start
-    for i, (phase, t) in enumerate(phases):
-        phases[i], last = f"{phase} {t - last:.3f} s", t
-    say(f"setup: {', '.join(phases)}")
-    samples = cell.traffic["samples"]
-    chooser = np.random.default_rng(ops.seed_state(seed, 4))
-    kept: list = []
-    calls: list = []
-    prof = window = None
-    profiled = 0
-    profile_from = seconds - min(PROFILED_S + TRACER_WARMUP_S, seconds / 4)
-    names = {tr.CALL, tr.WINDOW, "ecbench.before"}
-    begin = time.perf_counter()
-    i = 0
-    while True:
+    with Ranks(cell, seed, device, traced, rank_init) as ranks:
+        ranks.all("prepare", limit=SETUP_LIMIT_S)
+        mark("inputs")
+        warm = max(2, cell.traffic.get("pool", 1))
+        for i in range(warm):
+            ranks.all("warm", i, limit=SETUP_LIMIT_S)
+        mark("warm-up")
         if traced:
-            with record_function("ecbench.before"):
-                op.before(i)
-        else:
-            op.before(i)
-        entry.entries = []
-        start = time.perf_counter()
-        if traced:
-            with record_function(tr.CALL):
-                out = op.call(i, entry)
-                sync()
-        else:
-            out = op.call(i, entry)
-            sync()
-        end = time.perf_counter()
-        calls.append(Call(start, end, entry.entries, prof is not None))
-        profiled += window is not None
-        # keep `samples` outputs, each call equally likely (reservoir)
-        if len(kept) < samples:
-            kept.append((i, out))
-        else:
-            j = int(chooser.integers(0, i + 1))
-            if j < samples:
-                kept[j] = (i, out)
-        del out
-        i += 1
-        elapsed = end - begin
-        if elapsed >= seconds and (prof is None or profiled >= PROFILED_CALLS):
-            break
-        if traced and prof is None and elapsed >= profile_from:
-            prof = profile(activities=activities)
-            prof.start()
-            started = time.perf_counter()
-        elif (prof is not None and window is None
-              and time.perf_counter() - started >= min(
-                  TRACER_WARMUP_S, seconds / 16)):
-            window = record_function(tr.WINDOW)
-            window.__enter__()
-    window_s = calls[-1].end - begin
-    trace = None
-    if prof is not None:
-        window.__exit__(None, None, None)
-        prof.stop()
-        trace = tr.collect(prof, names | entry.names)
-        reason = trace.guard()
-        if reason:
-            raise RuntimeError(f"traced run unreadable: {reason}")
-    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+            ranks.all("warm_profiler", warm, limit=SETUP_LIMIT_S)
+            mark("profiler")
 
-    run = Run(cell, op, setup_s, window_s, calls, trace)
-    metrics = {}
-    for m in cell.per_layer if traced else cell.end_to_end:
-        value = bench.reader(m["name"])(run)
-        if value is not None:
-            metrics[m["name"]] = {"value": value, "unit": m["unit"]}
-    say(f"window: {len(calls)} calls in {window_s:.3f} s, setup "
-        f"{setup_s:.3f} s, p50 {run.call_quantile_ms(0.5):.4f} ms, "
-        f"{profiled} profiled")
+        setup_s = time.perf_counter() - t_start
+        last = t_start
+        for i, (phase, t) in enumerate(phases):
+            phases[i], last = f"{phase} {t - last:.3f} s", t
+        say(f"setup: {', '.join(phases)}")
+        samples = cell.traffic["samples"]
+        chooser = np.random.default_rng(ops.seed_state(seed, 4))
+        calls: list = []
+        profiling = windowed = False
+        profiled = 0
+        profile_from = seconds - min(PROFILED_S + TRACER_WARMUP_S,
+                                     seconds / 4)
+        names = {tr.CALL, tr.WINDOW, "ecbench.before"}
+        begin = time.perf_counter()
+        i = 0
+        while True:
+            ranks.all("before", i)
+            # keep `samples` outputs, each call equally likely (reservoir)
+            slot = i if i < samples else int(chooser.integers(0, i + 1))
+            start = time.perf_counter()
+            entries = ranks.all("call", i,
+                                slot if slot < samples else None)[0]
+            end = time.perf_counter()
+            calls.append(Call(start, end, entries, profiling))
+            profiled += windowed
+            i += 1
+            elapsed = end - begin
+            if elapsed >= seconds and (not profiling
+                                       or profiled >= PROFILED_CALLS):
+                break
+            if traced and not profiling and elapsed >= profile_from:
+                ranks.all("trace_start")
+                profiling = True
+                started = time.perf_counter()
+            elif (profiling and not windowed
+                  and time.perf_counter() - started >= min(
+                      TRACER_WARMUP_S, seconds / 16)):
+                ranks.all("trace_window")
+                windowed = True
+        window_s = calls[-1].end - begin
+        trace = prof = None
+        if profiling:
+            busy = ranks.all("trace_end", names)
+            trace = ranks.local.trace
+            # spans.of finds the finished session among this frame's locals
+            prof = ranks.local.prof  # noqa: F841
+            reason = trace.guard()
+            if reason:
+                raise RuntimeError(f"traced run unreadable: {reason}")
+            if len(busy) > 1:
+                say("device busy a profiled call: " + ", ".join(
+                    f"rank {r} " + (b if isinstance(b, str)
+                                    else f"{1e3 * b:.4f} ms")
+                    for r, b in enumerate(busy)))
+        peaks = ranks.all("peak")
+        peak = max(peaks)
+        if len(peaks) > 1:
+            say("memory peak: " + ", ".join(
+                f"rank {r} {b} B" for r, b in enumerate(peaks)))
 
-    # the program's state goes before the reference runs on the card
-    op.release()
-    if cuda:
-        torch.cuda.empty_cache()
-        card_info()
-    t = time.perf_counter()
-    bad = op.judge(kept)
-    say(f"judged {len(kept)} outputs (calls {[i for i, _ in kept]}) in "
-        f"{time.perf_counter() - t:.2f} s")
+        run = Run(cell, ranks.local.op, setup_s, window_s, calls, trace)
+        metrics = {}
+        for m in cell.per_layer if traced else cell.end_to_end:
+            value = bench.reader(m["name"])(run)
+            if value is not None:
+                metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+        say(f"window: {len(calls)} calls in {window_s:.3f} s, setup "
+            f"{setup_s:.3f} s, p50 {run.call_quantile_ms(0.5):.4f} ms, "
+            f"{profiled} profiled")
+
+        ranks.all("release", limit=SETUP_LIMIT_S)
+        if cuda:
+            card_info()
+        t = time.perf_counter()
+        judged = ranks.all("judge", limit=SETUP_LIMIT_S)
+        bad = [sum(b) for b in zip(*(b for b, _, _ in judged))]
+        kept = judged[0][1]
+        if len(judged) > 1:
+            say("judged: " + ", ".join(f"rank {r} {s:.2f} s"
+                                       for r, (_, _, s) in enumerate(judged)))
+        say(f"judged {len(kept)} outputs (calls {kept}) in "
+            f"{time.perf_counter() - t:.2f} s")
+        ranks.finish()
     checks = {"bad_words": {"value": sum(bad), "max": 0},
               "judged_outputs": {"value": len(kept), "min": 1}}
     for name, c in checks.items():
@@ -324,10 +333,17 @@ def main(argv=None) -> int:
     say(f"env FASTECC_*: {flags or 'none'}")
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    line = run_cell(cell, args.seed, args.seconds, bool(args.trace),
-                    marks=marks)
+    try:
+        line = run_cell(cell, args.seed, args.seconds, bool(args.trace),
+                        marks=marks)
+    except Exception:
+        # no result; and no teardown, which a process group that a failed
+        # world left open holds for minutes
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
 
-    loaded = sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
+    loaded = forbidden_loaded()
     if loaded:
         say(f"error: the process loaded {loaded}")
         return 3

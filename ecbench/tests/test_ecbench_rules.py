@@ -84,10 +84,26 @@ def test_names_units_and_entries():
                 assert c in CELLS, e
 
 
+def chips_allowed(workloads) -> bool:
+    """Each cell takes 1 chip or 4, and at most a quarter of the cells,
+    rounded down, or one, take 4."""
+    four = sum(w["chips"] == 4 for w in workloads)
+    return (all(w["chips"] in (1, 4) for w in workloads)
+            and four <= max(1, len(workloads) // 4))
+
+
+@pytest.mark.parametrize("chips,allowed", [
+    ([1, 1, 1], True), ([4], True), ([1, 1, 1, 4], True),
+    ([1, 1, 4, 4], False), ([1, 1, 1, 2], False),
+    ([1] * 6 + [4, 4], True), ([1] * 5 + [4] * 3, False)])
+def test_the_chip_rule(chips, allowed):
+    assert chips_allowed([{"chips": c} for c in chips]) == allowed
+
+
 def test_cells_are_one_chip_and_find_their_files():
     pairs = set()
+    assert chips_allowed(SPEC["workloads"])
     for w in SPEC["workloads"]:
-        assert w["chips"] == 1
         assert (w["config"], w["traffic"]) not in pairs
         pairs.add((w["config"], w["traffic"]))
         cell = bench.cell(w["name"])
