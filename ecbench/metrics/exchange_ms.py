@@ -1,0 +1,14 @@
+"""Device time of the sharded codec's exchanges a call: the union of the
+device operations launched inside the program's spans
+``fecc.dist.exchange`` (each exchange's pack, NCCL's all-to-all kernel
+and its unpack; found by correlation id), mean over the profiled calls,
+in ms, on rank 0's card. None without the program's spans or their
+launch records."""
+
+from ecbench import spans
+
+
+def read(run):
+    trace = spans.of(run)
+    return None if trace is None else trace.busy_ms(
+        trace.launched_in("fecc.dist.exchange"))

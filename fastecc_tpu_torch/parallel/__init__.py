@@ -18,7 +18,7 @@ CPU); ``mesh.init_process_group`` picks it.
 
 _NTT_DIST = ("ntt_sharded", "ntt_sharded_overlap", "encode_parity_sharded",
              "decode_sharded", "decode_prepared_sharded", "COLLECTIVES",
-             "reset_collectives")
+             "TABLE_MULS", "reset_collectives")
 _MESH = ("make_mesh", "codeword_sharding", "replicated",
          "init_process_group", "shard", "gather")
 

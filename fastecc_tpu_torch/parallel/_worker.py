@@ -31,12 +31,15 @@ A job is a dict: ``mesh`` (n_coeff, n_block), ``device`` ("cuda" or
                 (a list), checked here;
   want          a .npy path: the global result the shard is held to
                 (``bit_exact``);
-  profile       rank 0 profiles one more call (every rank runs it).
+  profile       rank 0 profiles one more call (every rank runs it);
+  spans         every rank runs one more call under ``torch.profiler``
+                and reports its ``fecc.`` spans, its counts and whether
+                its output has the first call's bits.
 
-Each case reports, per rank: the exchanges and kernel launches of one
-call, the timed samples (a barrier before and after each, so a sample is
-the world's wall), the digest, the checks and the case's whole wall
-(input, calls, hashing).
+Each case reports, per rank: the exchanges, table multiplies and kernel
+launches of one call, the timed samples (a barrier before and after
+each, so a sample is the world's wall), the digest, the checks and the
+case's whole wall (input, calls, hashing).
 """
 
 from __future__ import annotations
@@ -248,7 +251,7 @@ def _run_case(case: dict, job: dict, mesh, rank: int) -> dict:
 
     from ..kernels import ntt_mfa
     from . import mesh as pmesh
-    from .ntt_dist import COLLECTIVES, reset_collectives
+    from .ntt_dist import COLLECTIVES, TABLE_MULS, reset_collectives
 
     dev = pmesh.rank_device()
     t_case = time.perf_counter()
@@ -262,7 +265,10 @@ def _run_case(case: dict, job: dict, mesh, rank: int) -> dict:
     out = fn(x)
     _fence(dev)
     res["collectives"] = dict(COLLECTIVES)
+    res["table_muls"] = dict(TABLE_MULS)
     res["launches"] = {k: v for k, v in ntt_mfa.LAUNCHES.items() if v}
+    if case.get("spans"):
+        res["spans"] = _spans(fn, x, out, dev)
     if case.get("save"):
         np.save(os.path.join(job["out_dir"], f"{case['name']}.r{rank}.npy"),
                 out.view(torch.int32).cpu().numpy().view(np.uint32))
@@ -291,6 +297,36 @@ def _run_case(case: dict, job: dict, mesh, rank: int) -> dict:
         res["profile"] = _profile(fn, x, dev, rank)
     res["case_s"] = time.perf_counter() - t_case
     return res
+
+
+def _spans(fn, x, first, dev) -> dict:
+    """One more call of ``fn`` under ``torch.profiler`` on this rank: its
+    ``fecc.`` spans as [name, start ns, end ns] by start, its counts, and
+    whether its output has the bits of ``first`` (the unprofiled call's).
+    ``off_is_null``: ``profiling.scope`` was the shared null context just
+    before the profiler started."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..utils import profiling
+    from .ntt_dist import COLLECTIVES, TABLE_MULS, reset_collectives
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    _fence(dev)
+    dist.barrier()
+    off_is_null = profiling.scope("fecc.dist.off") is profiling._OFF
+    reset_collectives()
+    with profile(activities=acts) as prof:
+        out = fn(x)
+        _fence(dev)
+    spans = sorted(([e.name(), e.start_ns(), e.start_ns() + e.duration_ns()]
+                    for e in prof.profiler.kineto_results.events()
+                    if e.name().startswith("fecc.")),
+                   key=lambda s: (s[1], -s[2]))
+    return {"spans": spans, "collectives": dict(COLLECTIVES),
+            "table_muls": dict(TABLE_MULS), "off_is_null": off_is_null,
+            "same_bits": bool(torch.equal(out.view(torch.int32),
+                                          first.view(torch.int32)))}
 
 
 def _profile(fn, x, dev, rank: int):

@@ -20,7 +20,15 @@ counted in :data:`COLLECTIVES`, where the reference counts all_to_all in
 the lowered HLO. The table multiplies (four-step twiddle, coset table,
 the decode's l(w^j), x*d/dx and Forney) are torch ops in int64 carriers,
 as the reference computes them in jnp outside any kernel, in row chunks
-that bound their temporaries.
+that bound their temporaries; :data:`TABLE_MULS` counts them.
+
+While a profiler records, :func:`ntt_sharded` and the codec's entries
+run inside a span ``fecc.dist.<name>``, an exchange's pack and launch
+and then its unpack each inside ``fecc.dist.exchange`` (two spans an
+exchange, so the overlapped form's are spanned too), each table multiply
+inside ``fecc.dist.mul_table`` and each 1/N scale inside
+``fecc.dist.scale`` (``utils.profiling.scope``); the local transforms'
+passes carry their own ``fecc.pass.*`` spans.
 
 The transposed hand-off (``output_transposed`` / ``input_transposed``)
 skips the third exchange of a transform and the first of the next, so
@@ -39,11 +47,17 @@ from .. import gf
 from ..fields import FieldSpec
 from ..ntt import _four_step_twiddles, _log2, mul_prepared, ntt_auto
 from ..rs import _check_kn
+from ..utils import profiling
 from .mesh import rank_device
 
 # Exchanges issued, and the bytes this rank sent to other ranks in them,
 # as ntt_mfa.LAUNCHES counts kernels.
 COLLECTIVES = {"all_to_all": 0, "all_to_all_bytes": 0}
+
+# Table multiplies issued (and the elements they multiplied), and 1/N
+# scales, counted apart from COLLECTIVES, which the tests hold to the
+# reference's count.
+TABLE_MULS = {"mul_table": 0, "mul_table_elems": 0, "scale": 0}
 
 # Elements per torch-op table multiply: bounds its int64 temporaries
 # (~10 live carriers of 8 bytes an element).
@@ -51,8 +65,22 @@ _MUL_CHUNK = 1 << 24
 
 
 def reset_collectives() -> None:
-    for k in COLLECTIVES:
-        COLLECTIVES[k] = 0
+    """Zero :data:`COLLECTIVES` and :data:`TABLE_MULS`."""
+    for counts in (COLLECTIVES, TABLE_MULS):
+        for k in counts:
+            counts[k] = 0
+
+
+def _span(name: str):
+    """Run the decorated entry inside the span ``name`` (on only while a
+    profiler records)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with profiling.scope(name):
+                return fn(*args, **kwargs)
+        return spanned
+    return wrap
 
 
 def _coeff(mesh) -> tuple[int, int]:
@@ -79,26 +107,29 @@ class _Exchange:
             raise ValueError(f"axis {split_axis} of {s} does not split "
                              f"over {d} ranks")
         parts = s[:split_axis] + (d, s[split_axis] // d) + s[split_axis + 1:]
-        # [D, ...]: the chunk for destination i is send[i], contiguous
-        send = t.view(torch.int32).reshape(parts).movedim(
-            split_axis, 0).contiguous()
-        self.recv = torch.empty_like(send)
-        self.concat = concat_axis
-        group = mesh.get_group("coeff")
-        COLLECTIVES["all_to_all"] += 1
-        COLLECTIVES["all_to_all_bytes"] += send.numel() * 4 * (d - 1) // d
-        self.work = dist.all_to_all_single(self.recv, send, group=group,
-                                           async_op=True)
+        with profiling.scope("fecc.dist.exchange"):
+            # [D, ...]: the chunk for destination i is send[i], contiguous
+            send = t.view(torch.int32).reshape(parts).movedim(
+                split_axis, 0).contiguous()
+            self.recv = torch.empty_like(send)
+            self.concat = concat_axis
+            group = mesh.get_group("coeff")
+            COLLECTIVES["all_to_all"] += 1
+            COLLECTIVES["all_to_all_bytes"] += send.numel() * 4 * (d - 1) // d
+            self.work = dist.all_to_all_single(self.recv, send, group=group,
+                                               async_op=True)
         self._send = send   # alive until the exchange completes
 
     def wait(self) -> torch.Tensor:
-        self.work.wait()
-        self._send = None
-        r = self.recv                      # [D, ...]: r[i] came from rank i
-        d, rest = r.shape[0], tuple(r.shape[1:])
-        c = self.concat
-        out = r.movedim(0, c).reshape(rest[:c] + (d * rest[c],) + rest[c + 1:])
-        return _u32(out.contiguous())
+        with profiling.scope("fecc.dist.exchange"):
+            self.work.wait()
+            self._send = None
+            r = self.recv                  # [D, ...]: r[i] came from rank i
+            d, rest = r.shape[0], tuple(r.shape[1:])
+            c = self.concat
+            out = r.movedim(0, c).reshape(rest[:c] + (d * rest[c],)
+                                          + rest[c + 1:])
+            return _u32(out.contiguous())
 
 
 def _exchange(t: torch.Tensor, mesh, split_axis: int, concat_axis: int
@@ -153,13 +184,18 @@ def _mul_table(field: FieldSpec, y: torch.Tensor, table: torch.Tensor
                ) -> torch.Tensor:
     """y * table mod p (``table``: prepared, int64 carriers or u32,
     broadcast over y's trailing axes; rows aligned with y's)."""
-    return _by_rows(y, lambda v, i0, i1: mul_prepared(field, v,
-                                                      table[i0:i1]))
+    with profiling.scope("fecc.dist.mul_table"):
+        TABLE_MULS["mul_table"] += 1
+        TABLE_MULS["mul_table_elems"] += y.numel()
+        return _by_rows(y, lambda v, i0, i1: mul_prepared(field, v,
+                                                          table[i0:i1]))
 
 
 def _scale(field: FieldSpec, y: torch.Tensor, n: int) -> torch.Tensor:
-    inv_n = field.inv_host(n)
-    return _by_rows(y, lambda v, i0, i1: gf.mul_const(field, v, inv_n))
+    with profiling.scope("fecc.dist.scale"):
+        TABLE_MULS["scale"] += 1
+        inv_n = field.inv_host(n)
+        return _by_rows(y, lambda v, i0, i1: gf.mul_const(field, v, inv_n))
 
 
 @functools.lru_cache(maxsize=64)
@@ -198,6 +234,7 @@ def _split_dims(n: int, d: int, c_dim: int | None):
     return c_dim, r_dim
 
 
+@_span("fecc.dist.ntt_sharded")
 def ntt_sharded(x, field: FieldSpec, mesh, inverse: bool = False,
                 c_dim: int | None = None, scale: bool = True,
                 input_transposed: bool = False,
@@ -307,6 +344,7 @@ def ntt_sharded_overlap(x, field: FieldSpec, mesh, inverse: bool = False,
     return _scale(field, out, n) if inverse and scale else out
 
 
+@_span("fecc.dist.encode_parity_sharded")
 def encode_parity_sharded(data, field: FieldSpec, mesh,
                           n: int | None = None) -> torch.Tensor:
     """Sharded RS parity: iNTT_k -> coset twiddle -> NTT_k per coset, on
@@ -341,6 +379,7 @@ def encode_parity_sharded(data, field: FieldSpec, mesh,
     return _u32(stacked.reshape((n - k) // d, lanes))
 
 
+@_span("fecc.dist.decode_prepared_sharded")
 def decode_prepared_sharded(codeword, mask, l_eval_prep, lp_inv_prep,
                             field: FieldSpec, mesh) -> torch.Tensor:
     """Sharded erasure decode on this rank's local shards: the codeword
@@ -369,6 +408,7 @@ def decode_prepared_sharded(codeword, mask, l_eval_prep, lp_inv_prep,
                             cw.view(torch.int32)))
 
 
+@_span("fecc.dist.decode_sharded")
 def decode_sharded(codeword, erased_idx, field: FieldSpec, mesh
                    ) -> torch.Tensor:
     """Full sharded decode: the locator tables from
