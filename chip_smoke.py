@@ -141,7 +141,18 @@ main path on the card and fails loudly on any fault. Phases:
                host emission apart; first, the microseconds to write and
                to read one 4 KB block file there. The GF32 file is also
                halved while the disk's free space cannot hold ~6.5x it;
- 14. parallel — the sharded codec (fastecc_tpu_torch.parallel) on worlds
+ 14. mul_table — the sharded codec's table multiply (csrc/table.cu,
+               parallel.ntt_dist._mul_rows) at a rank's shape in the
+               four-card encode, [2^17, 8192] u32, in both fields, with
+               p - 1 (GF16: 0x10000) and 0 planted in the words and the
+               table: a table word a row (the four-step and coset form),
+               the same rows 4 bytes past a 16-byte boundary (the one-word
+               path) and the decode's 1/N (one word for every row), each
+               against its plain version (ntt_dist._mul_plain, the 1/N
+               against gf.mul_const) bit for bit; then _mul_table once as
+               the main-path run (one launch); each form timed beside
+               K13's copy of the same bytes, and the plain version;
+ 15. parallel — the sharded codec (fastecc_tpu_torch.parallel) on worlds
                of ranks sharing the card over Gloo (2x1, 4x1, 2x2; NCCL
                refuses two ranks of one communicator on one GPU) and a
                one-rank NCCL world (the passthrough), each started by
@@ -157,13 +168,15 @@ main path on the card and fails loudly on any fault. Phases:
                on the card); the exchanges per call checked (3, 4, 4, 2 at
                each transposed end, 6 for two chunks), the median of 3
                timed calls, rank 0's profile of one 2x1 encode, the ranks'
-               launches (K1 and K3 must launch) added to the path's;
+               launches (K1, K3 and the table multiply must launch; the
+               last once for each of the call's table multiplies and
+               1/N scales) added to the path's;
                PARALLEL_WORLDS sets each world's depth cut (printed); then
                python -m fastecc_tpu_torch.cli scaling --op encode
                --devices 4 --lg-k 19 --lanes 256 --iters 2 and scaling
                --procs 4 --update-baseline into a temporary file, rows
                parsed and checked;
- 15. peaks   — the microbenchmark kernels against their plain versions,
+ 16. peaks   — the microbenchmark kernels against their plain versions,
                bit-exact: K13 (the copy) at ragged sizes (around a
                block's span) and unaligned, K14
                (the chains) for every variant at depth 3 and at its default
@@ -185,9 +198,9 @@ main path on the card and fails loudly on any fault. Phases:
                under the published and the measured peaks beside phase
                encode's time.
 
-Launch counts are reset to 0 before each main-path run (phases 4-15) and
+Launch counts are reset to 0 before each main-path run (phases 4-16) and
 read right after it; each run must launch every kernel of its path (in
-phase 14 each rank counts its own and the phase adds them up). Near
+phase 15 each rank counts its own and the phase adds them up). Near
 the end come the launches by path, one detail line per kernel (source,
 the TPU kernel it replaces, the shape it was timed at), a JSON object
 with, per kernel, its launches, its time at the main-path shape, the
@@ -245,12 +258,15 @@ REPLACES = {
     "K13_copy": "fastecc_tpu/kernels/microbench.py:37",
     "K14_chain": "fastecc_tpu/kernels/microbench.py:210",
     "K15_fused_chain": "fastecc_tpu/kernels/microbench.py:271",
+    # no kernel: the reference multiplies by its tables in jnp
+    "mul_table": "fastecc_tpu/parallel/ntt_dist.py:139 (jnp)",
 }
 WIRE16 = ("K8_col_wire16", "K9_seam_wire16", "K10_row_wire16")
 LANES = ("K11_pair_lanes", "K12_pair_lanes_wire16")
 PEAKS = ("K13_copy", "K14_chain", "K15_fused_chain")
 SOURCE = {k: "fastecc_tpu_torch/csrc/" + (
     "microbench.cu" if k in PEAKS else "lanes.cu" if k in LANES
+    else "table.cu" if k == "mul_table"
     else "row.cu" if k in ("K3_row", "K7_row_post", "K7_row_post_sel",
                            "K10_row_wire16")
     else "col.cu")
@@ -374,13 +390,21 @@ def peaks_bound(kind: str, shape) -> tuple[float, str]:
 def bound(kind: str, field, shape, sel_frac: float = 1.0
           ) -> tuple[float, str]:
     """(least time in ms, what bounds it) for a pass over ``shape`` (for
-    the wire passes, one half's [A, B, Wu]; for the lanes pair [k, L]).
+    the wire passes, one half's [A, B, Wu]; for the lanes pair [k, L]; for
+    the table multiply [rows, lanes]).
     Bytes: the input read and the output written once, the [N] tables
     read once, and for K7-sel the original read at surviving rows only.
     The lanes pair runs two k-point transforms and the mid multiply on
     each lane column, K12 on both halves of each pair: pairs in, stored
     words and the bitmap out (8.5 bytes a pair)."""
     muls_per_mod = 2 if field.use_mont else 1
+    if kind == "mul_table":
+        rows, lanes = shape
+        nbytes = 8 * rows * lanes + 4 * rows          # x in, out; the table
+        muls = rows * lanes * muls_per_mod
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = muls / INT_MULS_PER_S * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     if kind in LANES:
         k, lanes = shape
         halves = 2 if kind == "K12_pair_lanes_wire16" else 1
@@ -937,12 +961,15 @@ def run_path(name: str, fn, launches: dict, expect: tuple):
     after; records them under ``name`` and fails unless every kernel in
     ``expect`` launched."""
     from fastecc_tpu_torch.kernels import microbench, ntt_mfa
+    from fastecc_tpu_torch.parallel import ntt_dist
     torch.cuda.synchronize()
     ntt_mfa.reset_launches()
     microbench.reset_launches()
+    ntt_dist.reset_collectives()
     out = fn()
     torch.cuda.synchronize()
-    launches[name] = {**ntt_mfa.LAUNCHES, **microbench.LAUNCHES}
+    launches[name] = {**ntt_mfa.LAUNCHES, **microbench.LAUNCHES,
+                      **ntt_dist.LAUNCHES}
     say(f"[{name}] launches {launches[name]}")
     for k in expect:
         check(launches[name][k] > 0, f"{name} did not launch {k}")
@@ -2753,6 +2780,72 @@ def phase_storage(gen, launches, times) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+def edge_field(p: int, shape, gen: torch.Generator) -> torch.Tensor:
+    """:func:`rand_field` with p - 1 (GF16: 0x10000) at every 97th word
+    and 0 at every 101st."""
+    from fastecc_tpu_torch import gf
+    v = torch.randint(0, p, shape, dtype=torch.int64, device="cuda",
+                      generator=gen)
+    v.view(-1)[::97] = p - 1
+    v.view(-1)[5::101] = 0
+    return gf.narrow(v)
+
+
+def phase_mul_table(gen, launches, times, shapes, worst) -> None:
+    """The table multiply of the four-card encode at a rank's shape, in
+    both fields: each form against its plain version, the main-path run,
+    then the times (see the module's phase 14)."""
+    from fastecc_tpu_torch import gf
+    from fastecc_tpu_torch.fields import GF16, GF32
+    from fastecc_tpu_torch.kernels import microbench as mb
+    from fastecc_tpu_torch.parallel import ntt_dist as nd
+
+    rows, lanes = 1 << 17, 8192
+    n = 1 << 19                    # the four-card cell's transform length
+    shapes["mul_table"] = (rows, lanes)
+    for field in (GF32, GF16):
+        y = edge_field(field.p, (rows, lanes), gen)
+        t = edge_field(field.p, (rows,), gen)
+        compare(worst, "mul_table", nd._mul_rows(field, y, t),
+                nd._mul_plain(field, y, t), (field.name, "a word a row"))
+        inv = nd._inv_on(field, n, "cuda")
+        want = nd._by_rows(y, lambda v, i0, i1: gf.mul_const(
+            field, v, field.inv_host(n)))
+        compare(worst, "mul_table", nd._mul_rows(field, y, inv), want,
+                (field.name, "1/N"))
+        del want
+        buf = torch.empty(rows * lanes + 4, dtype=torch.int32, device="cuda")
+        ys = buf[1:1 + rows * lanes].view(torch.uint32).reshape(rows, lanes)
+        ys.view(torch.int32).copy_(y.view(torch.int32))
+        check(ys.data_ptr() % 16 == 4, "the misaligned view's offset")
+        compare(worst, "mul_table", nd._mul_rows(field, ys, t),
+                nd._mul_plain(field, ys, t), (field.name, "one-word path"))
+        torch.cuda.empty_cache()
+        if field is GF32:
+            run_path("mul_table", lambda: nd._mul_table(field, y, t),
+                     launches, ("mul_table",))
+            check(launches["mul_table"]["mul_table"] == 1,
+                  "_mul_table launched the kernel once")
+        ms = {"kernel": event_ms(lambda: nd._mul_rows(field, y, t), 20),
+              "one_word": event_ms(lambda: nd._mul_rows(field, ys, t), 20),
+              "scale": event_ms(lambda: nd._mul_rows(field, y, inv), 20),
+              "copy": event_ms(lambda: mb.copy(y), 20)}
+        del buf, ys
+        torch.cuda.empty_cache()
+        ms["plain"] = event_ms(lambda: nd._mul_plain(field, y, t), reps=2)
+        b_ms, _ = bound("mul_table", field, (rows, lanes))
+        say(f"[mul_table] {field.name} [{rows}, {lanes}] == plain (a word "
+            f"a row, 1/N, one-word path); ms: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+            + f"; bound {b_ms:.4f} ({100 * b_ms / ms['kernel']:.1f}% of it "
+            f"reached)")
+        suffix = "" if field is GF32 else "_gf16"
+        times["mul_table" + suffix] = ms["kernel"]
+        times["plain_mul_table" + suffix] = ms["plain"]
+        del y, t
+        torch.cuda.empty_cache()
+
+
 # The parallel phase: worlds of ranks sharing the card over Gloo (NCCL
 # refuses two ranks of one communicator on one GPU), each mesh with the
 # halvings of depth (k and n) its shapes take for the time limit, and the
@@ -2973,6 +3066,12 @@ def phase_parallel(launches, times) -> None:
                 check(case["collectives"]["all_to_all"] == want,
                       f"{tag} {name}: {case['collectives']} exchanges, "
                       f"want {want}")
+                muls = case["table_muls"]
+                check(case["launches"].get("mul_table", 0)
+                      == muls["mul_table"] + muls["scale"],
+                      f"{tag} {name}: rank {r} launched the table multiply "
+                      f"{case['launches'].get('mul_table', 0)} times for "
+                      f"{muls}")
                 for k, v in case["launches"].items():
                     launches["parallel"][k] += v
                     world_launches[k] = world_launches.get(k, 0) + v
@@ -2997,7 +3096,7 @@ def phase_parallel(launches, times) -> None:
         prof = reps[0]["cases"]["enc32"].get("profile")
         if prof:
             say(f"[parallel] {tag} enc32 rank 0 profile: {json.dumps(prof)}")
-    for k in ("K1_col", "K3_row"):
+    for k in ("K1_col", "K3_row", "mul_table"):
         check(launches["parallel"][k] > 0,
               f"parallel: the ranks did not launch {k}")
     say(f"[parallel] launches "
@@ -3184,6 +3283,7 @@ def main() -> int:
     phase_lanes(gen, launches, times, shapes)
     phase_errors(gen, launches, times)
     phase_storage(gen, launches, times)
+    phase_mul_table(gen, launches, times, shapes, worst)
     phase_parallel(launches, times)
     phase_peaks(gen, launches, times, shapes, worst)
 

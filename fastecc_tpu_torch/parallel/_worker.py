@@ -251,7 +251,8 @@ def _run_case(case: dict, job: dict, mesh, rank: int) -> dict:
 
     from ..kernels import ntt_mfa
     from . import mesh as pmesh
-    from .ntt_dist import COLLECTIVES, TABLE_MULS, reset_collectives
+    from .ntt_dist import (COLLECTIVES, LAUNCHES, TABLE_MULS,
+                           reset_collectives)
 
     dev = pmesh.rank_device()
     t_case = time.perf_counter()
@@ -266,7 +267,8 @@ def _run_case(case: dict, job: dict, mesh, rank: int) -> dict:
     _fence(dev)
     res["collectives"] = dict(COLLECTIVES)
     res["table_muls"] = dict(TABLE_MULS)
-    res["launches"] = {k: v for k, v in ntt_mfa.LAUNCHES.items() if v}
+    res["launches"] = {k: v for k, v in {**ntt_mfa.LAUNCHES,
+                                         **LAUNCHES}.items() if v}
     if case.get("spans"):
         res["spans"] = _spans(fn, x, out, dev)
     if case.get("save"):

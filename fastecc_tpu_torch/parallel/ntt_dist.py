@@ -18,9 +18,13 @@ communication. The exchanges are ``all_to_all_single`` over the coeff
 axis's process group on an int32 view (Gloo refuses uint32); each is
 counted in :data:`COLLECTIVES`, where the reference counts all_to_all in
 the lowered HLO. The table multiplies (four-step twiddle, coset table,
-the decode's l(w^j), x*d/dx and Forney) are torch ops in int64 carriers,
-as the reference computes them in jnp outside any kernel, in row chunks
-that bound their temporaries; :data:`TABLE_MULS` counts them.
+the decode's l(w^j), x*d/dx and Forney, and the 1/N scale), which the
+reference computes in jnp outside any kernel, are one launch each of the
+hand-written ``csrc/table.cu`` on a CUDA tensor (u32 in and out, a table
+word a row), and on a CPU tensor the plain version: ``ntt.mul_prepared``'s
+torch ops in int64 carriers, in row chunks that bound their temporaries.
+:data:`TABLE_MULS` counts them on both routes, :data:`LAUNCHES` the
+kernel's launches.
 
 While a profiler records, :func:`ntt_sharded` and the codec's entries
 run inside a span ``fecc.dist.<name>``, an exchange's pack and launch
@@ -45,7 +49,10 @@ import torch.distributed as dist
 
 from .. import gf
 from ..fields import FieldSpec
-from ..ntt import _four_step_twiddles, _log2, mul_prepared, ntt_auto
+from ..interop import as_tensor
+from ..kernels import _build
+from ..ntt import (_four_step_twiddles, _log2, mul_prepared, ntt_auto,
+                   prepare_consts)
 from ..rs import _check_kn
 from ..utils import profiling
 from .mesh import rank_device
@@ -59,14 +66,19 @@ COLLECTIVES = {"all_to_all": 0, "all_to_all_bytes": 0}
 # reference's count.
 TABLE_MULS = {"mul_table": 0, "mul_table_elems": 0, "scale": 0}
 
-# Elements per torch-op table multiply: bounds its int64 temporaries
-# (~10 live carriers of 8 bytes an element).
+# Launches of ``csrc/table.cu`` (the card route of the table multiplies
+# and the 1/N), apart from ntt_mfa.LAUNCHES, whose keys are the kernels
+# the port's passes replace.
+LAUNCHES = {"mul_table": 0}
+
+# Elements per torch-op table multiply (the CPU route): bounds its int64
+# temporaries (~10 live carriers of 8 bytes an element).
 _MUL_CHUNK = 1 << 24
 
 
 def reset_collectives() -> None:
-    """Zero :data:`COLLECTIVES` and :data:`TABLE_MULS`."""
-    for counts in (COLLECTIVES, TABLE_MULS):
+    """Zero :data:`COLLECTIVES`, :data:`TABLE_MULS` and :data:`LAUNCHES`."""
+    for counts in (COLLECTIVES, TABLE_MULS, LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -89,7 +101,6 @@ def _coeff(mesh) -> tuple[int, int]:
 
 
 def _on_rank(x) -> torch.Tensor:
-    from ..interop import as_tensor
     return x if isinstance(x, torch.Tensor) else as_tensor(x, rank_device())
 
 
@@ -180,39 +191,109 @@ def _by_rows(y: torch.Tensor, fn) -> torch.Tensor:
     return _u32(out)
 
 
+def _on_card(y: torch.Tensor) -> bool:
+    """True for the kernel route (a CUDA tensor), False for the plain
+    version (a CPU tensor)."""
+    return y.device.type != "cpu"
+
+
+def _check_table(y: torch.Tensor, t: torch.Tensor) -> int:
+    """The rows of ``y`` (its leading axes flattened) once ``t`` is a
+    contiguous u32 table on y's device of a word a row, or of one word."""
+    lanes = y.shape[-1]
+    rows = y.numel() // lanes if lanes else 0
+    if (t.dtype != torch.uint32 or t.device != y.device
+            or not t.is_contiguous() or t.dim() != 1
+            or t.numel() not in (1, rows)):
+        raise ValueError(f"the table multiply takes a contiguous u32 table "
+                         f"of 1 or {rows} words on {y.device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return rows
+
+
+def _mul_rows(field: FieldSpec, y: torch.Tensor, t: torch.Tensor
+              ) -> torch.Tensor:
+    """One launch of ``csrc/table.cu`` on the card: y * t mod p, u32 in
+    and out, y's last axis the lanes and its other axes flattened into
+    rows; ``t`` a prepared u32 word for each row, or one word for every
+    row. It opens no span of its own: the caller's ``fecc.dist.mul_table``
+    or ``fecc.dist.scale`` launches it."""
+    y = _u32(y.view(torch.int32).contiguous())
+    rows = _check_table(y, t)
+    out = _u32(torch.empty_like(y.view(torch.int32)))
+    with torch.cuda.device(y.device):
+        _build.call("fecc_mul_table", 0 if field.use_mont else 1,
+                    y.data_ptr(), out.data_ptr(), rows, y.shape[-1],
+                    t.data_ptr(), int(t.numel() == rows),
+                    torch.cuda.current_stream(y.device).cuda_stream)
+    LAUNCHES["mul_table"] += 1
+    return out
+
+
+def _mul_plain(field: FieldSpec, y: torch.Tensor, t: torch.Tensor
+               ) -> torch.Tensor:
+    """The plain version of :func:`_mul_rows`: ``mul_prepared``'s torch
+    ops in int64 carriers over row chunks of y viewed [rows, lanes]."""
+    _check_table(y, t)
+    y2 = _u32(y.view(torch.int32).reshape(-1, y.shape[-1]))
+    tt = t.expand(y2.shape[0])
+    out = _by_rows(y2, lambda v, i0, i1: mul_prepared(field, v,
+                                                      tt[i0:i1, None]))
+    return _u32(out.view(torch.int32).reshape(y.shape))
+
+
 def _mul_table(field: FieldSpec, y: torch.Tensor, table: torch.Tensor
                ) -> torch.Tensor:
-    """y * table mod p (``table``: prepared, int64 carriers or u32,
-    broadcast over y's trailing axes; rows aligned with y's)."""
+    """y * table mod p: ``table`` a prepared u32 vector of a word for
+    each row of y's leading axes (:func:`_table_cols`, the decode's
+    [n/D] tables). On a card one kernel launch (:func:`_mul_rows`), on a
+    CPU tensor its plain version (:func:`_mul_plain`)."""
     with profiling.scope("fecc.dist.mul_table"):
         TABLE_MULS["mul_table"] += 1
         TABLE_MULS["mul_table_elems"] += y.numel()
-        return _by_rows(y, lambda v, i0, i1: mul_prepared(field, v,
-                                                          table[i0:i1]))
+        if _on_card(y):
+            return _mul_rows(field, y, table)
+        return _mul_plain(field, y, table)
+
+
+@functools.lru_cache(maxsize=64)
+def _inv_on(field: FieldSpec, n: int, device: str) -> torch.Tensor:
+    """1/n prepared for the table multiply: one u32 word on ``device``
+    (cached)."""
+    return as_tensor(prepare_consts(field, np.array([field.inv_host(n)])),
+                     device)
 
 
 def _scale(field: FieldSpec, y: torch.Tensor, n: int) -> torch.Tensor:
     with profiling.scope("fecc.dist.scale"):
         TABLE_MULS["scale"] += 1
+        if _on_card(y):
+            return _mul_rows(field, y, _inv_on(field, n, str(y.device)))
         inv_n = field.inv_host(n)
         return _by_rows(y, lambda v, i0, i1: gf.mul_const(field, v, inv_n))
 
 
 @functools.lru_cache(maxsize=64)
-def _table_on(build, args: tuple, device: str) -> torch.Tensor:
-    """The host table ``build(*args)`` as int64 carriers on ``device``
-    (cached; each rank slices its part on the device)."""
-    return gf.table(build(*args), device)
+def _table_cols(build, args: tuple, row, r_dim: int, cd: int, j: int,
+                device: str) -> torch.Tensor:
+    """Rank j's C slice of the host table ``build(*args)`` (its row
+    ``row`` unless None) viewed [R, C], as one contiguous u32 [R * C/D]
+    vector on ``device``: a word for each row of the multiplied
+    [R, C/D, L], the table :func:`_mul_table` takes (cached; nothing is
+    rebuilt a call)."""
+    t = np.asarray(build(*args))
+    t = t if row is None else t[row]
+    cut = t.reshape(r_dim, -1)[:, j * cd:(j + 1) * cd]
+    return as_tensor(np.ascontiguousarray(cut, np.uint32).reshape(-1),
+                     device)
 
 
 def _twiddle_cols(field: FieldSpec, n: int, c_dim: int, inverse: bool,
                   d: int, j: int, device) -> torch.Tensor:
-    """This rank's r columns of the four-step table w_N^(+-k_c * r):
-    [C, R/D, 1]."""
-    rd = n // c_dim // d
-    t = _table_on(_four_step_twiddles, (field.name, n, c_dim, inverse),
-                  str(device))
-    return t[:, j * rd:(j + 1) * rd, None]
+    """This rank's r columns of the four-step table w_N^(+-k_c * r), a
+    word for each of the [C, R/D] rows (:func:`_table_cols`)."""
+    return _table_cols(_four_step_twiddles, (field.name, n, c_dim, inverse),
+                       None, c_dim, n // c_dim // d, j, str(device))
 
 
 def _cols_of(table: torch.Tensor, r_dim: int, cd: int, d: int, j: int):
@@ -369,10 +450,9 @@ def encode_parity_sharded(data, field: FieldSpec, mesh,
     r_dim, cd = coeffs_t.shape[0], coeffs_t.shape[1]
     cosets = []
     for r in range(1, c):
-        tws = _table_on(_coset_twiddles_scaled, (field.name, n, k),
-                        str(coeffs_t.device))
-        prod = _mul_table(field, coeffs_t,
-                          _cols_of(tws[r - 1], r_dim, cd, d, j))
+        tws = _table_cols(_coset_twiddles_scaled, (field.name, n, k), r - 1,
+                          r_dim, cd, j, str(coeffs_t.device))
+        prod = _mul_table(field, coeffs_t, tws)
         cosets.append(ntt_sharded(prod, field, mesh,
                                   input_transposed=True).view(torch.int32))
     stacked = torch.stack(cosets, dim=1)                 # [k/D, c-1, L]
@@ -395,14 +475,15 @@ def decode_prepared_sharded(codeword, mask, l_eval_prep, lp_inv_prep,
     d, j = _coeff(mesh)
     n = cw.shape[0] * d
     mask, lp, ip = (_on_rank(t) for t in (mask, l_eval_prep, lp_inv_prep))
-    h_eval = _mul_table(field, cw, lp[:, None])
+    h_eval = _mul_table(field, cw, lp)
     h_coeffs_t = ntt_sharded(h_eval, field, mesh, inverse=True,
                              output_transposed=True)     # [R, C/D, L]
     r_dim, cd = h_coeffs_t.shape[0], h_coeffs_t.shape[1]
-    dx = _table_on(_xderiv_consts, (field.name, n), str(cw.device))
-    h_der_t = _mul_table(field, h_coeffs_t, _cols_of(dx, r_dim, cd, d, j))
+    dx = _table_cols(_xderiv_consts, (field.name, n), None, r_dim, cd, j,
+                     str(cw.device))
+    h_der_t = _mul_table(field, h_coeffs_t, dx)
     hp_eval = ntt_sharded(h_der_t, field, mesh, input_transposed=True)
-    recovered = _mul_table(field, hp_eval, ip[:, None])
+    recovered = _mul_table(field, hp_eval, ip)
     keep = (mask.view(torch.int32) == 1)[:, None]
     return _u32(torch.where(keep, recovered.view(torch.int32),
                             cw.view(torch.int32)))
