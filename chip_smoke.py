@@ -42,16 +42,10 @@ main path on the card and fails loudly on any fault. Phases:
                1024 u32 lanes (k = 2^19, 4 KB blocks), the first and the
                last 8 lanes (first and last lane tile of every pass)
                checked against the plain staged transforms; median of 5
-               timed calls; where build/parent holds an earlier checkout
-               of the package, its K3, K1 and K2 on the same tensors and
-               its K3 and K1 at the shapes the decode tables give them
-               (held equal and timed beside this tree's, in turns); then
-               a rate-1/4 encode (k = 2^18,
-               n = 2^20), the path that runs K4, checked the same way,
-               and the parent's K4 on its tensor;
+               timed calls; then a rate-1/4 encode (k = 2^18, n = 2^20),
+               the path that runs K4, checked the same way;
   5. ntt     — the 2^20-point forward NTT over 512 lanes, first and last
-               8 lanes checked against the plain staged transform; the
-               parent's K1 on its tensor, as in phase 4;
+               8 lanes checked against the plain staged transform;
   6. wire    — GF32 encode_blocks on 2^14 random 4 KB blocks, checked
                against encode_parity of the packed data, and its first
                and last 8 lanes (the ragged edge at 1088) against the
@@ -62,8 +56,7 @@ main path on the card and fails loudly on any fault. Phases:
                -> encode_parity on K1 -> K2 -> K3 -> serialize_parity) on
                every lane, with escapes present, and its first and last 8
                lanes against the plain staged transforms; median of 5 timed
-               calls (wire GB/s = n * B / time); the parent's K8, K9 and
-               K10 on their tensors, as in phase 4; then encode_blocks at
+               calls (wire GB/s = n * B / time); then encode_blocks at
                B = 4096, bytes against the generic route's;
   8. decode  — the reference bench's decode (bench.py:184): GF32,
                n = 2^20, k = 2^19, 512 lanes, the codeword from rs.encode
@@ -72,12 +65,7 @@ main path on the card and fails loudly on any fault. Phases:
                locator, timed), then decode_prepared (K5 -> K6 -> K7-sel)
                checked against the codeword on all 512 lanes, and the
                merge=False form (K7) at the erased rows; median of 5
-               timed calls; K3 timed on K7-sel's tensor beside it; where
-               build/parent holds an earlier checkout, its K5, K6, K7 and
-               K7-sel on the same tensors and at decode_blocks' 2^13 pair
-               shapes, and its K5 at the all-device decode's 2^13 single
-               transforms (held equal and timed beside this tree's, in
-               turns);
+               timed calls; K3 timed on K7-sel's tensor beside it;
   9. decode_small — BASELINE.json:10 as users meet it: the all-device
                decode at n = 2^13, e = 2^12, 1024 lanes; decode_blocks
                over exactly k of 2^13 4 KB blocks (data and parity mixed,
@@ -100,9 +88,7 @@ main path on the card and fails loudly on any fault. Phases:
                flag off (the three-pass route) on every lane, the batch and
                k = 2^13 also on their edge lanes against the plain staged
                transforms; median of 5 calls of both routes at each shape;
-               the parent's K11 on the batch's [2^10, 65536] and its K12
-               on the GF16 wire encode's pairs, as in phase 4; then each
-               route's kernels on 128 MiB at k = 2^10 .. 2^13
+               then each route's kernels on 128 MiB at k = 2^10 .. 2^13
                (GF32 and the GF16 wire pair), held equal and timed;
  12. errors  — unknown-position error correction: correct_errors on the
                full-width GF32 codeword (n = 2^20, 1024 lanes) with 16
@@ -142,16 +128,17 @@ main path on the card and fails loudly on any fault. Phases:
                to read one 4 KB block file there. The GF32 file is also
                halved while the disk's free space cannot hold ~6.5x it;
  14. mul_table — the sharded codec's table multiply (csrc/table.cu,
-               parallel.ntt_dist._mul_rows) at a rank's shape in the
+               kernels.table.mul_table) at a rank's shape in the
                four-card encode, [2^17, 8192] u32, in both fields, with
                p - 1 (GF16: 0x10000) and 0 planted in the words and the
                table: a table word a row (the four-step and coset form),
                the same rows 4 bytes past a 16-byte boundary (the one-word
                path) and the decode's 1/N (one word for every row), each
-               against its plain version (ntt_dist._mul_plain, the 1/N
-               against gf.mul_const) bit for bit; then _mul_table once as
-               the main-path run (one launch); each form timed beside
-               K13's copy of the same bytes, and the plain version;
+               against its plain version (table.mul_table_plain, the 1/N
+               against gf.mul_const) bit for bit; then ntt_dist's
+               _mul_table once as the main-path run (one launch); each
+               form timed beside K13's copy of the same bytes, and the
+               plain version;
  15. parallel — the sharded codec (fastecc_tpu_torch.parallel) on worlds
                of ranks sharing the card over Gloo (2x1, 4x1, 2x2; NCCL
                refuses two ranks of one communicator on one GPU) and a
@@ -191,10 +178,7 @@ main path on the card and fails loudly on any fault. Phases:
                its plain version (the 256 MiB and 1 GiB copies, every
                variant on 64 MiB at its default depth, every fused config
                on 64 row tiles), timed there, with torch's copy_ as K13's
-               library time (and, where build/parent holds an earlier
-               checkout, its K13, its K14 solinas, generic, raw-mul and
-               raw-add chains and its K15 at depths 2 and 4 beside this
-               tree's, in turns); and profiling.encode_roofline(2^20, 1024)
+               library time; and profiling.encode_roofline(2^20, 1024)
                under the published and the measured peaks beside phase
                encode's time.
 
@@ -215,7 +199,6 @@ package beside it.
 from __future__ import annotations
 
 import contextlib
-import functools
 import hashlib
 import json
 import subprocess
@@ -960,16 +943,17 @@ def run_path(name: str, fn, launches: dict, expect: tuple):
     """Run ``fn`` once with the counts reset just before and read just
     after; records them under ``name`` and fails unless every kernel in
     ``expect`` launched."""
-    from fastecc_tpu_torch.kernels import microbench, ntt_mfa
+    from fastecc_tpu_torch.kernels import microbench, ntt_mfa, table
     from fastecc_tpu_torch.parallel import ntt_dist
     torch.cuda.synchronize()
     ntt_mfa.reset_launches()
     microbench.reset_launches()
+    table.reset_launches()
     ntt_dist.reset_collectives()
     out = fn()
     torch.cuda.synchronize()
     launches[name] = {**ntt_mfa.LAUNCHES, **microbench.LAUNCHES,
-                      **ntt_dist.LAUNCHES}
+                      **table.LAUNCHES}
     say(f"[{name}] launches {launches[name]}")
     for k in expect:
         check(launches[name][k] > 0, f"{name} did not launch {k}")
@@ -1047,10 +1031,6 @@ def phase_encode(gen, launches, times, shapes):
     for kk in ("K1_col", "K2_seam", "K3_row"):
         say(f"[encode_r2] {kk} {times[kk]:.3f} ms on {shapes[kk]}, "
             f"plain {times['plain_' + kk]:.1f} ms")
-    parent_row_ms(col2)
-    parent_col_ms(x3, True, "encode_r2")
-    parent_seam_ms(col1, g)
-    parent_col_tables_ms()
     del data, x3, col1, col2
     torch.cuda.empty_cache()
 
@@ -1074,622 +1054,13 @@ def phase_encode(gen, launches, times, shapes):
         lambda x: m.col_pass_plain(x, GF32, pre_seed=g4), x4, 128)
     say(f"[encode_r4] K4_col_pre {times['K4_col_pre']:.3f} ms on "
         f"{shapes['K4_col_pre']}, plain {times['plain_K4_col_pre']:.1f} ms")
-    parent_col_pre_ms(x4, g4)
     del data, x4
     torch.cuda.empty_cache()
-
-
-@functools.lru_cache(maxsize=None)
-def parent_library():
-    """The kernel library of the earlier checkout of the package in
-    build/parent (as ``sass_check.py --compare build/parent`` wants it),
-    built there by its own ``_build``; None where there is none. The
-    argtypes are the parent commit's C signatures (K1-K10, K7-sel and K15
-    with the inner twiddles, K11 and K12 with the level and inner tables
-    of ``_lanes_tables_on``)."""
-    import ctypes
-    from pathlib import Path
-    root = Path(__file__).resolve().parent / "build" / "parent"
-    if not (root / "fastecc_tpu_torch" / "kernels" / "_build.py").exists():
-        return None
-    code = ("from fastecc_tpu_torch.kernels import _build; "
-            "print(_build.build().path)")
-    t0 = time.perf_counter()
-    lib = ctypes.CDLL(subprocess.run(
-        [sys.executable, "-c", code], cwd=root, check=True,
-        capture_output=True, text=True).stdout.strip().splitlines()[-1])
-    say(f"[parent] kernel library of build/parent built and loaded in "
-        f"{time.perf_counter() - t0:.1f} s")
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.fecc_row.argtypes = [I, P, P, I, I, I, I, P, P]
-    lib.fecc_col.argtypes = [I, P, P, I, I, I, I, P, P, P, I, P]
-    lib.fecc_seam.argtypes = [I, P, P, I, I, I, P, P, P, P, I, P, P, P]
-    lib.fecc_seam_vec.argtypes = [I, P, P, I, I, I, P, P, P, P, I, P, P]
-    lib.fecc_row_post_sel.argtypes = [I, P, P, I, I, I, I, P, P, P, P, P]
-    lib.fecc_col_pre.argtypes = [I, P, P, I, I, I, I, P, P, P, I, P, P, P]
-    lib.fecc_col_vec.argtypes = [I, P, P, I, I, I, I, P, P, P, I, P, P]
-    lib.fecc_copy.argtypes = [P, P, ctypes.c_longlong, P]
-    lib.fecc_chain.argtypes = [I, P, P, P, I, I, P]
-    lib.fecc_fused_chain.argtypes = [I, P, P, I, I, P, I, P]
-    lib.fecc_seam_wire16.argtypes = [I, P, P, I, I, I, P, P, P, P, I, P, P,
-                                     P]
-    lib.fecc_pair_lanes_wire16.argtypes = [I, P, P, P, I, I, P, P, P, P, P,
-                                           P]
-    lib.fecc_row_post.argtypes = [I, P, P, I, I, I, I, P, P, P]
-    lib.fecc_col_wire16.argtypes = [I, P, P, I, I, I, P, P, P, I, P]
-    # K10 (the forward inner twiddles) and K11 (lvl_i, lvl_f, tw_i, tw_f,
-    # mid)
-    lib.fecc_row_wire16.argtypes = [I, P, P, P, P, I, I, I, P, P]
-    lib.fecc_pair_lanes.argtypes = [I, P, P, I, I, P, P, P, P, P, P]
-    for fn in (lib.fecc_row, lib.fecc_col, lib.fecc_seam, lib.fecc_seam_vec,
-               lib.fecc_row_post_sel, lib.fecc_col_pre, lib.fecc_col_vec,
-               lib.fecc_copy, lib.fecc_chain, lib.fecc_fused_chain,
-               lib.fecc_seam_wire16, lib.fecc_pair_lanes_wire16,
-               lib.fecc_row_post, lib.fecc_col_wire16, lib.fecc_row_wire16,
-               lib.fecc_pair_lanes):
-        fn.restype = I
-    return lib
-
-
-def queued_ms(fn, reps: int = 20) -> float:
-    """Mean device time of ``fn()`` in ms over ``reps`` runs, queued behind
-    a spin kernel of a few ms so that the card runs them back to back: for
-    kernels shorter than their host launch cost, which ``event_ms`` would
-    time instead."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(5_000_000)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
-def turns(parent, this, timer, what: str) -> list[float]:
-    """The parent's kernel against this tree's: ``parent()`` and
-    ``this()`` return their outputs, held equal, then each is timed by
-    ``timer`` in turns parent, this, this, parent."""
-    check(torch.equal(parent(), this()), f"parent {what} != this {what}")
-    return [timer(f) for f in (parent, this, this, parent)]
-
-
-def parent_call(name: str, x: torch.Tensor, out: torch.Tensor, *args):
-    """A call of the parent library's C entry ``name`` on GF32 ``x`` into
-    ``out`` with ``args`` after (A, B, L), on the current stream."""
-    lib = parent_library()
-    a, b, lanes = x.shape
-
-    def call():
-        code = getattr(lib, name)(0, x.data_ptr(), out.data_ptr(), a, b,
-                                  lanes, *args,
-                                  torch.cuda.current_stream().cuda_stream)
-        check(code == 0, f"parent {name} returned {code}")
-        return out
-    return call
-
-
-def parent_row(y: torch.Tensor):
-    """The parent's K3 (``fecc_row``, forward, with the inner twiddles)."""
-    from fastecc_tpu_torch.fields import GF32
-    from fastecc_tpu_torch.kernels import ntt_mfa as m
-    tw = m._row_tw_on(GF32.name, y.shape[0], False, str(y.device))
-    return parent_call("fecc_row", y, torch.empty_like(y), 0, tw.data_ptr())
-
-
-def parent_col(x3: torch.Tensor, inverse: bool, scale: bool = True):
-    """The parent's K1 (``fecc_col`` with the inner twiddles) on
-    [C, R, L]."""
-    from fastecc_tpu_torch.fields import GF32
-    from fastecc_tpu_torch.kernels import ntt_mfa as m
-    c, r, lanes = x3.shape
-    dev = str(x3.device)
-    tr = m._seed_tr(r)
-    tw = m._row_tw_on(GF32.name, c, inverse, dev)
-    seed, t0 = m._seeds_on(GF32.name, c * r, c, inverse, scale, tr, dev)
-    out = torch.empty((r, c, lanes), dtype=torch.uint32, device=x3.device)
-    return parent_call("fecc_col", x3, out, int(inverse), tw.data_ptr(),
-                       seed.data_ptr(), t0.data_ptr(), tr)
-
-
-def parent_seam_tables(y1: torch.Tensor):
-    """(out, tr, seed, t0) of a seam over [R1, C1, L]."""
-    from fastecc_tpu_torch.fields import GF32
-    from fastecc_tpu_torch.kernels import ntt_mfa as m
-    r1, c1, lanes = y1.shape
-    tr = m._seed_tr(c1)
-    seed, t0 = m._seeds_on(GF32.name, r1 * c1, r1, False, False, tr,
-                           str(y1.device))
-    out = torch.empty((c1, r1, lanes), dtype=torch.uint32, device=y1.device)
-    return out, tr, seed, t0
-
-
-def parent_seam(y1: torch.Tensor, g: int):
-    """The parent's K2 (``fecc_seam`` with the inner twiddles) on
-    [R1, C1, L]."""
-    from fastecc_tpu_torch.fields import GF32
-    from fastecc_tpu_torch.kernels import ntt_mfa as m
-    r1, c1, _ = y1.shape
-    dev = str(y1.device)
-    out, tr, seed, t0 = parent_seam_tables(y1)
-    tw_inv = m._row_tw_on(GF32.name, r1, True, dev)
-    tw_fwd = m._row_tw_on(GF32.name, r1, False, dev)
-    pcol, prow = m._pre_on(GF32.name, g % GF32.p, r1, c1, tr, dev)
-    return parent_call("fecc_seam", y1, out, tw_inv.data_ptr(),
-                       tw_fwd.data_ptr(), seed.data_ptr(), t0.data_ptr(), tr,
-                       pcol.data_ptr(), prow.data_ptr())
-
-
-def parent_seam_vec(y1: torch.Tensor, vec: torch.Tensor):
-    """The parent's K6 (``fecc_seam_vec`` with the inner twiddles) on
-    [R1, C1, L]."""
-    from fastecc_tpu_torch.fields import GF32
-    from fastecc_tpu_torch.kernels import ntt_mfa as m
-    r1 = y1.shape[0]
-    dev = str(y1.device)
-    out, tr, seed, t0 = parent_seam_tables(y1)
-    tw_inv = m._row_tw_on(GF32.name, r1, True, dev)
-    tw_fwd = m._row_tw_on(GF32.name, r1, False, dev)
-    return parent_call("fecc_seam_vec", y1, out, tw_inv.data_ptr(),
-                       tw_fwd.data_ptr(), seed.data_ptr(), t0.data_ptr(), tr,
-                       vec.data_ptr())
-
-
-def parent_row_post_sel(y: torch.Tensor, vec: torch.Tensor,
-                        mask: torch.Tensor, orig: torch.Tensor):
-    """The parent's K7-sel (``fecc_row_post_sel`` with the inner
-    twiddles, forward) on [R, C, L]."""
-    from fastecc_tpu_torch.fields import GF32
-    from fastecc_tpu_torch.kernels import ntt_mfa as m
-    tw = m._row_tw_on(GF32.name, y.shape[0], False, str(y.device))
-    return parent_call("fecc_row_post_sel", y, torch.empty_like(y), 0,
-                       tw.data_ptr(), vec.data_ptr(), mask.data_ptr(),
-                       orig.data_ptr())
-
-
-def parent_row_post(y: torch.Tensor, vec: torch.Tensor):
-    """The parent's K7 (``fecc_row_post`` with the inner twiddles,
-    forward) on [R, C, L]."""
-    from fastecc_tpu_torch.fields import GF32
-    from fastecc_tpu_torch.kernels import ntt_mfa as m
-    tw = m._row_tw_on(GF32.name, y.shape[0], False, str(y.device))
-    return parent_call("fecc_row_post", y, torch.empty_like(y), 0,
-                       tw.data_ptr(), vec.data_ptr())
-
-
-def parent_col_pre_vec(x3: torch.Tensor, inverse: bool, scale: bool = True,
-                       g: int | None = None, vec: torch.Tensor | None = None):
-    """The parent's K4 (``fecc_col_pre``, with ``g``) or K5
-    (``fecc_col_vec``, with ``vec``), with the inner twiddles, on
-    [C, R, L]."""
-    from fastecc_tpu_torch.fields import GF32
-    from fastecc_tpu_torch.kernels import ntt_mfa as m
-    c, r, lanes = x3.shape
-    dev = str(x3.device)
-    tr = m._seed_tr(r)
-    tw = m._row_tw_on(GF32.name, c, inverse, dev)
-    seed, t0 = m._seeds_on(GF32.name, c * r, c, inverse, scale, tr, dev)
-    out = torch.empty((r, c, lanes), dtype=torch.uint32, device=x3.device)
-    args = [int(inverse), tw.data_ptr(), seed.data_ptr(), t0.data_ptr(), tr]
-    if vec is not None:
-        return parent_call("fecc_col_vec", x3, out, *args, vec.data_ptr())
-    pcol, prow = m._pre_on(GF32.name, g % GF32.p, c, r, tr, dev)
-    return parent_call("fecc_col_pre", x3, out, *args, pcol.data_ptr(),
-                       prow.data_ptr())
-
-
-def table_shapes(split) -> list[tuple]:
-    """The [A, B, L] views the decode tables give a pass at e = 2^19: the
-    product tree's 2^19-element transforms of 2^2 .. 2^19 points (``split``
-    of the order: (A, B)), the [2^20, 2] evaluation, decode_small's 2^13
-    points over 1024 lanes."""
-    return ([split(1 << t) + (1 << (19 - t),) for t in range(2, 20)]
-            + [split(1 << 20) + (2,), split(1 << 13) + (1024,)])
-
-
-def parent_row_ms(col2: torch.Tensor) -> None:
-    """Where build/parent holds an earlier checkout of the package, its K3
-    against this one in this process, in turns parent, this, this, parent,
-    each output held equal: on the encode's tensor (``event_ms``, as the
-    row is timed), and at the shapes the decode tables give K3
-    (``queued_ms``: these take microseconds). Printed for the record."""
-    from fastecc_tpu_torch.fields import GF32
-    from fastecc_tpu_torch.kernels import ntt_mfa as m
-    if parent_library() is None:
-        return
-    t = turns(parent_row(col2), lambda: m.row_pass(col2, GF32), event_ms,
-              "K3")
-    say(f"[encode_r2] K3 against the parent's fecc_row on the same "
-        f"{tuple(col2.shape)} tensor, parent / this / this / parent: "
-        f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
-    gen = torch.Generator(device=col2.device).manual_seed(6)
-    for shape in table_shapes(lambda n: (n // m._split(n), m._split(n))):
-        y = rand_field(GF32.p, shape, gen)
-        t = turns(parent_row(y), lambda: m.row_pass(y, GF32), queued_ms,
-                  "K3")
-        say(f"[encode_r2] K3 against the parent's fecc_row on {shape}, "
-            f"queued, parent / this / this / parent: {t[0] * 1e3:.2f} / "
-            f"{t[1] * 1e3:.2f} / {t[2] * 1e3:.2f} / {t[3] * 1e3:.2f} us")
-
-
-def parent_col_ms(x3: torch.Tensor, inverse: bool, phase: str) -> None:
-    """Where build/parent holds an earlier checkout, its K1 against this
-    one on ``x3`` (the path's own tensor), in turns parent, this, this,
-    parent (``event_ms``), outputs held equal; printed for the record."""
-    from fastecc_tpu_torch.fields import GF32
-    from fastecc_tpu_torch.kernels import ntt_mfa as m
-    if parent_library() is None:
-        return
-    t = turns(parent_col(x3, inverse),
-              lambda: m.col_pass(x3, GF32, inverse=inverse), event_ms, "K1")
-    say(f"[{phase}] K1 against the parent's fecc_col on the same "
-        f"{tuple(x3.shape)} tensor, parent / this / this / parent: "
-        f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
-
-
-def parent_seam_ms(col1: torch.Tensor, g: int) -> None:
-    """As :func:`parent_col_ms`, for K2 on the encode's tensor."""
-    from fastecc_tpu_torch.fields import GF32
-    from fastecc_tpu_torch.kernels import ntt_mfa as m
-    if parent_library() is None:
-        return
-    t = turns(parent_seam(col1, g), lambda: m.seam_pass(col1, GF32, g),
-              event_ms, "K2")
-    say(f"[encode_r2] K2 against the parent's fecc_seam on the same "
-        f"{tuple(col1.shape)} tensor, parent / this / this / parent: "
-        f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
-
-
-def parent_col_pre_ms(x4: torch.Tensor, g: int) -> None:
-    """As :func:`parent_col_ms`, for K4 (forward) on the rate-1/4
-    encode's tensor."""
-    from fastecc_tpu_torch.fields import GF32
-    from fastecc_tpu_torch.kernels import ntt_mfa as m
-    if parent_library() is None:
-        return
-    t = turns(parent_col_pre_vec(x4, False, g=g),
-              lambda: m.col_pass_pre(x4, GF32, g), event_ms, "K4")
-    say(f"[encode_r4] K4 against the parent's fecc_col_pre on the same "
-        f"{tuple(x4.shape)} tensor, parent / this / this / parent: "
-        f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
-
-
-def parent_decode_ms(x3, lp, col1, col2, dx, ip, mask, orig) -> None:
-    """Where build/parent holds an earlier checkout, its K5, K6, K7-sel and
-    K7 against this tree's, in turns parent, this, this, parent, outputs
-    held equal: on the decode's own tensors (``event_ms``), at decode_blocks'
-    2^13 pair shapes over 1024 lanes and K5 at the all-device decode's
-    2^13 single transforms, both directions (``queued_ms``, with random
-    tables and a mask about half set). Printed for the record."""
-    from fastecc_tpu_torch.fields import GF32
-    from fastecc_tpu_torch.kernels import ntt_mfa as m
-    if parent_library() is None:
-        return
-    t = turns(parent_col_pre_vec(x3, True, vec=lp), lambda: m.col_pass_vec(
-        x3, GF32, lp, inverse=True), event_ms, "K5")
-    say(f"[decode] K5 against the parent's fecc_col_vec on the same "
-        f"{tuple(x3.shape)} tensor, parent / this / this / parent: "
-        f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
-    t = turns(parent_seam_vec(col1, dx), lambda: m.seam_pass_vec(
-        col1, GF32, dx), event_ms, "K6")
-    say(f"[decode] K6 against the parent's fecc_seam_vec on the same "
-        f"{tuple(col1.shape)} tensor, parent / this / this / parent: "
-        f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
-    t = turns(parent_row_post_sel(col2, ip, mask, orig),
-              lambda: m.row_pass_post(col2, GF32, ip, mask, orig), event_ms,
-              "K7-sel")
-    say(f"[decode] K7-sel against the parent's fecc_row_post_sel on the "
-        f"same {tuple(col2.shape)} tensor, parent / this / this / parent: "
-        f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
-    t = turns(parent_row_post(col2, ip),
-              lambda: m.row_pass_post(col2, GF32, ip), event_ms, "K7")
-    say(f"[decode] K7 against the parent's fecc_row_post on the same "
-        f"{tuple(col2.shape)} tensor, parent / this / this / parent: "
-        f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
-    gen = torch.Generator(device="cuda").manual_seed(8)
-    n, lanes = 1 << 13, 1024
-    c1 = m._pair_split(n)
-    v = rand_field(GF32.p, (n,), gen)
-    mk = torch.randint(0, 2, (n,), dtype=torch.int32, device="cuda",
-                       generator=gen).view(torch.uint32)
-    y1 = rand_field(GF32.p, (n // c1, c1, lanes), gen)
-    t = turns(parent_seam_vec(y1, v), lambda: m.seam_pass_vec(y1, GF32, v),
-              queued_ms, "K6")
-    say(f"[decode] K6 against the parent's fecc_seam_vec on "
-        f"{tuple(y1.shape)}, queued, parent / this / this / parent: "
-        f"{t[0] * 1e3:.2f} / {t[1] * 1e3:.2f} / {t[2] * 1e3:.2f} / "
-        f"{t[3] * 1e3:.2f} us")
-    y2 = rand_field(GF32.p, (c1, n // c1, lanes), gen)
-    o = rand_field(GF32.p, (c1, n // c1, lanes), gen)
-    t = turns(parent_row_post_sel(y2, v, mk, o),
-              lambda: m.row_pass_post(y2, GF32, v, mk, o), queued_ms,
-              "K7-sel")
-    say(f"[decode] K7-sel against the parent's fecc_row_post_sel on "
-        f"{tuple(y2.shape)}, queued, parent / this / this / parent: "
-        f"{t[0] * 1e3:.2f} / {t[1] * 1e3:.2f} / {t[2] * 1e3:.2f} / "
-        f"{t[3] * 1e3:.2f} us")
-    # K5 at the pair's A1 (the input of K6's shape above), then at the
-    # all-device decode's single transforms: inverse, then forward, on
-    # [C, R, L] = _split(2^13)
-    x5 = rand_field(GF32.p, (c1, n // c1, lanes), gen)
-    t = turns(parent_col_pre_vec(x5, True, vec=v), lambda: m.col_pass_vec(
-        x5, GF32, v, inverse=True), queued_ms, "K5")
-    say(f"[decode] K5 against the parent's fecc_col_vec on "
-        f"{tuple(x5.shape)} inverse, queued, parent / this / this / parent: "
-        f"{t[0] * 1e3:.2f} / {t[1] * 1e3:.2f} / {t[2] * 1e3:.2f} / "
-        f"{t[3] * 1e3:.2f} us")
-    c = m._split(n)
-    xs = rand_field(GF32.p, (c, n // c, lanes), gen)
-    for inv in (True, False):
-        t = turns(parent_col_pre_vec(xs, inv, vec=v),
-                  lambda: m.col_pass_vec(xs, GF32, v, inverse=inv),
-                  queued_ms, "K5")
-        say(f"[decode] K5 against the parent's fecc_col_vec on "
-            f"{tuple(xs.shape)}{' inverse' if inv else ' forward'}, queued, "
-            f"parent / this / this / parent: {t[0] * 1e3:.2f} / "
-            f"{t[1] * 1e3:.2f} / {t[2] * 1e3:.2f} / {t[3] * 1e3:.2f} us")
-
-
-def parent_col_tables_ms() -> None:
-    """Where build/parent holds an earlier checkout, its K1 against this
-    one at the shapes the decode tables give K1 (``queued_ms``), each
-    shape forward and scaled inverse, outputs held equal, summed as the
-    tables launch them (per tree level two forward and one inverse; the
-    evaluation forward; at 2^13 one of each)."""
-    from fastecc_tpu_torch.fields import GF32
-    from fastecc_tpu_torch.kernels import ntt_mfa as m
-    if parent_library() is None:
-        return
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    shapes = table_shapes(lambda n: (m._split(n), n // m._split(n)))
-    counts = [(2, 1)] * 18 + [(1, 0), (1, 1)]
-    total = [0.0] * 4
-    for shape, (n_fwd, n_inv) in zip(shapes, counts):
-        x = rand_field(GF32.p, shape, gen)
-        for inv, count in ((False, n_fwd), (True, n_inv)):
-            if not count:
-                continue
-            t = turns(parent_col(x, inv),
-                      lambda: m.col_pass(x, GF32, inverse=inv), queued_ms,
-                      "K1")
-            total = [a + count * b for a, b in zip(total, t)]
-            say(f"[encode_r2] K1 against the parent's fecc_col on {shape}"
-                f"{' inverse' if inv else ''}, queued, parent / this / this "
-                f"/ parent: {t[0] * 1e3:.2f} / {t[1] * 1e3:.2f} / "
-                f"{t[2] * 1e3:.2f} / {t[3] * 1e3:.2f} us")
-    say(f"[encode_r2] K1 at the decode tables' shapes, summed over "
-        f"{sum(a + b for a, b in counts)} launches, parent / this / this / "
-        f"parent: {total[0]:.4f} / {total[1]:.4f} / {total[2]:.4f} / "
-        f"{total[3]:.4f} ms")
-
-
-def parent_copy_ms(src: torch.Tensor, dst: torch.Tensor) -> None:
-    """Where build/parent holds an earlier checkout, its K13 kernel against
-    this one, both called straight through the library into ``dst``, in
-    turns parent, this, this, parent (``event_ms``); printed for the
-    record."""
-    from fastecc_tpu_torch.kernels import _build
-    lib = parent_library()
-    if lib is None:
-        return
-
-    def parent():
-        code = lib.fecc_copy(src.data_ptr(), dst.data_ptr(), src.numel(),
-                             torch.cuda.current_stream().cuda_stream)
-        check(code == 0, f"parent fecc_copy returned {code}")
-
-    def this():
-        _build.call("fecc_copy", src.data_ptr(), dst.data_ptr(), src.numel(),
-                    torch.cuda.current_stream().cuda_stream)
-
-    parent()
-    check(torch.equal(dst, src), "parent K13 != clone")
-    t = [event_ms(f) for f in (parent, this, this, parent)]
-    say(f"[peaks] {src.numel() * 4 >> 20} MiB copy, K13 kernels into one "
-        f"output, parent / this / this / parent: {t[0]:.4f} / {t[1]:.4f} / "
-        f"{t[2]:.4f} / {t[3]:.4f} ms")
-
-
-def parent_peaks_ms(x: torch.Tensor, z: torch.Tensor,
-                    xf: torch.Tensor) -> None:
-    """Where build/parent holds an earlier checkout, its K14 (the solinas,
-    generic, raw-mul and raw-add chains at depth 128 on [rows, 128] x, z)
-    and K15 (GF32 on xf [c, rows, 128] at depths 2 and 4) against this
-    tree's, both called straight through their libraries into one output
-    each, held equal, in turns parent, this, this, parent (``event_ms``);
-    printed for the record."""
-    from fastecc_tpu_torch.fields import GF32
-    from fastecc_tpu_torch.kernels import _build
-    from fastecc_tpu_torch.kernels import microbench as mb
-    from fastecc_tpu_torch.kernels import ntt_mfa as m
-    lib = parent_library()
-    if lib is None:
-        return
-    stream = torch.cuda.current_stream().cuda_stream
-    out, out_p = torch.empty_like(x), torch.empty_like(x)
-    for v in ("solinas", "generic", "raw-mul", "raw-add"):
-        code = mb._VARIANT_CODE[v]
-
-        def parent():
-            rc = lib.fecc_chain(code, x.data_ptr(), z.data_ptr(),
-                                out_p.data_ptr(), x.shape[0], 128, stream)
-            check(rc == 0, f"parent fecc_chain returned {rc}")
-            return out_p
-
-        def this():
-            _build.call("fecc_chain", code, x.data_ptr(), z.data_ptr(),
-                        out.data_ptr(), x.shape[0], 128, stream)
-            return out
-        t = turns(parent, this, event_ms, f"K14 {v}")
-        say(f"[peaks] K14 {v} [{x.shape[0]}, 128] depth 128, parent / this "
-            f"/ this / parent: {t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / "
-            f"{t[3]:.4f} ms")
-    del out, out_p
-    c, lanes = xf.shape[0], xf.numel() // xf.shape[0]
-    dev = str(xf.device)
-    inner = m._row_tw_on(GF32.name, c, False, dev)
-    out, out_p = torch.empty_like(xf), torch.empty_like(xf)
-    for depth in (2, 4):
-        def parent():
-            rc = lib.fecc_fused_chain(0, xf.data_ptr(), out_p.data_ptr(), c,
-                                      lanes, inner.data_ptr(), depth, stream)
-            check(rc == 0, f"parent fecc_fused_chain returned {rc}")
-            return out_p
-
-        def this():
-            _build.call("fecc_fused_chain", 0, xf.data_ptr(),
-                        out.data_ptr(), c, lanes, inner.data_ptr(), depth,
-                        stream)
-            return out
-        t = turns(parent, this, event_ms, f"K15 depth {depth}")
-        say(f"[peaks] K15 GF32 {list(xf.shape)} depth {depth}, parent / "
-            f"this / this / parent: {t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / "
-            f"{t[3]:.4f} ms")
-
-
-def parent_wire16_ms(x3: torch.Tensor, h1: torch.Tensor, h2: torch.Tensor,
-                     g: int) -> None:
-    """Where build/parent holds an earlier checkout, its K8, K9 and K10
-    (each with the inner twiddles) against this tree's on the wire16
-    phase's tensors (the pairs, then each pass's [2, ...] input), outputs
-    held equal, in turns parent, this, this, parent (``event_ms``);
-    printed for the record."""
-    from fastecc_tpu_torch.fields import GF16
-    from fastecc_tpu_torch.kernels import ntt_mfa as m
-    lib = parent_library()
-    if lib is None:
-        return
-    dev = str(h1.device)
-    stream = torch.cuda.current_stream().cuda_stream
-    c, r, lanes = x3.shape
-    tr = m._seed_tr(r)
-    tw = m._row_tw_on(GF16.name, c, True, dev)
-    seed, t0 = m._seeds_on(GF16.name, c * r, c, True, True, tr, dev)
-    out8 = torch.empty((2, r, c, lanes), dtype=torch.uint32, device=dev)
-
-    def parent8():
-        code = lib.fecc_col_wire16(
-            1, x3.data_ptr(), out8.data_ptr(), c, r, lanes, tw.data_ptr(),
-            seed.data_ptr(), t0.data_ptr(), tr, stream)
-        check(code == 0, f"parent fecc_col_wire16 returned {code}")
-        return out8
-    t = turns(parent8, lambda: m.col_pass_wire16(x3, GF16), event_ms, "K8")
-    say(f"[wire16] K8 against the parent's fecc_col_wire16 on the same "
-        f"{tuple(x3.shape)} pairs, parent / this / this / parent: "
-        f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
-    _, r1, c1, _ = h1.shape
-    tr = m._seed_tr(c1)
-    tw_inv = m._row_tw_on(GF16.name, r1, True, dev)
-    tw_fwd = m._row_tw_on(GF16.name, r1, False, dev)
-    seed, t0 = m._seeds_on(GF16.name, r1 * c1, r1, False, False, tr, dev)
-    pcol, prow = m._pre_on(GF16.name, g % GF16.p, r1, c1, tr, dev)
-    out9 = torch.empty((2, c1, r1, lanes), dtype=torch.uint32, device=dev)
-
-    def parent9():
-        code = lib.fecc_seam_wire16(
-            1, h1.data_ptr(), out9.data_ptr(), r1, c1, lanes,
-            tw_inv.data_ptr(), tw_fwd.data_ptr(), seed.data_ptr(),
-            t0.data_ptr(), tr, pcol.data_ptr(), prow.data_ptr(), stream)
-        check(code == 0, f"parent fecc_seam_wire16 returned {code}")
-        return out9
-    t = turns(parent9, lambda: m.seam_pass_wire16(h1, GF16, g), event_ms,
-              "K9")
-    say(f"[wire16] K9 against the parent's fecc_seam_wire16 on the same "
-        f"{tuple(h1.shape)} tensor, parent / this / this / parent: "
-        f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
-    _, r2, c2, _ = h2.shape
-    tw = m._row_tw_on(GF16.name, r2, False, dev)
-    stored = torch.empty((r2 * c2, lanes), dtype=torch.uint32, device=dev)
-    bitmap = torch.empty((r2 * c2, lanes // 8), dtype=torch.uint32,
-                         device=dev)
-
-    def parent10():
-        code = lib.fecc_row_wire16(
-            1, h2[0].data_ptr(), h2[1].data_ptr(), stored.data_ptr(),
-            bitmap.data_ptr(), r2, c2, lanes, tw.data_ptr(), stream)
-        check(code == 0, f"parent fecc_row_wire16 returned {code}")
-        return stored, bitmap
-
-    def this10():
-        return m.wire16_pass_b2(h2[0], h2[1], GF16)
-    check(same(parent10(), this10()), "parent K10 != this K10")
-    t = [event_ms(f) for f in (parent10, this10, this10, parent10)]
-    say(f"[wire16] K10 against the parent's fecc_row_wire16 on the same "
-        f"{tuple(h2.shape)} tensor, parent / this / this / parent: "
-        f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
-
-
-def parent_lanes_wire16_ms(words: torch.Tensor, g: int) -> None:
-    """As :func:`parent_wire16_ms`, for K12 (``fecc_pair_lanes_wire16``
-    with its level and inner twiddles) on the lanes phase's [k, Wu] pairs:
-    both parts held equal, the parent's and this tree's calls timed in
-    turns."""
-    from fastecc_tpu_torch.fields import GF16
-    from fastecc_tpu_torch.kernels import ntt_mfa as m
-    lib = parent_library()
-    if lib is None:
-        return
-    k, wu = words.shape
-    tables = [None if t is None else t.data_ptr() for t in
-              m._lanes_tables_on(GF16.name, k, g % GF16.p,
-                                 m.K12_TWO_EXCHANGE_K, str(words.device))]
-    stored = torch.empty_like(words)
-    bitmap = torch.empty((k, wu // 8), dtype=torch.uint32,
-                         device=words.device)
-
-    def parent():
-        code = lib.fecc_pair_lanes_wire16(
-            1, words.data_ptr(), stored.data_ptr(), bitmap.data_ptr(), k, wu,
-            *tables, torch.cuda.current_stream().cuda_stream)
-        check(code == 0, f"parent fecc_pair_lanes_wire16 returned {code}")
-        return stored, bitmap
-
-    def this():
-        return m.ntt_pair_lanes_wire16(words, GF16, g)
-    check(same(parent(), this()), "parent K12 != this K12")
-    t = [event_ms(f) for f in (parent, this, this, parent)]
-    say(f"[lanes_wire16] K12 against the parent's fecc_pair_lanes_wire16 on "
-        f"the same {tuple(words.shape)} pairs, parent / this / this / "
-        f"parent: {t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
-
-
-def parent_lanes_ms(flat: torch.Tensor, g: int) -> None:
-    """As :func:`parent_wire16_ms`, for K11 (``fecc_pair_lanes`` with its
-    level and inner tables) on the lanes phase's GF32 [2^10, 65536]: the
-    outputs held equal, the parent's and this tree's calls timed in
-    turns."""
-    from fastecc_tpu_torch.fields import GF32
-    from fastecc_tpu_torch.kernels import ntt_mfa as m
-    lib = parent_library()
-    if lib is None:
-        return
-    k, lanes = flat.shape
-    dev = str(flat.device)
-    tables = [None if t is None else t.data_ptr() for t in
-              m._lanes_tables_on(GF32.name, k, g % GF32.p,
-                                 m.K11_TWO_EXCHANGE_K, dev)]
-    out = torch.empty_like(flat)
-
-    def parent():
-        code = lib.fecc_pair_lanes(
-            0, flat.data_ptr(), out.data_ptr(), k, lanes, *tables,
-            torch.cuda.current_stream().cuda_stream)
-        check(code == 0, f"parent fecc_pair_lanes returned {code}")
-        return out
-    t = turns(parent, lambda: m.ntt_pair_lanes(flat, GF32, g), event_ms,
-              "K11")
-    say(f"[lanes] K11 against the parent's fecc_pair_lanes on the same "
-        f"{tuple(flat.shape)} tensor, parent / this / this / parent: "
-        f"{t[0]:.4f} / {t[1]:.4f} / {t[2]:.4f} / {t[3]:.4f} ms")
 
 
 def phase_ntt(gen, launches, times):
     from fastecc_tpu_torch import ntt
     from fastecc_tpu_torch.fields import GF32
-    from fastecc_tpu_torch.kernels import ntt_mfa as m
     from fastecc_tpu_torch.utils.timer import median, time_samples
 
     n, lanes = 1 << 20, 512
@@ -1704,8 +1075,6 @@ def phase_ntt(gen, launches, times):
     say(f"[ntt] 2^20 x 512 median {times['ntt_s'] * 1e3:.3f} ms of "
         f"{[round(s * 1e3, 3) for s in samples]}")
     profile_once(lambda: ntt.ntt_auto(x, GF32), "ntt")
-    c = m._split(n)
-    parent_col_ms(x.reshape(c, n // c, lanes), False, "ntt")
     del x
     torch.cuda.empty_cache()
 
@@ -1831,7 +1200,6 @@ def phase_wire16(gen, launches, times, shapes):
     for kk in WIRE16:
         say(f"[wire16] {kk} {times[kk]:.3f} ms on {shapes[kk]} per half, "
             f"plain {times['plain_' + kk]:.1f} ms")
-    parent_wire16_ms(x3, h1, h2, g)
     del x3, h1, h2
 
     # encode_blocks, bytes in and out, at the default 4 KB wire format
@@ -1946,7 +1314,6 @@ def phase_decode(gen, launches, times, shapes):
     say(f"[decode] K3 / K7-sel / K7-sel / K3 on the same "
         f"{tuple(col2.shape)} tensor: {t[0]:.4f} / {t[1]:.4f} / "
         f"{t[2]:.4f} / {t[3]:.4f} ms")
-    parent_decode_ms(x3, lp, col1, col2, dx, ip, mask, orig)
     del cw, bad, x3, orig, col1, col2, tabs, mask, lp, ip
     torch.cuda.empty_cache()
 
@@ -2180,7 +1547,6 @@ def phase_lanes(gen, launches, times, shapes):
         f"{shapes['K11_pair_lanes']} (K1 -> K2 -> K3: "
         f"{times['lanes_kernels_3pass']:.4f} ms), plain "
         f"{times['plain_K11_pair_lanes']:.1f} ms")
-    parent_lanes_ms(flat, g)
     del batch, flat
 
     # GF32 at the top of the gate
@@ -2228,7 +1594,6 @@ def phase_lanes(gen, launches, times, shapes):
         f"{times['K12_pair_lanes_wire16']:.4f} ms on "
         f"{shapes['K12_pair_lanes_wire16']}, plain "
         f"{times['plain_K12_pair_lanes_wire16']:.1f} ms")
-    parent_lanes_wire16_ms(words, g16)
 
     # GF16 encode_blocks at BASELINE.json:9: 2^14 blocks of 4 KB (k = 2^13),
     # against the generic route; the generic route with the flag on runs
@@ -2798,6 +2163,7 @@ def phase_mul_table(gen, launches, times, shapes, worst) -> None:
     from fastecc_tpu_torch import gf
     from fastecc_tpu_torch.fields import GF16, GF32
     from fastecc_tpu_torch.kernels import microbench as mb
+    from fastecc_tpu_torch.kernels import table as tk
     from fastecc_tpu_torch.parallel import ntt_dist as nd
 
     rows, lanes = 1 << 17, 8192
@@ -2806,33 +2172,35 @@ def phase_mul_table(gen, launches, times, shapes, worst) -> None:
     for field in (GF32, GF16):
         y = edge_field(field.p, (rows, lanes), gen)
         t = edge_field(field.p, (rows,), gen)
-        compare(worst, "mul_table", nd._mul_rows(field, y, t),
-                nd._mul_plain(field, y, t), (field.name, "a word a row"))
+        compare(worst, "mul_table", tk.mul_table(field, y, t),
+                tk.mul_table_plain(field, y, t), (field.name, "a word a row"))
         inv = nd._inv_on(field, n, "cuda")
-        want = nd._by_rows(y, lambda v, i0, i1: gf.mul_const(
+        want = tk._by_rows(y, lambda v, i0, i1: gf.mul_const(
             field, v, field.inv_host(n)))
-        compare(worst, "mul_table", nd._mul_rows(field, y, inv), want,
+        compare(worst, "mul_table", tk.mul_table(field, y, inv), want,
                 (field.name, "1/N"))
         del want
         buf = torch.empty(rows * lanes + 4, dtype=torch.int32, device="cuda")
         ys = buf[1:1 + rows * lanes].view(torch.uint32).reshape(rows, lanes)
         ys.view(torch.int32).copy_(y.view(torch.int32))
         check(ys.data_ptr() % 16 == 4, "the misaligned view's offset")
-        compare(worst, "mul_table", nd._mul_rows(field, ys, t),
-                nd._mul_plain(field, ys, t), (field.name, "one-word path"))
+        compare(worst, "mul_table", tk.mul_table(field, ys, t),
+                tk.mul_table_plain(field, ys, t),
+                (field.name, "one-word path"))
         torch.cuda.empty_cache()
         if field is GF32:
             run_path("mul_table", lambda: nd._mul_table(field, y, t),
                      launches, ("mul_table",))
             check(launches["mul_table"]["mul_table"] == 1,
                   "_mul_table launched the kernel once")
-        ms = {"kernel": event_ms(lambda: nd._mul_rows(field, y, t), 20),
-              "one_word": event_ms(lambda: nd._mul_rows(field, ys, t), 20),
-              "scale": event_ms(lambda: nd._mul_rows(field, y, inv), 20),
+        ms = {"kernel": event_ms(lambda: tk.mul_table(field, y, t), 20),
+              "one_word": event_ms(lambda: tk.mul_table(field, ys, t), 20),
+              "scale": event_ms(lambda: tk.mul_table(field, y, inv), 20),
               "copy": event_ms(lambda: mb.copy(y), 20)}
         del buf, ys
         torch.cuda.empty_cache()
-        ms["plain"] = event_ms(lambda: nd._mul_plain(field, y, t), reps=2)
+        ms["plain"] = event_ms(lambda: tk.mul_table_plain(field, y, t),
+                               reps=2)
         b_ms, _ = bound("mul_table", field, (rows, lanes))
         say(f"[mul_table] {field.name} [{rows}, {lanes}] == plain (a word "
             f"a row, 1/N, one-word path); ms: "
@@ -3177,8 +2545,7 @@ def phase_peaks(gen, launches, times, shapes, worst):
 
     # Each kernel again at the main path's shapes, against its plain
     # version, then timed there for its row. K13 on the 256 MiB and 1 GiB
-    # copies (a grid over the whole array), beside torch's copy_ and, where
-    # build/parent holds an earlier checkout, its K13
+    # copies (a grid over the whole array), beside torch's copy_
     for mib in (256, 1024):
         src = torch.arange(mib << 18, dtype=torch.int32,
                            device="cuda").view(torch.uint32)
@@ -3189,7 +2556,6 @@ def phase_peaks(gen, launches, times, shapes, worst):
         say(f"[peaks] {mib} MiB copy: K13 {k13:.4f} ms "
             f"({2 * src.numel() * 4 / k13 / 1e6:.1f} GB/s), copy_ "
             f"{lib:.4f} ms ({2 * src.numel() * 4 / lib / 1e6:.1f} GB/s)")
-        parent_copy_ms(src, dst)
     times["K13_copy"], times["library_K13_copy"] = k13, lib
     times["plain_K13_copy"] = event_ms(lambda: src.clone())
     shapes["K13_copy"] = (src.numel(),)
@@ -3206,9 +2572,7 @@ def phase_peaks(gen, launches, times, shapes, worst):
     times["plain_K14_chain"] = event_ms(
         lambda: mb.chain_plain(x, z, "solinas", 128), reps=1)
     shapes["K14_chain"] = (rows, mb._TL, 128)
-    xf = mb.fused_inputs(GF32, 2048, 64, "cuda")
-    parent_peaks_ms(x, z, xf)
-    del x, z, xf
+    del x, z
     # K15: every fused config at 64 row tiles and depth 2, against the
     # plain chain over 32-lane slices; the row is fused_gf32_c2048
     for key, cfg in mb._FUSED_CONFIGS.items():

@@ -86,7 +86,7 @@
 // both halves: measured against the half in the grid (a block a half, a
 // column's two blocks side by side, the second tile read from L2), it
 // took 16% less time at the wire encode's [64, 128, 16384] and 9% less
-// at [128, 256, 4096] (pass_options.py). It holds twice the elements a
+// at [128, 256, 4096] (option sweep). It holds twice the elements a
 // thread (34 registers at C1 = 64, 64 at 128; 120-128 from 512 on, one
 // block an SM, where the wire gate, C1 <= 128, never goes). It moves 4 bytes a pair in and 8 out
 // (1.5 GiB at that shape); its first version (a mode of ntt_mfa.cu's

@@ -81,7 +81,7 @@ __device__ __forceinline__ uint32_t mul_generic(uint32_t a, uint32_t b) {
 // operand (the butterflies' compile-time twiddles) folds into the
 // multiply: with it inside the asm block ptxas gave the seams K2 and K6
 // 66 and 80 registers at A = 1024, one 512-thread block an SM, and they
-// ran 16-21% slower. Forms weighed on the H100 (chain_options.py and the
+// ran 16-21% slower. Forms weighed on the H100 (sweeps of K14's steps and the
 // passes, PERF.md section 6): this select won against d + k * (2^32 - p)
 // as a multiply-add, funnel shifts and plain C.
 // Two ptxas 12.8 behaviours shaped it: subc after add.cc subtracts

@@ -85,7 +85,7 @@ int log2_exact(int v) {
 // 2^12 = 16 * 16 * 16, 2^11 = 16 * 16 * 8), so that no thread holds more
 // than 32 elements. K11's one-exchange form at 2^11 (64 elements a
 // thread) ran 19% (GF32) and 23% (GF16) slower than the split; K12's ran
-// 8% faster (lanes_options.py, PERF.md section 6). kernels/ntt_mfa.py
+// 8% faster (option sweep, PERF.md section 6). kernels/ntt_mfa.py
 // K11_TWO_EXCHANGE_K and K12_TWO_EXCHANGE_K build the tables for it.
 constexpr int kTwoExchangeLog = 12;
 constexpr int kTwoExchangeLogK11 = 11;
@@ -93,7 +93,7 @@ constexpr int kTwoExchangeLogK11 = 11;
 // 1024 threads at 2^12 and 2^13 (512 at 2^11), 16-byte row segments; K12
 // ran TL = 2 22-26% slower. K11 in GF32 at 2^13 holds kNarrowTL = 2: its
 // 1024-thread block spilled 304 bytes at 64 registers, 512 threads ran
-// 17% faster (lanes_options.py).
+// 17% faster (option sweep).
 constexpr int kTwoExchangeTL = 4;
 constexpr int kNarrowTL = 2;
 constexpr int kMaxLog = 13;
@@ -142,7 +142,7 @@ struct LanesShape {
   static constexpr int kSmemWords = kExchWords + 2 * kTwWords;
   // K12: the one-exchange form held to two blocks an SM (ptxas took 66
   // registers at 2^9 and 103 at 2^11 unasked; held, 64 and 128), the
-  // two-exchange form to one (lanes_options.py, PERF.md).
+  // two-exchange form to one (option sweep, PERF.md).
   static constexpr int kMinBlocks = kTwo ? 1 : 2;
 };
 
@@ -314,7 +314,7 @@ __device__ __forceinline__ void pair_lanes(const LanesArgs& p) {
 // threads) it ran 17% (GF32) and 11% (GF16) faster than held to one block
 // an SM, and within 2% either way at 2^12 and 2^13. The one-exchange form
 // is held to two blocks an SM: unasked, ptxas' choice ran 13-17% slower in
-// GF32 at 2^9 and 2^10 (lanes_options.py).
+// GF32 at 2^9 and 2^10 (option sweep).
 template <int F, int LA>
 __global__ void __launch_bounds__(LanesShape<F, LA, false>::kThreads)
     pair_lanes_kernel(LanesArgs p) {

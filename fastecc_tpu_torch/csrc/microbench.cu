@@ -61,7 +61,7 @@
 // 16,640-word exchange and a 2,080-word table, ~73 KB); the entry refuses
 // any other length. Handing the registers over through shared memory in
 // natural order instead (two more barriers a transform) ran 16% slower at
-// c = 2048 (chain_options.py). What bounds it: at the row's [2048, 512,
+// c = 2048 (option sweep). What bounds it: at the row's [2048, 512,
 // 128], depth 2, it moves 1 GiB (0.32 ms at 3.35 TB/s) but issues ~89
 // SASS instructions an element a transform, ~60 of them on the ALU pipe:
 // 2^28 element-transforms x 60 at 1.67e13 a second is ~0.97 ms, so the
@@ -368,7 +368,7 @@ __global__ void __launch_bounds__(fecc::RegSplit<LA>::kThreads)
 // Unasked, ptxas gives it 76-78 registers at 512 and 1024 (one block of
 // 512 threads an SM) and 122-127 at 2048; held, it takes 64 and 128 with
 // 8-48 bytes of spills, and runs 11-13% faster at c = 512 and 2048, but
-// 3-6% slower at c = 256 (chain_options.py, PERF.md section 6).
+// 3-6% slower at c = 256 (option sweep, PERF.md section 6).
 constexpr int kFusedBoundLog = 9;
 
 template <int F, int LA>

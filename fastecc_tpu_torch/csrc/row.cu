@@ -87,7 +87,7 @@
 // table in flight before one wait, each half's exchange through a region
 // of its own, so that lo's result stays in registers while hi's transform
 // runs and nothing is parked in shared memory (one region, hi read into
-// registers before lo's exchange, ran the same; pass_options.py). Each
+// registers before lo's exchange, ran the same; option sweep). Each
 // thread then stores (lo & 0xFFFF) | hi << 16 straight from its two
 // result registers (a u32 shift drops hi's bit 16: 0x10000 is stored as
 // 0 in either half) and ORs its escape bits into the bitmap the entry
@@ -96,7 +96,7 @@
 // is 0x10000 about once in 2^16, so the atomics are few; building every
 // word from two warp ballots a row instead (no zeroing, no atomics, but
 // ~15 more instructions a register for every thread) took 16% longer at
-// [64, 128, 16384] and 13% at [512, 64, 4096] (pass_options.py). What
+// [64, 128, 16384] and 13% at [512, 64, 4096] (option sweep). What
 // bounds it on the H100: at the GF16 wire encode ([64, 128,
 // 16384] a half) it reads lo and hi (1 GiB) and writes the stored words
 // and the bitmap (0.56 GiB), 0.50 ms at 3.35 TB/s. Its first version (the
@@ -241,10 +241,10 @@ __global__ void __launch_bounds__(RegSplit<LA>::kThreads)
 // spills) ran 6% faster; at 256 its own choice (40-42 registers, three
 // blocks) ran 7% faster than the bound, and a bound of one block, which
 // lets it take 72-120 registers, was the slowest everywhere
-// (k7sel_options.py). K7 takes 56-64 registers unasked at 512 and 1024;
+// (option sweep). K7 takes 56-64 registers unasked at 512 and 1024;
 // the bound (16-40 bytes of spill stores) ran 3% faster at 512 and 1%
 // at 1024, and at 256 its own choice (37-40 registers) ran 2% faster
-// than the bound (pass_options.py).
+// than the bound (option sweep).
 constexpr int kBoundLog = 9;
 
 template <int F, int LA, int INV>

@@ -1,6 +1,6 @@
 // The table multiply of the sharded codec for Hopper (sm_90a), with a
-// plain C interface loaded through ctypes (kernels/_build.py builds it;
-// parallel/ntt_dist.py _mul_table and _scale launch it on a CUDA tensor):
+// plain C interface loaded through ctypes (kernels/_build.py builds it,
+// kernels/table.py mul_table launches it on a CUDA tensor):
 //
 //   out[m, l] = x[m, l] * t[m * table_stride] mod p
 //

@@ -249,10 +249,9 @@ def _fence(dev) -> None:
 def _run_case(case: dict, job: dict, mesh, rank: int) -> dict:
     import torch.distributed as dist
 
-    from ..kernels import ntt_mfa
+    from ..kernels import ntt_mfa, table
     from . import mesh as pmesh
-    from .ntt_dist import (COLLECTIVES, LAUNCHES, TABLE_MULS,
-                           reset_collectives)
+    from .ntt_dist import COLLECTIVES, TABLE_MULS, reset_collectives
 
     dev = pmesh.rank_device()
     t_case = time.perf_counter()
@@ -263,12 +262,13 @@ def _run_case(case: dict, job: dict, mesh, rank: int) -> dict:
     dist.barrier()
     reset_collectives()
     ntt_mfa.reset_launches()
+    table.reset_launches()
     out = fn(x)
     _fence(dev)
     res["collectives"] = dict(COLLECTIVES)
     res["table_muls"] = dict(TABLE_MULS)
     res["launches"] = {k: v for k, v in {**ntt_mfa.LAUNCHES,
-                                         **LAUNCHES}.items() if v}
+                                         **table.LAUNCHES}.items() if v}
     if case.get("spans"):
         res["spans"] = _spans(fn, x, out, dev)
     if case.get("save"):

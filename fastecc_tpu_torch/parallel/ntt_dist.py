@@ -19,12 +19,9 @@ axis's process group on an int32 view (Gloo refuses uint32); each is
 counted in :data:`COLLECTIVES`, where the reference counts all_to_all in
 the lowered HLO. The table multiplies (four-step twiddle, coset table,
 the decode's l(w^j), x*d/dx and Forney, and the 1/N scale), which the
-reference computes in jnp outside any kernel, are one launch each of the
-hand-written ``csrc/table.cu`` on a CUDA tensor (u32 in and out, a table
-word a row), and on a CPU tensor the plain version: ``ntt.mul_prepared``'s
-torch ops in int64 carriers, in row chunks that bound their temporaries.
-:data:`TABLE_MULS` counts them on both routes, :data:`LAUNCHES` the
-kernel's launches.
+reference computes in jnp outside any kernel, are ``kernels.table``'s
+``mul_table`` (one launch of ``csrc/table.cu`` on a CUDA tensor), counted
+in :data:`TABLE_MULS`.
 
 While a profiler records, :func:`ntt_sharded` and the codec's entries
 run inside a span ``fecc.dist.<name>``, an exchange's pack and launch
@@ -47,12 +44,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .. import gf
 from ..fields import FieldSpec
 from ..interop import as_tensor
-from ..kernels import _build
-from ..ntt import (_four_step_twiddles, _log2, mul_prepared, ntt_auto,
-                   prepare_consts)
+from ..kernels import table
+from ..ntt import _four_step_twiddles, _log2, ntt_auto, prepare_consts
 from ..rs import _check_kn
 from ..utils import profiling
 from .mesh import rank_device
@@ -66,19 +61,10 @@ COLLECTIVES = {"all_to_all": 0, "all_to_all_bytes": 0}
 # reference's count.
 TABLE_MULS = {"mul_table": 0, "mul_table_elems": 0, "scale": 0}
 
-# Launches of ``csrc/table.cu`` (the card route of the table multiplies
-# and the 1/N), apart from ntt_mfa.LAUNCHES, whose keys are the kernels
-# the port's passes replace.
-LAUNCHES = {"mul_table": 0}
-
-# Elements per torch-op table multiply (the CPU route): bounds its int64
-# temporaries (~10 live carriers of 8 bytes an element).
-_MUL_CHUNK = 1 << 24
-
 
 def reset_collectives() -> None:
-    """Zero :data:`COLLECTIVES`, :data:`TABLE_MULS` and :data:`LAUNCHES`."""
-    for counts in (COLLECTIVES, TABLE_MULS, LAUNCHES):
+    """Zero :data:`COLLECTIVES` and :data:`TABLE_MULS`."""
+    for counts in (COLLECTIVES, TABLE_MULS):
         for k in counts:
             counts[k] = 0
 
@@ -180,80 +166,14 @@ def _local_ntt(y: torch.Tensor, field: FieldSpec, inverse: bool
     return out.reshape(t, a, lanes)
 
 
-def _by_rows(y: torch.Tensor, fn) -> torch.Tensor:
-    """``fn(y[i0:i1], i0, i1)`` (u32 in, u32 out) over row chunks of at
-    most :data:`_MUL_CHUNK` elements, into one u32 tensor like ``y``."""
-    out = torch.empty_like(y.view(torch.int32))
-    step = max(1, _MUL_CHUNK // max(1, y[0].numel()))
-    for i0 in range(0, y.shape[0], step):
-        i1 = min(i0 + step, y.shape[0])
-        out[i0:i1].copy_(fn(y[i0:i1], i0, i1).view(torch.int32))
-    return _u32(out)
-
-
-def _on_card(y: torch.Tensor) -> bool:
-    """True for the kernel route (a CUDA tensor), False for the plain
-    version (a CPU tensor)."""
-    return y.device.type != "cpu"
-
-
-def _check_table(y: torch.Tensor, t: torch.Tensor) -> int:
-    """The rows of ``y`` (its leading axes flattened) once ``t`` is a
-    contiguous u32 table on y's device of a word a row, or of one word."""
-    lanes = y.shape[-1]
-    rows = y.numel() // lanes if lanes else 0
-    if (t.dtype != torch.uint32 or t.device != y.device
-            or not t.is_contiguous() or t.dim() != 1
-            or t.numel() not in (1, rows)):
-        raise ValueError(f"the table multiply takes a contiguous u32 table "
-                         f"of 1 or {rows} words on {y.device}, got "
-                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    return rows
-
-
-def _mul_rows(field: FieldSpec, y: torch.Tensor, t: torch.Tensor
-              ) -> torch.Tensor:
-    """One launch of ``csrc/table.cu`` on the card: y * t mod p, u32 in
-    and out, y's last axis the lanes and its other axes flattened into
-    rows; ``t`` a prepared u32 word for each row, or one word for every
-    row. It opens no span of its own: the caller's ``fecc.dist.mul_table``
-    or ``fecc.dist.scale`` launches it."""
-    y = _u32(y.view(torch.int32).contiguous())
-    rows = _check_table(y, t)
-    out = _u32(torch.empty_like(y.view(torch.int32)))
-    with torch.cuda.device(y.device):
-        _build.call("fecc_mul_table", 0 if field.use_mont else 1,
-                    y.data_ptr(), out.data_ptr(), rows, y.shape[-1],
-                    t.data_ptr(), int(t.numel() == rows),
-                    torch.cuda.current_stream(y.device).cuda_stream)
-    LAUNCHES["mul_table"] += 1
-    return out
-
-
-def _mul_plain(field: FieldSpec, y: torch.Tensor, t: torch.Tensor
+def _mul_table(field: FieldSpec, y: torch.Tensor, t: torch.Tensor
                ) -> torch.Tensor:
-    """The plain version of :func:`_mul_rows`: ``mul_prepared``'s torch
-    ops in int64 carriers over row chunks of y viewed [rows, lanes]."""
-    _check_table(y, t)
-    y2 = _u32(y.view(torch.int32).reshape(-1, y.shape[-1]))
-    tt = t.expand(y2.shape[0])
-    out = _by_rows(y2, lambda v, i0, i1: mul_prepared(field, v,
-                                                      tt[i0:i1, None]))
-    return _u32(out.view(torch.int32).reshape(y.shape))
-
-
-def _mul_table(field: FieldSpec, y: torch.Tensor, table: torch.Tensor
-               ) -> torch.Tensor:
-    """y * table mod p: ``table`` a prepared u32 vector of a word for
-    each row of y's leading axes (:func:`_table_cols`, the decode's
-    [n/D] tables). On a card one kernel launch (:func:`_mul_rows`), on a
-    CPU tensor its plain version (:func:`_mul_plain`)."""
+    """y * t mod p, ``t`` a word a row (:func:`_table_cols`, the decode's
+    [n/D] tables), through ``kernels.table.mul_table``."""
     with profiling.scope("fecc.dist.mul_table"):
         TABLE_MULS["mul_table"] += 1
         TABLE_MULS["mul_table_elems"] += y.numel()
-        if _on_card(y):
-            return _mul_rows(field, y, table)
-        return _mul_plain(field, y, table)
+        return table.mul_table(field, y, t)
 
 
 @functools.lru_cache(maxsize=64)
@@ -267,10 +187,7 @@ def _inv_on(field: FieldSpec, n: int, device: str) -> torch.Tensor:
 def _scale(field: FieldSpec, y: torch.Tensor, n: int) -> torch.Tensor:
     with profiling.scope("fecc.dist.scale"):
         TABLE_MULS["scale"] += 1
-        if _on_card(y):
-            return _mul_rows(field, y, _inv_on(field, n, str(y.device)))
-        inv_n = field.inv_host(n)
-        return _by_rows(y, lambda v, i0, i1: gf.mul_const(field, v, inv_n))
+        return table.mul_table(field, y, _inv_on(field, n, str(y.device)))
 
 
 @functools.lru_cache(maxsize=64)
@@ -296,9 +213,9 @@ def _twiddle_cols(field: FieldSpec, n: int, c_dim: int, inverse: bool,
                        None, c_dim, n // c_dim // d, j, str(device))
 
 
-def _cols_of(table: torch.Tensor, r_dim: int, cd: int, d: int, j: int):
+def _cols_of(t: torch.Tensor, r_dim: int, cd: int, d: int, j: int):
     """This rank's C slice of an [N] table viewed [R, C]: [R, C/D, 1]."""
-    return table.reshape(r_dim, cd * d)[:, j * cd:(j + 1) * cd, None]
+    return t.reshape(r_dim, cd * d)[:, j * cd:(j + 1) * cd, None]
 
 
 def _split_dims(n: int, d: int, c_dim: int | None):

@@ -32,7 +32,8 @@ def test_port_imports_no_jax():
         "from fastecc_tpu_torch import decode, fields, gf, ntt, packing, rs, "
         "interop, testing, host, storage\n"
         "from fastecc_tpu_torch import cli\n"
-        "from fastecc_tpu_torch.kernels import ntt_mfa, _build, microbench\n"
+        "from fastecc_tpu_torch.kernels import ntt_mfa, _build, microbench, "
+        "table\n"
         "from fastecc_tpu_torch.utils import timer, profiling\n"
         "from fastecc_tpu_torch import parallel\n"
         "from fastecc_tpu_torch.parallel import mesh, ntt_dist, _worker\n"
@@ -59,6 +60,42 @@ def test_sources_name_no_jax():
     for path in [ROOT / "chip_smoke.py"]:
         assert "import jax" not in path.read_text()
         assert "from fastecc_tpu " not in path.read_text()
+
+
+def _imported(path: Path) -> set:
+    """The absolute names of the modules ``path`` imports, and of the
+    names it imports from them (``from a import b`` gives ``a`` and
+    ``a.b``), relative imports resolved."""
+    import ast
+    package = path.relative_to(ROOT).with_suffix("").parts[:-1]
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module.split(".") if node.module else []
+            if node.level:
+                base = list(package[:len(package) - node.level + 1]) + base
+            mod = ".".join(base)
+            names.add(mod)
+            names.update(f"{mod}.{a.name}" for a in node.names)
+    return names
+
+
+def test_only_the_kernel_layer_imports_the_build():
+    """Every hand-written kernel is launched from a wrapper in
+    ``kernels/``: no module of the port outside it imports
+    ``kernels._build`` or calls a C entry itself."""
+    build = "fastecc_tpu_torch.kernels._build"
+    kernels = ROOT / "fastecc_tpu_torch" / "kernels"
+    assert any(build in _imported(p) for p in kernels.glob("*.py"))
+    outside = sorted(
+        str(p.relative_to(ROOT))
+        for p in (ROOT / "fastecc_tpu_torch").rglob("*.py")
+        if kernels not in p.parents
+        and any(n == build or n.startswith(build + ".")
+                for n in _imported(p)))
+    assert outside == []
 
 
 def test_numpy_input_defaults_to_the_card():

@@ -1,7 +1,8 @@
-"""The sharded codec's table multiply (``parallel.ntt_dist._mul_table`` and
-``_scale``): on a CUDA tensor one launch of ``csrc/table.cu``, on a CPU
-tensor the plain version (``ntt.mul_prepared``'s torch ops in row chunks),
-both with one table form: a contiguous u32 word for each row.
+"""The table multiply (``kernels.table.mul_table``, which the sharded
+codec's ``parallel.ntt_dist._mul_table`` and ``_scale`` call): on a CUDA
+tensor one launch of ``csrc/table.cu``, on a CPU tensor the plain version
+(``ntt.mul_prepared``'s torch ops in row chunks), both with one table form:
+a contiguous u32 word for each row, or one word for every row.
 
 The CPU tests hold the plain route to an independent model of the
 arithmetic, the u32 tables to the strided int64 slices the codec
@@ -24,6 +25,7 @@ import torch
 
 from fastecc_tpu_torch import fields, gf
 from fastecc_tpu_torch.decode import _xderiv_consts
+from fastecc_tpu_torch.kernels import table as tk
 from fastecc_tpu_torch.ntt import _four_step_twiddles, mul_prepared
 from fastecc_tpu_torch.parallel import ntt_dist as nd
 from fastecc_tpu_torch.rs import _coset_twiddles_scaled
@@ -95,21 +97,22 @@ def _replaced_cut(build, args, row, r_dim, cd, j) -> torch.Tensor:
 @pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
 @pytest.mark.parametrize("chunk", [1 << 24, 40], ids=["one_chunk", "chunks"])
 def test_plain_route_multiplies_by_the_table(field, chunk, monkeypatch):
-    """On a CPU tensor ``_mul_table`` is ``mul_prepared`` over row chunks,
+    """On a CPU tensor ``mul_table`` is ``mul_prepared`` over row chunks,
     and its bits are x * c mod p for each of the codec's tables (against
     the strided slice it replaces) and for a [rows] vector."""
-    monkeypatch.setattr(nd, "_MUL_CHUNK", chunk)
+    monkeypatch.setattr(tk, "_MUL_CHUNK", chunk)
     for i, (_, build, args, row, r_dim, cd) in enumerate(_tables(field)):
         cut = nd._table_cols(build, args, row, r_dim, cd, 1, "cpu")
         old = _replaced_cut(build, args, row, r_dim, cd, 1)
         x = _u32(_words(field, (r_dim, cd, 5), 0x7AB1 + i))
-        got = nd._mul_table(field, x, cut)
+        got = tk.mul_table(field, x, cut)
         assert torch.equal(got, mul_prepared(field, x, old))
+        assert torch.equal(nd._mul_table(field, x, cut), got)
         want = _expect(field, _np(x), _np(gf.narrow(old)))
         np.testing.assert_array_equal(_np(got), want)
     v = _words(field, 12, 0x7AB0)
     x = _u32(_words(field, (12, 7), 0x7AB2))
-    got = nd._mul_table(field, x, _u32(v))
+    got = tk.mul_table(field, x, _u32(v))
     np.testing.assert_array_equal(_np(got), _expect(field, _np(x), v[:, None]))
 
 
@@ -181,14 +184,13 @@ class _KernelModel:
 
 @pytest.fixture
 def card_route(monkeypatch):
-    """A function that sends ``_mul_table`` and ``_scale`` on CPU tensors
-    down the card route, to :class:`_KernelModel`'s launches; returns the
-    model."""
+    """A function that sends ``mul_table`` on CPU tensors down the card
+    route, to :class:`_KernelModel`'s launches; returns the model."""
     model = _KernelModel()
 
     def switch():
-        monkeypatch.setattr(nd, "_on_card", lambda y: True)
-        monkeypatch.setattr(nd._build, "call", model)
+        monkeypatch.setattr(tk, "_on_card", lambda y: True)
+        monkeypatch.setattr(tk._build, "call", model)
         monkeypatch.setattr(torch.cuda, "device",
                             lambda dev: contextlib.nullcontext())
         monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None:
@@ -212,10 +214,10 @@ def test_card_route_arguments_give_the_plain_bits(field, card_route):
     x = _u32(_words(field, (10, 13), 0xCA2F))
     xt = _u32(_words(field, (13, 10), 0xCA30)).t()
     cases += [(x, v), (xt, v)]
-    plain = [nd._mul_table(field, y, t) for y, t in cases]
+    plain = [tk.mul_table(field, y, t) for y, t in cases]
     plain.append(nd._scale(field, x, 64))
     model = card_route()
-    card = [nd._mul_table(field, y, t) for y, t in cases]
+    card = [tk.mul_table(field, y, t) for y, t in cases]
     card.append(nd._scale(field, x, 64))
     for got, want in zip(card, plain, strict=True):
         assert torch.equal(got, want)
@@ -233,8 +235,19 @@ def test_card_route_refuses_a_table_it_cannot_take(card_route):
                 _u32(np.arange(16))[::2],         # strided
                 _u32(np.arange(8))[:, None]):     # not a vector
         with pytest.raises(ValueError, match="contiguous u32 table"):
-            nd._mul_table(fields.GF32, x, bad)
+            tk.mul_table(fields.GF32, x, bad)
     assert model.launches == []
+
+
+def test_mul_table_refuses_another_device():
+    """A tensor neither on the CPU nor on a CUDA device raises, as the
+    passes' wrappers do, before any launch."""
+    y = torch.empty((4, 8), dtype=torch.uint32, device="meta")
+    t = torch.empty(4, dtype=torch.uint32, device="meta")
+    before = dict(tk.LAUNCHES)
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        tk.mul_table(fields.GF32, y, t)
+    assert tk.LAUNCHES == before
 
 
 @pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
@@ -248,17 +261,18 @@ def test_table_muls_count_the_same_on_both_routes(field, card_route):
         if route == "card":
             card_route()
         nd.reset_collectives()
+        tk.reset_launches()
         nd._mul_table(field, x, t)
         nd._mul_table(field, x, t)
         nd._scale(field, x, 1 << 6)
         counts.append(dict(nd.TABLE_MULS))
-        launches.append(dict(nd.LAUNCHES))
+        launches.append(dict(tk.LAUNCHES))
     assert counts[0] == counts[1] == {"mul_table": 2, "mul_table_elems": 128,
                                       "scale": 1}
     # the kernel's own count: only where it launched
     assert launches == [{"mul_table": 0}, {"mul_table": 3}]
-    nd.reset_collectives()
-    assert nd.LAUNCHES == {"mul_table": 0}
+    tk.reset_launches()
+    assert tk.LAUNCHES == {"mul_table": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -289,7 +303,7 @@ def _plain(field, y, table):
     """The torch ops on the card's tensors, as the codec ran them before
     it had a card route: ``mul_prepared`` over row chunks, ``table``
     broadcast over y's trailing axes."""
-    return nd._by_rows(y, lambda v, i0, i1: mul_prepared(field, v,
+    return tk._by_rows(y, lambda v, i0, i1: mul_prepared(field, v,
                                                          table[i0:i1]))
 
 
@@ -304,14 +318,14 @@ def test_kernel_matches_mul_prepared(field, rows, lanes, cuda_device):
     which must take the one-word path."""
     y = _card_words(field, (rows, lanes), rows + lanes, cuda_device)
     v = _card_words(field, (rows,), 7 * rows + lanes, cuda_device)
-    got = nd._mul_table(field, y, v)
+    got = tk.mul_table(field, y, v)
     assert torch.equal(got, _plain(field, y, v[:, None])), (rows, lanes)
-    assert torch.equal(got, nd._mul_plain(field, y, v)), (rows, lanes)
+    assert torch.equal(got, tk.mul_table_plain(field, y, v)), (rows, lanes)
     if lanes % 4 == 0 and rows * lanes <= 1 << 20:
         big = _card_words(field, (rows * lanes + 1,), 3, cuda_device)
         ys = big[1:].reshape(rows, lanes)
         assert ys.data_ptr() % 16 == 4
-        assert torch.equal(nd._mul_table(field, ys, v),
+        assert torch.equal(tk.mul_table(field, ys, v),
                            _plain(field, ys, v[:, None])), (rows, "offset")
 
 
@@ -354,7 +368,7 @@ def test_kernel_matches_mul_prepared_on_the_codec_tables(field, cuda_device):
 def test_kernel_scale_matches_mul_const(field, shape, cuda_device):
     y = _card_words(field, shape, sum(shape), cuda_device)
     for n in (1 << 8, 1 << 20):
-        want = nd._by_rows(y, lambda v, i0, i1: gf.mul_const(
+        want = tk._by_rows(y, lambda v, i0, i1: gf.mul_const(
             field, v, field.inv_host(n)))
         assert torch.equal(nd._scale(field, y, n), want), (shape, n)
 

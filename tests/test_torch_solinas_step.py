@@ -24,8 +24,7 @@ Every GF32 pass multiplies through ``mul_full<kGF32>`` and ``mul_tw<kGF32>``.
 Their bodies are followed here to the function they forward to, which must
 be the ``mul_solinas`` asm block, and that block is run as above under
 their names. K14's "generic" step must still call ``mul_generic``, the
-textbook REDC (modelled here line for line from its C), and
-``chain_options.py``'s text edits must still find what they replace.
+textbook REDC (modelled here line for line from its C).
 """
 
 import re
@@ -34,8 +33,6 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 import pytest
-
-import chain_options
 
 from fastecc_tpu import fields as jfields
 from fastecc_tpu import gf as jgf
@@ -349,13 +346,3 @@ def test_chain_variant_calls(variant, fn):
                        step)
     assert branch and branch.group(1) == fn, variant
 
-
-@pytest.mark.parametrize("option", list(chain_options.VARIANTS))
-def test_chain_options_edits_apply(option):
-    """Each of chain_options.py's builds is a text edit of gf.cuh and
-    microbench.cu that must find what it replaces (``edit`` asserts it);
-    every option but the package itself changes one of the two."""
-    gf0 = GF_CUH.read_text()
-    mb0 = (CSRC / "microbench.cu").read_text()
-    gf, mbs = chain_options.VARIANTS[option](gf0, mb0)
-    assert (gf, mbs) != (gf0, mb0) or option == "pkg"
