@@ -10,7 +10,8 @@ A job is a dict: ``mesh`` (n_coeff, n_block), ``device`` ("cuda" or
 ``save`` write each rank's output shard as ``{name}.r{rank}.npy``) and
 ``threads`` (torch's intra-op threads a rank). A case is a dict:
 
-  name, op      op: "ntt", "ntt_overlap", "encode", "decode",
+  name, op      op: "ntt", "ntt_overlap", "encode", "encode_chain"
+                (the encode's K = 1 chain at any width), "decode",
                 "decode_prepared", "chain" (iNTT, output_transposed ->
                 x table -> NTT, input_transposed) or "exchange"
                 (``ntt_dist._exchange`` alone: ``split``, ``concat``);
@@ -217,6 +218,9 @@ def _op(case: dict, mesh, x, erased):
         return lambda v: nd.ntt_sharded_overlap(v, field, mesh, **args)
     if op == "encode":
         return lambda v: nd.encode_parity_sharded(v, field, mesh, **args)
+    if op == "encode_chain":
+        return lambda v: nd._encode_chain(
+            v, field, mesh, args.get("n", 2 * v.shape[0] * mesh.shape[0]))
     if op == "decode":
         return lambda v: nd.decode_sharded(v, erased, field, mesh)
     if op == "decode_prepared":

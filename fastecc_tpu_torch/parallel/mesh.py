@@ -54,10 +54,17 @@ def init_process_group(rank: int, world_size: int, store_path,
         dev = torch.device("cuda", local % torch.cuda.device_count())
         torch.cuda.set_device(dev)
     backend = backend_for(dev, world_size)
+    opts = None
+    if backend == "nccl":
+        # NCCL's kernels on a high-priority stream, so the exchanges the
+        # sharded encode runs beside the local steps take SMs as the
+        # steps' blocks free them; the mesh's groups inherit it
+        opts = dist.ProcessGroupNCCL.Options()
+        opts.is_high_priority_stream = True
     dist.init_process_group(
         backend, init_method=f"file://{store_path}", rank=rank,
         world_size=world_size, timeout=datetime.timedelta(seconds=timeout),
-        device_id=dev if backend == "nccl" else None)
+        device_id=dev if backend == "nccl" else None, pg_options=opts)
     _RANK_DEVICE = dev
     return dev
 

@@ -34,6 +34,16 @@ passes carry their own ``fecc.pass.*`` spans.
 The transposed hand-off (``output_transposed`` / ``input_transposed``)
 skips the third exchange of a transform and the first of the next, so
 the RS encode and the erasure decode each cost 4 exchanges, not 6.
+
+The encode runs as a pipeline over lane chunks (:func:`_pipe_chunks`):
+every step of it is independent per lane, so this rank's L local lanes
+split into K chunks, each taking the same 4 exchanges (2c at rate 1/c)
+and the same steps, and a chunk's exchange is in flight on NCCL's
+stream while the compute stream runs other chunks' steps. A call then
+issues 4K exchanges; K = 1 below the chunk width, where the encode is
+the ``ntt_sharded`` chain with its 4. :data:`COLLECTIVES` counts in
+``all_to_all_overlapped`` the exchanges whose wait came after a step of
+another chunk was enqueued.
 """
 
 from __future__ import annotations
@@ -53,8 +63,10 @@ from ..utils import profiling
 from .mesh import rank_device
 
 # Exchanges issued, and the bytes this rank sent to other ranks in them,
-# as ntt_mfa.LAUNCHES counts kernels.
-COLLECTIVES = {"all_to_all": 0, "all_to_all_bytes": 0}
+# as ntt_mfa.LAUNCHES counts kernels; of them, the pipelined encode's
+# exchanges waited for after another chunk's step was enqueued.
+COLLECTIVES = {"all_to_all": 0, "all_to_all_bytes": 0,
+               "all_to_all_overlapped": 0}
 
 # Table multiplies issued (and the elements they multiplied), and 1/N
 # scales, counted apart from COLLECTIVES, which the tests hold to the
@@ -117,13 +129,18 @@ class _Exchange:
                                                async_op=True)
         self._send = send   # alive until the exchange completes
 
-    def wait(self) -> torch.Tensor:
+    def wait(self, out: torch.Tensor | None = None) -> torch.Tensor:
+        """The exchanged tensor, contiguous, or written into ``out`` (an
+        int32 tensor of its shape, any strides) and ``out`` returned."""
         with profiling.scope("fecc.dist.exchange"):
             self.work.wait()
             self._send = None
-            r = self.recv                  # [D, ...]: r[i] came from rank i
+            r, self.recv = self.recv, None  # [D, ...]: r[i] from rank i
             d, rest = r.shape[0], tuple(r.shape[1:])
             c = self.concat
+            if out is not None:
+                out.unflatten(c, (d, rest[c])).copy_(r.movedim(0, c))
+                return out
             out = r.movedim(0, c).reshape(rest[:c] + (d * rest[c],)
                                           + rest[c + 1:])
             return _u32(out.contiguous())
@@ -342,6 +359,87 @@ def ntt_sharded_overlap(x, field: FieldSpec, mesh, inverse: bool = False,
     return _scale(field, out, n) if inverse and scale else out
 
 
+# The pipelined encode's lane chunks: K when the local lanes split into K
+# chunks of at least PIPE_MIN_LANES lanes each, else 1 (the ntt_sharded
+# chain). On an H100, K1 -> K3 on a chunk of 512 lanes at the four-card
+# stripe's shapes take within 2.5% of 8192 lanes' time an element (256
+# lanes 4-16% more, 128 lanes 25-110%), and the encode of that stripe
+# took 78.6 ms at 4 chunks, 79.4 at 8, 86.7 at 16 and 96.9 at 1.
+PIPE_CHUNKS = 4
+PIPE_MIN_LANES = 512
+
+
+def _pipe_chunks(lanes: int) -> int:
+    """K, the lane chunks :func:`encode_parity_sharded` pipelines over
+    ``lanes`` local lanes: :data:`PIPE_CHUNKS` when each chunk is at
+    least :data:`PIPE_MIN_LANES` wide, else 1."""
+    k = PIPE_CHUNKS
+    return k if lanes % k == 0 and lanes // k >= PIPE_MIN_LANES else 1
+
+
+def _wavefront(chunks: list) -> None:
+    """Run the chunks' steps as a wavefront: each round, every started
+    chunk takes its next step, the last started first, and one more chunk
+    starts. A chunk is a generator whose steps end by launching an
+    exchange (an :class:`_Exchange` it yields) and, but the first, start
+    by waiting for the one launched at the end of its last step. So a
+    chunk's wait is enqueued a round after its launch, with the other
+    chunks' steps of that round queued on the compute stream between
+    them while the exchange runs on NCCL's. Counts each wait that came
+    after another chunk's step in ``all_to_all_overlapped``."""
+    live, started = [], 0
+    waiting, last = set(), None     # chunks with an exchange in flight
+    while started < len(chunks) or live:
+        if started < len(chunks):
+            live.insert(0, started)
+            started += 1
+        for i in list(live):
+            if i in waiting:          # launched in i's own last step
+                COLLECTIVES["all_to_all_overlapped"] += last != i
+            last = i
+            if next(chunks[i], None) is None:
+                live.remove(i)
+                waiting.discard(i)
+            else:
+                waiting.add(i)
+
+
+def _encode_chunk(x: torch.Tensor, field: FieldSpec, mesh, n: int,
+                  parity: torch.Tensor):
+    """One lane chunk of :func:`encode_parity_sharded`, as steps for
+    :func:`_wavefront`: the local data chunk ``x`` [k/D, w] (any row
+    stride) through the iNTT handed off transposed, then a coset table
+    and a transposed-input NTT a coset, each exchange yielded after its
+    launch; the last unpacks straight into the chunk's lanes ``parity``
+    [k/D, c - 1, w] (int32). The same steps as the ntt_sharded chain."""
+    from ..rs import _coset_twiddles_scaled
+
+    d, j = _coeff(mesh)
+    k, w = x.shape[0] * d, x.shape[1]
+    c_dim, r_dim = _split_dims(k, d, None)
+    dev = str(x.device)
+    x3 = _u32(x.view(torch.int32).reshape(c_dim // d, r_dim, w))
+    ex = _Exchange(x3, mesh, 1, 0)
+    yield ex
+    y = _local_ntt(ex.wait(), field, True)               # [C, R/D, w]
+    y = _mul_table(field, y, _twiddle_cols(field, k, c_dim, True, d, j, dev))
+    ex = _Exchange(y, mesh, 0, 1)
+    yield ex
+    y = _u32(ex.wait().view(torch.int32).movedim(1, 0).contiguous())
+    coeffs_t = _local_ntt(y, field, True)                # [R, C/D, w]
+    tw = _twiddle_cols(field, k, r_dim, False, d, j, dev)
+    for r in range(1, n // k):
+        tws = _table_cols(_coset_twiddles_scaled, (field.name, n, k), r - 1,
+                          r_dim, c_dim // d, j, dev)
+        y = _local_ntt(_mul_table(field, coeffs_t, tws), field, False)
+        ex = _Exchange(_mul_table(field, y, tw), mesh, 0, 1)
+        yield ex
+        y = _u32(ex.wait().view(torch.int32).movedim(1, 0).contiguous())
+        ex = _Exchange(_local_ntt(y, field, False), mesh, 0, 1)
+        yield ex
+        ex.wait(parity[:, r - 1].view(c_dim // d, r_dim, w))
+
+
 @_span("fecc.dist.encode_parity_sharded")
 def encode_parity_sharded(data, field: FieldSpec, mesh,
                           n: int | None = None) -> torch.Tensor:
@@ -350,18 +448,43 @@ def encode_parity_sharded(data, field: FieldSpec, mesh,
     ``rs.encode_parity``'s rows (row order included).
 
     The iNTT hands its result to each coset NTT in the transposed layout,
-    so the c = 2 encode runs 4 exchanges (2 a transform). The iNTT's k^-1
-    is folded into the coset table (``rs._coset_twiddles_scaled``), whose
-    [k] rows are viewed [R, C] and cut to this rank's C slice."""
-    from ..rs import _coset_twiddles_scaled
+    so a lane runs 2c exchanges (4 at c = 2; 1 a transform). The iNTT's
+    k^-1 is folded into the coset table (``rs._coset_twiddles_scaled``),
+    whose [k] rows are viewed [R, C] and cut to this rank's C slice.
 
+    The local lanes run as K = :func:`_pipe_chunks` lane chunks through
+    :func:`_wavefront`, each chunk's last exchange unpacked into its lanes
+    of one [(n - k)/Dc, L/Db] parity tensor: 2cK exchanges a call (4K at
+    c = 2), one table multiply a chunk where the chain has one. At K = 1
+    (narrow lanes, or no coeff axis) it is the ``ntt_sharded`` chain,
+    with its 2c exchanges."""
     data = _on_rank(data)
-    d, j = _coeff(mesh)
-    k = data.shape[0] * d
+    d = mesh.shape[0]
+    k, lanes = data.shape[0] * d, data.shape[1]
     n = 2 * k if n is None else n
     _check_kn(k, n)
+    chunks = _pipe_chunks(lanes) if d > 1 else 1
+    if chunks == 1:
+        return _encode_chain(data, field, mesh, n)
+    w = lanes // chunks
+    parity = torch.empty((k // d, n // k - 1, lanes), dtype=torch.int32,
+                         device=data.device)
+    _wavefront([_encode_chunk(data[:, i * w:(i + 1) * w], field, mesh, n,
+                              parity[..., i * w:(i + 1) * w])
+                for i in range(chunks)])
+    return _u32(parity.view((n - k) // d, lanes))
+
+
+def _encode_chain(data: torch.Tensor, field: FieldSpec, mesh, n: int
+                  ) -> torch.Tensor:
+    """:func:`encode_parity_sharded` at K = 1: the iNTT and each coset's
+    NTT as ``ntt_sharded`` calls on the whole local shard, the cosets
+    stacked."""
+    from ..rs import _coset_twiddles_scaled
+
+    d, j = _coeff(mesh)
+    k, lanes = data.shape[0] * d, data.shape[1]
     c = n // k
-    lanes = data.shape[1]
     coeffs_t = ntt_sharded(data, field, mesh, inverse=True, scale=False,
                            output_transposed=True)       # [R, C/D, L]
     r_dim, cd = coeffs_t.shape[0], coeffs_t.shape[1]

@@ -778,3 +778,30 @@ def test_sharded_encode_on_card_matches_single_card(cuda_device, tmp_path):
         assert case["bit_exact"] is True
         assert case["collectives"]["all_to_all"] == 4
         assert case["launches"]["K1_col"] > 0 and case["launches"]["K3_row"] > 0
+
+
+@pytest.mark.parametrize("field", FIELDS, ids=lambda f: f.name)
+def test_chunked_sharded_encode_on_card_matches_single_card(field, cuda_device,
+                                                            tmp_path):
+    """Two ranks (NCCL on two cards, Gloo sharing one) run the sharded
+    encode at the narrowest lane width that chunks: PIPE_CHUNKS lane
+    chunks in a wavefront, 4 exchanges each, all waited for after another
+    chunk's step, and every rank the single-card encode's rows."""
+    from fastecc_tpu_torch.parallel import _worker, ntt_dist
+    from fastecc_tpu_torch.interop import to_numpy_u32
+    chunks = ntt_dist.PIPE_CHUNKS
+    k, lanes = 1 << 12, chunks * ntt_dist.PIPE_MIN_LANES
+    data = _worker.seeded_u32(field.p, (k, lanes), 11, cuda_device)
+    want = tmp_path / "want.npy"
+    np.save(want, to_numpy_u32(rs.encode_parity(data, field)))
+    del data
+    reps = _worker.launch({"mesh": (2, 1), "device": "cuda", "cases": [
+        {"name": "enc", "op": "encode", "field": field.name,
+         "input": {"seeded": [k, lanes], "seed": 11}, "want": str(want)}]},
+        2, timeout=300)
+    for rep in reps:
+        case = rep["cases"]["enc"]
+        assert case["bit_exact"] is True
+        assert case["collectives"]["all_to_all"] == 4 * chunks
+        assert case["collectives"]["all_to_all_overlapped"] == 4 * chunks
+        assert case["launches"]["K1_col"] > 0 and case["launches"]["K3_row"] > 0
