@@ -15,6 +15,12 @@ W-bit bitmap appended as ceil(W/16) u16 words.
 Arithmetic runs on int64 carriers (PyTorch has no ``uint32``
 arithmetic); byte <-> word conversions are bitcasts (``Tensor.view``) on
 little-endian hosts and devices.
+
+While a profiler records, :func:`pack_data` runs inside the span
+``fecc.packing.pack_data`` and :func:`serialize_parity` inside
+``fecc.packing.serialize_parity`` (``utils.profiling.scope``; the GF32
+serialization is a view and launches nothing). :data:`PACKED` counts the
+packs and their sizes.
 """
 
 from __future__ import annotations
@@ -23,8 +29,19 @@ import torch
 
 from . import gf
 from .fields import FieldSpec
+from .utils import profiling
 
 BLOCK_BYTES = 4096  # default wire-format block size
+
+# Packs run (pack_data calls), the raw words they read and the field lanes
+# they wrote, summed over every row: sizes from the shapes, never a sync.
+PACKED = {"pack": 0, "pack_words": 0, "pack_lanes": 0}
+
+
+def reset_packed() -> None:
+    """Zero :data:`PACKED`."""
+    for key in PACKED:
+        PACKED[key] = 0
 
 
 def _word_count(field: FieldSpec, block_bytes: int) -> int:
@@ -133,9 +150,13 @@ def pack_data(raw: torch.Tensor, field: FieldSpec) -> torch.Tensor:
     """[k, B] uint8 -> [k, field_lanes(field, B)] u32 field elements."""
     if raw.dtype != torch.uint8:
         raise TypeError(f"pack_data needs uint8 blocks, got {raw.dtype}")
-    if not field.use_mont:
-        return _bytes_to_u32(raw, 2)
-    return _escape_gf32(_bytes_to_u32(raw, 4), field)
+    with profiling.scope("fecc.packing.pack_data"):
+        words = _bytes_to_u32(raw, 4 if field.use_mont else 2)
+        out = _escape_gf32(words, field) if field.use_mont else words
+        PACKED["pack"] += 1
+        PACKED["pack_words"] += words.numel()
+        PACKED["pack_lanes"] += out.numel()
+        return out
 
 
 def unpack_data(fields: torch.Tensor, field: FieldSpec) -> torch.Tensor:
@@ -155,13 +176,14 @@ def unpack_data(fields: torch.Tensor, field: FieldSpec) -> torch.Tensor:
 
 def serialize_parity(fields: torch.Tensor, field: FieldSpec) -> torch.Tensor:
     """[m, field_lanes] u32 field elements -> [m, parity_bytes] uint8."""
-    if field.use_mont:
-        return _u32_to_bytes(fields, 4)
-    f = gf.widen(fields)
-    esc = (f == 0x10000).to(torch.int64)
-    stored = f * (1 - esc)                           # 0 where escaped
-    out = torch.cat([stored, _pack_bits(esc, 16)], dim=-1)
-    return _u32_to_bytes(gf.narrow(out), 2)
+    with profiling.scope("fecc.packing.serialize_parity"):
+        if field.use_mont:
+            return _u32_to_bytes(fields, 4)
+        f = gf.widen(fields)
+        esc = (f == 0x10000).to(torch.int64)
+        stored = f * (1 - esc)                       # 0 where escaped
+        out = torch.cat([stored, _pack_bits(esc, 16)], dim=-1)
+        return _u32_to_bytes(gf.narrow(out), 2)
 
 
 def deserialize_parity(raw: torch.Tensor, field: FieldSpec) -> torch.Tensor:

@@ -400,7 +400,8 @@ def encode_blocks(raw_data, field: FieldSpec, n: int | None = None,
     Every other shape runs the generic pack -> encode_parity -> serialize
     composition. The choice
     is made from the shape alone; both give the same bytes. Runs inside
-    the span ``fecc.rs.encode_blocks``."""
+    the span ``fecc.rs.encode_blocks``; the generic composition's pack and
+    serialization open ``fecc.packing.*`` spans of their own."""
     with profiling.scope("fecc.rs.encode_blocks"):
         raw = as_tensor(raw_data, device)
         k, block_bytes = raw.shape

@@ -3,8 +3,9 @@
 
 :func:`trace` records a ``torch.profiler`` trace of the card (a Chrome
 trace, viewable in Perfetto) and :func:`scope` names a region in it; the
-port's own regions are named ``fecc.*`` (its entries, passes and the GF16
-wire join) and cost nothing measurable while no profiler records. The
+port's own regions are named ``fecc.*`` (its entries, passes, the GF16
+wire join and the wire packing) and cost nothing measurable while no
+profiler records. The
 roofline functions give a speed-of-light time for a pipeline config: the
 larger of its device-memory traffic over the memory rate and its integer
 operations over the card's integer rates. Signatures, byte accounting

@@ -45,6 +45,8 @@ ENC32 = "fecc.rs.encode_parity"
 BLOCKS = "fecc.rs.encode_blocks"
 DEC = "fecc.decode.decode_prepared"
 JOIN = ("fecc.rs.wire_join", [])
+PACK = ("fecc.packing.pack_data", [])
+SERIALIZE = ("fecc.packing.serialize_parity", [])
 PAIR = [P("K1_col"), P("K2_seam"), P("K3_row")]
 STAGED = [P("K1_col"), P("K3_row"), P("K4_col_pre"), P("K3_row")]
 
@@ -68,7 +70,7 @@ CASES = {
                                         P("K10_row_wire16"), JOIN])]),
     "encode_blocks_gf32": ({}, lambda: lambda d=_bytes(16, 64):
                            rs.encode_blocks(d, GF32),
-                           [(BLOCKS, [(ENC32, PAIR)])]),
+                           [(BLOCKS, [PACK, (ENC32, PAIR), SERIALIZE])]),
     "decode_prepared": ({}, lambda: _repair(True),
                         [(DEC, [P("K5_col_vec"), P("K6_seam_vec"),
                                 P("K7_row_post_sel")])]),
