@@ -139,7 +139,16 @@ main path on the card and fails loudly on any fault. Phases:
                _mul_table once as the main-path run (one launch); each
                form timed beside K13's copy of the same bytes, and the
                plain version;
- 15. parallel — the sharded codec (fastecc_tpu_torch.parallel) on worlds
+ 15. pack    — the GF32 escape pack (csrc/pack.cu, kernels.pack.pack_gf32)
+               at the raw-byte cell's shape, [2^19, 1024] u32 words with
+               every 64th row all 0xFFFFFFFF and words from p - 4 .. p + 3
+               planted, against its plain version (pack.pack_gf32_plain)
+               bit for bit, and on a view 4 bytes past a 16-byte boundary
+               (one word a thread); then rs.encode_blocks(GF32) on those
+               words' bytes once as the main-path run (one launch); the
+               kernel timed beside K13's copy of its input and the plain
+               version;
+ 16. parallel — the sharded codec (fastecc_tpu_torch.parallel) on worlds
                of ranks sharing the card over Gloo (2x1, 4x1, 2x2; NCCL
                refuses two ranks of one communicator on one GPU) and a
                one-rank NCCL world (the passthrough), each started by
@@ -163,7 +172,7 @@ main path on the card and fails loudly on any fault. Phases:
                --devices 4 --lg-k 19 --lanes 256 --iters 2 and scaling
                --procs 4 --update-baseline into a temporary file, rows
                parsed and checked;
- 16. peaks   — the microbenchmark kernels against their plain versions,
+ 17. peaks   — the microbenchmark kernels against their plain versions,
                bit-exact: K13 (the copy) at ragged sizes (around a
                block's span) and unaligned, K14
                (the chains) for every variant at depth 3 and at its default
@@ -182,9 +191,9 @@ main path on the card and fails loudly on any fault. Phases:
                under the published and the measured peaks beside phase
                encode's time.
 
-Launch counts are reset to 0 before each main-path run (phases 4-16) and
+Launch counts are reset to 0 before each main-path run (phases 4-17) and
 read right after it; each run must launch every kernel of its path (in
-phase 15 each rank counts its own and the phase adds them up). Near
+phase 16 each rank counts its own and the phase adds them up). Near
 the end come the launches by path, one detail line per kernel (source,
 the TPU kernel it replaces, the shape it was timed at), a JSON object
 with, per kernel, its launches, its time at the main-path shape, the
@@ -243,6 +252,8 @@ REPLACES = {
     "K15_fused_chain": "fastecc_tpu/kernels/microbench.py:271",
     # no kernel: the reference multiplies by its tables in jnp
     "mul_table": "fastecc_tpu/parallel/ntt_dist.py:139 (jnp)",
+    # no kernel: the reference packs raw words in jnp
+    "pack_gf32": "fastecc_tpu/packing.py:157 (jnp)",
 }
 WIRE16 = ("K8_col_wire16", "K9_seam_wire16", "K10_row_wire16")
 LANES = ("K11_pair_lanes", "K12_pair_lanes_wire16")
@@ -250,6 +261,7 @@ PEAKS = ("K13_copy", "K14_chain", "K15_fused_chain")
 SOURCE = {k: "fastecc_tpu_torch/csrc/" + (
     "microbench.cu" if k in PEAKS else "lanes.cu" if k in LANES
     else "table.cu" if k == "mul_table"
+    else "pack.cu" if k == "pack_gf32"
     else "row.cu" if k in ("K3_row", "K7_row_post", "K7_row_post_sel",
                            "K10_row_wire16")
     else "col.cu")
@@ -374,13 +386,17 @@ def bound(kind: str, field, shape, sel_frac: float = 1.0
           ) -> tuple[float, str]:
     """(least time in ms, what bounds it) for a pass over ``shape`` (for
     the wire passes, one half's [A, B, Wu]; for the lanes pair [k, L]; for
-    the table multiply [rows, lanes]).
+    the table multiply [rows, lanes]; for the pack [rows, words]).
     Bytes: the input read and the output written once, the [N] tables
     read once, and for K7-sel the original read at surviving rows only.
     The lanes pair runs two k-point transforms and the mid multiply on
     each lane column, K12 on both halves of each pair: pairs in, stored
     words and the bitmap out (8.5 bytes a pair)."""
     muls_per_mod = 2 if field.use_mont else 1
+    if kind == "pack_gf32":
+        rows, words = shape                           # words in, lanes out
+        nbytes = 4 * rows * words + 4 * rows * (words + -(-words // 16))
+        return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
     if kind == "mul_table":
         rows, lanes = shape
         nbytes = 8 * rows * lanes + 4 * rows          # x in, out; the table
@@ -943,17 +959,18 @@ def run_path(name: str, fn, launches: dict, expect: tuple):
     """Run ``fn`` once with the counts reset just before and read just
     after; records them under ``name`` and fails unless every kernel in
     ``expect`` launched."""
-    from fastecc_tpu_torch.kernels import microbench, ntt_mfa, table
+    from fastecc_tpu_torch.kernels import microbench, ntt_mfa, pack, table
     from fastecc_tpu_torch.parallel import ntt_dist
     torch.cuda.synchronize()
     ntt_mfa.reset_launches()
     microbench.reset_launches()
     table.reset_launches()
+    pack.reset_launches()
     ntt_dist.reset_collectives()
     out = fn()
     torch.cuda.synchronize()
     launches[name] = {**ntt_mfa.LAUNCHES, **microbench.LAUNCHES,
-                      **table.LAUNCHES}
+                      **table.LAUNCHES, **pack.LAUNCHES}
     say(f"[{name}] launches {launches[name]}")
     for k in expect:
         check(launches[name][k] > 0, f"{name} did not launch {k}")
@@ -1089,7 +1106,7 @@ def phase_wire(gen, launches, times):
                         device="cuda", generator=gen)
     raw[0] = 0xFF                                     # all-escape block
     blob = run_path("wire", lambda: rs.encode_blocks(raw, GF32), launches,
-                    ("K1_col", "K2_seam", "K3_row"))
+                    ("pack_gf32", "K1_col", "K2_seam", "K3_row"))
     check(tuple(blob.shape) == (k, packing.parity_bytes(GF32, block)),
           "wire parity shape")
     packed = packing.pack_data(raw, GF32)
@@ -2214,6 +2231,60 @@ def phase_mul_table(gen, launches, times, shapes, worst) -> None:
         torch.cuda.empty_cache()
 
 
+def phase_pack(launches, times, shapes, worst) -> None:
+    """The GF32 escape pack at the raw-byte cell's shape against its plain
+    version, the main-path run, then the times (see the module's phase
+    15). Its words come from a generator of its own."""
+    from fastecc_tpu_torch import gf, rs
+    from fastecc_tpu_torch.fields import GF32
+    from fastecc_tpu_torch.kernels import microbench as mb
+    from fastecc_tpu_torch.kernels import pack as pk
+
+    rows, words = 1 << 19, 1024
+    shapes["pack_gf32"] = (rows, words)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0x9AC4)
+    x = torch.randint(0, 1 << 32, (rows, words), dtype=torch.int64,
+                      device="cuda", generator=g)
+    x[::64] = 0xFFFFFFFF
+    x.view(-1)[3::97] = GF32.p + x.view(-1)[3::97] % 8 - 4
+    x = gf.narrow(x)
+    torch.cuda.empty_cache()
+    got = pk.pack_gf32(x)
+    escaped = int(gf.widen(x).ge(GF32.p).sum().item())
+    compare(worst, "pack_gf32", got, pk.pack_gf32_plain(x),
+            f"[{rows}, {words}]")
+    buf = torch.empty(rows * words + 4, dtype=torch.int32, device="cuda")
+    xs = buf[1:1 + rows * words].view(torch.uint32).reshape(rows, words)
+    xs.view(torch.int32).copy_(x.view(torch.int32))
+    check(xs.data_ptr() % 16 == 4, "the misaligned view's offset")
+    compare(worst, "pack_gf32", pk.pack_gf32(xs), got, "one-word path")
+    del got
+    torch.cuda.empty_cache()
+    raw = x.view(torch.uint8).reshape(rows, 4 * words)
+    run_path("pack", lambda: rs.encode_blocks(raw, GF32), launches,
+             ("pack_gf32", "K1_col", "K3_row"))
+    check(launches["pack"]["pack_gf32"] == 1,
+          "encode_blocks(GF32) launched the pack once")
+    torch.cuda.empty_cache()
+    ms = {"kernel": event_ms(lambda: pk.pack_gf32(x), 20),
+          "one_word": event_ms(lambda: pk.pack_gf32(xs), 20),
+          "copy": event_ms(lambda: mb.copy(x), 20)}
+    del buf, xs
+    torch.cuda.empty_cache()
+    ms["plain"] = event_ms(lambda: pk.pack_gf32_plain(x), reps=2)
+    b_ms, _ = bound("pack_gf32", GF32, (rows, words))
+    say(f"[pack] [{rows}, {words}] == plain ({escaped} words escaped; "
+        f"one-word path too); ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+        + f"; bound {b_ms:.4f} ({100 * b_ms / ms['kernel']:.1f}% of it "
+        f"reached)")
+    times["pack_gf32"] = ms["kernel"]
+    times["plain_pack_gf32"] = ms["plain"]
+    del x, raw
+    torch.cuda.empty_cache()
+
+
 # The parallel phase: worlds of ranks sharing the card over Gloo (NCCL
 # refuses two ranks of one communicator on one GPU), each mesh with the
 # halvings of depth (k and n) its shapes take for the time limit, and the
@@ -2648,6 +2719,7 @@ def main() -> int:
     phase_errors(gen, launches, times)
     phase_storage(gen, launches, times)
     phase_mul_table(gen, launches, times, shapes, worst)
+    phase_pack(launches, times, shapes, worst)
     phase_parallel(launches, times)
     phase_peaks(gen, launches, times, shapes, worst)
 

@@ -1,5 +1,6 @@
 """Hopper kernels of the port and their wrappers (``ntt_mfa``: the passes;
-``microbench``: the peaks; ``table``: the sharded codec's table multiply);
+``microbench``: the peaks; ``table``: the sharded codec's table multiply;
+``pack``: the GF32 escape pack);
 the CUDA sources live in ``fastecc_tpu_torch/csrc/`` and build on first use
 (``_build``); ``sass`` reads what the compiler made of them."""
 

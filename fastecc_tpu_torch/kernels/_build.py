@@ -28,7 +28,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("col.cu", "row.cu", "lanes.cu", "microbench.cu", "table.cu")
+SOURCES = ("col.cu", "row.cu", "lanes.cu", "microbench.cu", "table.cu",
+           "pack.cu")
 HEADERS = ("gf.cuh", "regstages.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
@@ -83,6 +84,8 @@ SIGNATURES = {
     "fecc_fused_chain": [_I, _P, _P, _I, _I, _P, _I, _P],
     # table.cu: (field, x, out, rows, lanes, table, table_stride, stream)
     "fecc_mul_table": [_I, _P, _P, _I, _I, _P, _I, _P],
+    # pack.cu: (x, out, rows, words, stream)
+    "fecc_pack_gf32": [_P, _P, _I, _I, _P],
 }
 
 

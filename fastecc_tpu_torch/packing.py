@@ -1,7 +1,9 @@
 """Raw bytes <-> field elements ("word escaping"): the port's counterpart
-of ``packing.py``. Plain PyTorch ops, as the reference's were plain jnp;
-the wire format is the reference's, byte for byte (the module docstring
-of ``fastecc_tpu/packing.py`` is its prose spec).
+of ``packing.py``. The wire format is the reference's, byte for byte (the
+module docstring of ``fastecc_tpu/packing.py`` is its prose spec). The
+GF32 data pack is one launch of ``csrc/pack.cu`` on a card
+(``kernels.pack.pack_gf32``; its plain version on CPU tensors); the rest
+is plain PyTorch ops, as the reference's were plain jnp.
 
 GF32 data blocks (B bytes -> B/4 + ceil(B/4/16) lanes): W little-endian
 u32 words; a word w >= p is stored as w - p with escape bit 1; the W
@@ -12,9 +14,9 @@ GF16 data blocks (B bytes -> B/2 lanes): little-endian u16 words. Parity
 value 0x10000 does not fit a u16: it is stored as 0 with a bit set in a
 W-bit bitmap appended as ceil(W/16) u16 words.
 
-Arithmetic runs on int64 carriers (PyTorch has no ``uint32``
-arithmetic); byte <-> word conversions are bitcasts (``Tensor.view``) on
-little-endian hosts and devices.
+The torch ops' arithmetic runs on int64 carriers (PyTorch has no
+``uint32`` arithmetic); byte <-> word conversions are bitcasts
+(``Tensor.view``) on little-endian hosts and devices.
 
 While a profiler records, :func:`pack_data` runs inside the span
 ``fecc.packing.pack_data`` and :func:`serialize_parity` inside
@@ -29,6 +31,7 @@ import torch
 
 from . import gf
 from .fields import FieldSpec
+from .kernels.pack import _pack_bits, pack_gf32
 from .utils import profiling
 
 BLOCK_BYTES = 4096  # default wire-format block size
@@ -92,20 +95,6 @@ def _u32_to_bytes(words: torch.Tensor, word_bytes: int) -> torch.Tensor:
     return (h - ((h >> 15) << 16)).to(torch.int16).view(torch.uint8)
 
 
-def _pack_bits(bits: torch.Tensor, group: int) -> torch.Tensor:
-    """[..., L] 0/1 carriers -> [..., ceil(L/group)] carriers (bit j of
-    word m is element m*group + j; trailing bits zero). The shift-or
-    form; the reference's MXU form on the TPU gives the same bits."""
-    length = bits.shape[-1]
-    pad = (-length) % group
-    if pad:
-        bits = torch.nn.functional.pad(bits, (0, pad))
-    n_words = bits.shape[-1] // group
-    b = bits.reshape(bits.shape[:-1] + (n_words, group))
-    shifts = torch.arange(group, dtype=torch.int64, device=bits.device)
-    return (b << shifts).sum(dim=-1)
-
-
 def _unpack_bits(words: torch.Tensor, group: int,
                  length: int | None = None) -> torch.Tensor:
     """Inverse of :func:`_pack_bits` (truncated to ``length`` elements)."""
@@ -123,14 +112,6 @@ def _words_from_lanes(lanes: int) -> int:
     if w + _bitmap_lanes(w) != lanes:
         raise ValueError(f"invalid lane count {lanes}")
     return w
-
-
-def _escape_gf32(words: torch.Tensor, field: FieldSpec) -> torch.Tensor:
-    """u32 words -> u32 [stored lanes | escape bitmap lanes]."""
-    w = gf.widen(words)
-    esc = (w >= field.p).to(torch.int64)
-    stored = w - esc * field.p
-    return gf.narrow(torch.cat([stored, _pack_bits(esc, 16)], dim=-1))
 
 
 def _unescape_gf16(words: torch.Tensor) -> torch.Tensor:
@@ -152,7 +133,7 @@ def pack_data(raw: torch.Tensor, field: FieldSpec) -> torch.Tensor:
         raise TypeError(f"pack_data needs uint8 blocks, got {raw.dtype}")
     with profiling.scope("fecc.packing.pack_data"):
         words = _bytes_to_u32(raw, 4 if field.use_mont else 2)
-        out = _escape_gf32(words, field) if field.use_mont else words
+        out = pack_gf32(words) if field.use_mont else words
         PACKED["pack"] += 1
         PACKED["pack_words"] += words.numel()
         PACKED["pack_lanes"] += out.numel()
@@ -210,7 +191,7 @@ def pack_data_pairs(words: torch.Tensor, field: FieldSpec) -> torch.Tensor:
     """[k, B/4] u32 LE byte image of raw data blocks -> [k, field_lanes]
     u32 field elements (parts twin of :func:`pack_data`)."""
     if field.use_mont:
-        return _escape_gf32(words, field)
+        return pack_gf32(words)
     return _split_halves(words)
 
 

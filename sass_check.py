@@ -55,7 +55,7 @@ _BASES = ("fused_chain_kernel_lb2", "fused_chain_kernel",
           "row_sel_kernel", "row_post_kernel_lb2", "row_post_kernel",
           "row_wire16_kernel", "row_kernel", "col_kernel",
           "pair_lanes_wire16_kernel", "pair_lanes_kernel_lb2",
-          "pair_lanes_kernel")
+          "pair_lanes_kernel", "pack_vec_kernel", "pack_word_kernel")
 _INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 _BRA = re.compile(r"\bBRA\b[^`(0-9]*`?\(?(\.L_x_\d+|0x[0-9a-f]+)")

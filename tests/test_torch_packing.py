@@ -162,6 +162,30 @@ def test_parity_serialization_matches_reference(field):
                                                      rf)))
 
 
+@pytest.mark.parametrize("block_bytes", [4, 60, 72, 100, 132])
+def test_pack_gf32_plain_matches_reference_off_the_bitmap_grid(block_bytes):
+    """The GF32 pack's plain version (``kernels.pack.pack_gf32_plain``,
+    what ``pack_data`` runs on CPU tensors and the kernel is held to on
+    the card) where W is no multiple of 16, so the last bitmap word has
+    trailing zero bits: words near p, an all-0xFF block and uniform words,
+    against the reference's pack_data."""
+    from fastecc_tpu_torch.kernels import pack
+    rng = np.random.default_rng(0x0FF + block_bytes)
+    p = GF32.p
+    near = np.array([p - 4, p - 3, p - 2, p - 1, p, p + 1, p + 2, p + 3,
+                     0xFFFFFFFE, 0xFFFFFFFF, 0, 1], np.uint64)
+    words = rng.choice(near, (9, block_bytes // 4)).astype(np.uint32)
+    words[1] = 0xFFFFFFFF
+    words[2::3] = rng.integers(0, 1 << 32, words[2::3].shape,
+                               dtype=np.uint64).astype(np.uint32)
+    raw = np.ascontiguousarray(words.astype("<u4")).view(np.uint8)
+    want = np.asarray(jpacking.pack_data(jnp.asarray(raw), jfields.GF32))
+    got = pack.pack_gf32_plain(from_numpy_u32(words, "cpu"))
+    np.testing.assert_array_equal(to_numpy_u32(got), want)
+    np.testing.assert_array_equal(
+        to_numpy_u32(packing.pack_data(_u8(raw), GF32)), want)
+
+
 def test_bit_packing_matches_reference():
     rng = np.random.default_rng(3)
     bits = rng.integers(0, 2, size=(4, 37)).astype(np.uint32)
